@@ -1,0 +1,17 @@
+"""ccve_tpu_torch — the PyTorch and CUDA port of ccve_tpu.
+
+The same query-execution engine, written for an NVIDIA Hopper GPU: plain
+tensor code is PyTorch, and every Pallas kernel of `ccve_tpu` on a ported
+path is a CUDA C++ kernel for `sm_90a` (`kernels/csrc/`), built with nvcc on
+first use and called through ctypes. Each kernel has a plain PyTorch version
+beside it in the same module; a wrapper runs that plain version for CPU
+tensors only, and for CUDA tensors launches its kernel or raises.
+
+The layout mirrors `ccve_tpu` (core/, ops/, kernels/, exec/, bench/, cli.py)
+so that each counterpart is easy to find. This package never imports JAX
+nor `ccve_tpu` (whose `__init__` imports JAX); the host code it needs from
+there is carried as numpy code.
+
+Ported so far: the config-1 count join (ROADMAP Queue 1, slice 1) —
+`exec.bulk.bulk_count` over a single-level `ops.sort_merge.SortedTable`.
+"""

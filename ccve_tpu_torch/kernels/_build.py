@@ -1,0 +1,151 @@
+"""Build and load the CUDA kernels of `csrc/`.
+
+All `csrc/*.cu` files compile with nvcc for Hopper (`sm_90a`) into one
+shared library with a plain C interface, `build/libccve_torch_kernels.so`,
+loaded with ctypes. The build happens at first use and again whenever a
+source is newer than the library; without nvcc, or when the build fails,
+`load` raises with nvcc's message. Every C entry point returns
+`cudaGetLastError()` after its launch, and `check` raises on a non-zero
+code, so a refused launch cannot pass unnoticed.
+
+The launch goes to the tensor's device and PyTorch's current stream there
+(`stream`); the kernels neither allocate nor synchronise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "build"
+LIB_PATH = BUILD_DIR / "libccve_torch_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# name -> argtypes of every C entry point; each returns a cudaError_t as int
+_ENTRY_POINTS = {
+    # (x, y, n_tiles, tile_log, stream)
+    "ccve_sort_tiles_i32": [_P, _P, _L, _I, _P],
+    # (x, y, n, run_log, stream)
+    "ccve_merge_level_i32": [_P, _P, _L, _I, _P],
+    # (runs, run_len, n_real, b32, m, bc, stream)
+    "ccve_merge_counts_i32": [_P, _L, _L, _P, _L, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of ccve_tpu_torch build only where the CUDA toolkit is"
+    )
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in _sources())
+
+
+def build() -> Path:
+    """Compile every `csrc/*.cu` into LIB_PATH (written atomically)."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *units],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return LIB_PATH
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if missing or older than a source."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in _ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+            lib.ccve_cuda_error_string.argtypes = [_I]
+            lib.ccve_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on `t`'s device, after checking that the
+    device is the current one (the library launches on the current
+    device)."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensor on {t.device}, but the current CUDA device is "
+            f"{torch.cuda.current_device()}"
+        )
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = load().ccve_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_i32(t: torch.Tensor, name: str) -> None:
+    """The checks every wrapper makes on an i32 operand."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{name}: {t.numel()} elements, the kernels take < 2^31")

@@ -1,0 +1,91 @@
+"""The port's slice as a whole: the CLI against the JAX package's config 1,
+no JAX anywhere in the port, and no CPU fallback in `chip_smoke.py`."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(args, cwd=ROOT, timeout=300):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=timeout,
+    )
+
+
+def test_cli_tiny_config1_matches_jax():
+    from ccve_tpu.bench.configs import config1_single_join
+    from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
+
+    proc = _run(["-m", "ccve_tpu_torch.cli", "baseline", "--config", "1", "--tiny",
+                 "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = config1_single_join(n_build=4096, n_probe=65536)
+    assert got["count"] == want["count"]
+    assert got["device"] == "cpu" and got["timer"] == "host clock"
+    keys, payloads = gen_rhs_table(4096, 1)  # unique keys, ascending
+    probe = gen_probe_table(65536, 1, 4096)[:, 0]
+    idx = np.minimum(np.searchsorted(keys, probe), keys.size - 1)
+    hit = keys[idx] == probe
+    assert got["checksum"] == int(payloads[idx[hit]].sum())
+
+
+@pytest.mark.parametrize(
+    "args", [["--config", "2"], ["--config", "1", "--engine", "hash_lp"]]
+)
+def test_cli_unported_exits_nonzero(args):
+    proc = _run(["-m", "ccve_tpu_torch.cli", "baseline", "--tiny", "--device", "cpu", *args])
+    assert proc.returncode != 0
+    assert "not ported yet" in proc.stderr
+
+
+def test_cli_without_gpu_does_not_fall_back():
+    proc = _run(["-m", "ccve_tpu_torch.cli", "baseline", "--config", "1", "--tiny"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ccve_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ccve_tpu_torch.__path__, 'ccve_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ccve_tpu'))\n"
+        "print(len([m for m in sys.modules if m.startswith('ccve_tpu_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 12
+
+
+def test_chip_smoke_fails_without_gpu():
+    proc = _run(["chip_smoke.py"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    """Alone, the script stops at its import of the port, before it asks
+    for a device."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "No module named 'ccve_tpu_torch'" in proc.stderr
+    assert "no CUDA device" not in proc.stderr
+    assert '"ok": true' not in proc.stdout
