@@ -1,9 +1,10 @@
-"""Command line of the port: `python -m ccve_tpu_torch.cli baseline --config 1`.
+"""Command line of the port: `python -m ccve_tpu_torch.cli baseline --config N`.
 
-Only the `baseline` subcommand is ported, for config 1 with the
-sort-merge engine. Other configurations and engines exit non-zero with
-"not ported yet". The run goes to `--device` (default `cuda`); without a
-GPU it fails unless `--device cpu` asks for the plain CPU path.
+Only the `baseline` subcommand is ported: config 1 (sort-merge engine,
+counting or, with `--materialize`, emitting every matched triple) and
+config 3's bulk engine. Other configurations and engines exit non-zero
+with "not ported yet". The run goes to `--device` (default `cuda`);
+without a GPU it fails unless `--device cpu` asks for the plain CPU path.
 """
 
 from __future__ import annotations
@@ -12,23 +13,30 @@ import argparse
 import json
 import sys
 
-TINY_KWARGS = {1: dict(n_build=4096, n_probe=65536)}
+# the JAX CLI's --tiny sizes (its config-3 `block` belongs to the
+# chunk-at-a-time executors, which are not ported)
+TINY_KWARGS = {1: dict(n_build=4096, n_probe=65536), 3: dict(lhs=4000, rhs=256)}
 
 
 def cmd_baseline(args) -> int:
-    from ccve_tpu_torch.bench.configs import ALL_CONFIGS
+    from ccve_tpu_torch.bench.configs import ALL_CONFIGS, config1_materialize
 
     if args.config not in ALL_CONFIGS:
         print(f"baseline --config {args.config}: not ported yet", file=sys.stderr)
         return 2
     kwargs = dict(TINY_KWARGS[args.config]) if args.tiny else {}
+    if args.engine is not None or args.materialize:
+        if args.config != 1:
+            print("--engine and --materialize apply to --config 1 only", file=sys.stderr)
+            return 2
     if args.engine is not None:
         if args.engine != "sort_merge":
             print(f"--engine {args.engine}: not ported yet", file=sys.stderr)
             return 2
-        kwargs["engine"] = args.engine
-    result = ALL_CONFIGS[args.config](device=args.device, **kwargs)
-    print(json.dumps(result))
+        if not args.materialize:
+            kwargs["engine"] = args.engine
+    run = config1_materialize if args.materialize else ALL_CONFIGS[args.config]
+    print(json.dumps(run(device=args.device, **kwargs)))
     return 0
 
 
@@ -41,6 +49,11 @@ def main(argv=None) -> int:
     p.add_argument(
         "--engine", choices=["sort_merge", "hash_lp", "hash_csr"], default=None,
         help="probe engine for config 1 (sort_merge; the hash engines are not ported yet)",
+    )
+    p.add_argument(
+        "--materialize", action="store_true",
+        help="config 1 only: time the materializing join (sorted_expand_tiled "
+        "emits every matched triple) instead of the count",
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(func=cmd_baseline)

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files compile with nvcc for Hopper (`sm_90a`) into one
-shared library with a plain C interface, `build/libccve_torch_kernels.so`,
-loaded with ctypes. The build happens at first use and again whenever a
-source is newer than the library; without nvcc, or when the build fails,
+All `csrc/*.cu` files compile with nvcc for Hopper (`sm_90a`), one nvcc
+per file and all at once, and link into one shared library with a plain C
+interface, `build/libccve_torch_kernels.so`, loaded with ctypes. The
+build happens at first use and again whenever a source is newer than the
+library; without nvcc, or when the build fails,
 `load` raises with nvcc's message. Every C entry point returns
 `cudaGetLastError()` after its launch, and `check` raises on a non-zero
 code, so a refused launch cannot pass unnoticed.
@@ -30,7 +31,7 @@ BUILD_DIR = _HERE / "build"
 LIB_PATH = BUILD_DIR / "libccve_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -44,6 +45,23 @@ _ENTRY_POINTS = {
     "ccve_merge_level_i32": [_P, _P, _L, _I, _P],
     # (runs, run_len, n_real, b32, m, bc, stream)
     "ccve_merge_counts_i32": [_P, _L, _L, _P, _L, _P, _P],
+    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n_tiles, tile_log, stream)
+    "ccve_sort_tiles_multi_i32": [_P] * 8 + [_I, _L, _I, _P],
+    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n, run_log, stream)
+    "ccve_merge_level_multi_i32": [_P] * 8 + [_I, _L, _I, _P],
+    # (ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk, yv0, yv1, yv2,
+    #  n_planes, stream)
+    "ccve_merge_two_multi_i32": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P],
+    # (s, v, L, n, scratch, mult, psum, stream)
+    "ccve_merge_stats_i32": [_P, _P, _L, _L, _P, _P, _P, _P],
+    # (planes, mask, n, n_planes, scratch, out, count, stream)
+    "ccve_compact_i32": [_P, _P, _L, _I, _P, _P, _P, _P],
+}
+# name -> argtypes of the C functions that size a kernel's scratch; each
+# returns a byte count
+_SIZE_FUNCTIONS = {
+    "ccve_merge_stats_scratch_bytes": [_L],
+    "ccve_compact_scratch_bytes": [_L],
 }
 
 _lock = threading.Lock()
@@ -75,26 +93,37 @@ def _stale() -> bool:
     return any(src.stat().st_mtime > built for src in _sources())
 
 
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands at the same time; raise with the first failure's
+    message once all have ended."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in commands
+    ]
+    failures = []
+    for cmd, proc in zip(commands, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{err}")
+    if failures:
+        raise RuntimeError("nvcc failed: " + "\n".join(failures))
+
+
 def build() -> Path:
-    """Compile every `csrc/*.cu` into LIB_PATH (written atomically)."""
+    """Compile every `csrc/*.cu` into LIB_PATH (written atomically): one
+    nvcc per source, all started together, then one link."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *units],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
-            )
+    units = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objects = [str(Path(objdir) / f"{u.stem}.o") for u in units]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(u)]
+            for u, obj in zip(units, objects)
+        ])
+        tmp = str(Path(objdir) / LIB_PATH.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]])
         os.replace(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return LIB_PATH
 
 
@@ -110,6 +139,10 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = _I
+            for name, argtypes in _SIZE_FUNCTIONS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _L
             lib.ccve_cuda_error_string.argtypes = [_I]
             lib.ccve_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

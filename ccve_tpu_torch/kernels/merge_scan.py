@@ -1,8 +1,13 @@
-"""Per-build-row probe counts from sorted probe runs.
+"""Scans of the sort-merge join's sorted streams.
 
-Counterpart of `ccve_tpu.kernels.merge_scan.merge_counts_fused`, summed
-over the runs of an early-stopped sort: `merge_counts_i32` (kernel
-csrc/merge_counts.cu) takes the whole buffer of runs in one launch.
+ - `merge_counts_i32` (kernel csrc/merge_counts.cu): per-build-row probe
+   counts from sorted probe runs, the counterpart of
+   `ccve_tpu.kernels.merge_scan.merge_counts_fused` summed over the runs of
+   an early-stopped sort, all runs in one launch.
+ - `merge_stats_i32` (kernel csrc/merge_stats.cu): per-probe match count
+   and matched-payload sum over the merged build and probe stream, the
+   counterpart of `merge_scan_stats32` followed by its unsort sort: the
+   kernel writes each probe's result to its row directly.
 """
 
 from __future__ import annotations
@@ -61,3 +66,70 @@ def merge_counts_i32(
 
 
 merge_counts_i32.launches = 0
+
+
+I32_MAX = 2**31 - 1
+
+
+def merge_stats_plain(s: torch.Tensor, v: torch.Tensor, n: int):
+    """`merge_stats_i32` as torch scans (cumsums, each run's start found
+    by a cumsum over the run starts and a scatter, then a scatter to the
+    probe rows), on any device."""
+    mult = torch.zeros(n, dtype=torch.int32, device=s.device)
+    psum = torch.zeros(n, dtype=torch.int64, device=s.device)
+    length = s.numel()
+    if not length:
+        return mult, psum
+    key = s >> 1
+    run_start = torch.ones(length, dtype=torch.bool, device=s.device)
+    run_start[1:] = key[1:] != key[:-1]
+    is_build = (s & 1) == 0
+    ib = is_build.to(torch.int64)
+    bpay = torch.where(is_build, v.to(torch.int64), 0)
+    count = ib.cumsum(0)
+    total = bpay.cumsum(0)
+    run = run_start.cumsum(0) - 1  # run_start[0] holds: runs number from 0
+    start = torch.zeros(length + 1, dtype=torch.int64, device=s.device)
+    start.scatter_(0, torch.where(run_start, run, length),
+                   torch.arange(length, device=s.device))
+    start = start[run]
+    probe = ~is_build & (s != I32_MAX) & (v >= 0) & (v < n)
+    rows = v[probe].to(torch.int64)
+    mult[rows] = (count - (count - ib)[start])[probe].to(torch.int32)
+    psum[rows] = (total - (total - bpay)[start])[probe]
+    return mult, psum
+
+
+def merge_stats_i32(s: torch.Tensor, v: torch.Tensor, n: int):
+    """(mult int32[n], psum int64[n]) in probe-row order from the merged
+    ascending stream `s` of `key' << 1 | tag` (builds even, probes odd,
+    INT32_MAX padding) and its cargo plane `v` (a build's payload, any
+    sign, or a probe's row id in [0, n)): for each probe row, the number
+    of builds with its key and the sum of their payloads. Rows that no
+    probe of the stream names stay 0."""
+    _build.check_i32(s, "s")
+    _build.check_i32(v, "v")
+    if v.numel() != s.numel() or v.device != s.device:
+        raise ValueError(f"v has {v.numel()} values on {v.device}, s {s.numel()} on {s.device}")
+    if n < 0:
+        raise ValueError(f"n {n} < 0")
+    if s.device.type == "cpu":
+        return merge_stats_plain(s, v, n)
+    mult = torch.zeros(n, dtype=torch.int32, device=s.device)
+    psum = torch.zeros(n, dtype=torch.int64, device=s.device)
+    if s.numel():
+        lib = _build.load()
+        scratch = torch.empty(
+            lib.ccve_merge_stats_scratch_bytes(s.numel()), dtype=torch.uint8,
+            device=s.device,
+        )
+        code = lib.ccve_merge_stats_i32(
+            s.data_ptr(), v.data_ptr(), s.numel(), n, scratch.data_ptr(),
+            mult.data_ptr(), psum.data_ptr(), _build.stream(s),
+        )
+        _build.check(code, "merge_stats_i32")
+        merge_stats_i32.launches += 1
+    return mult, psum
+
+
+merge_stats_i32.launches = 0

@@ -1,30 +1,40 @@
-"""Sort-merge equi-join totals: the count-side engine.
+"""Sort-merge equi-join: count side, per-probe stats, ranks and expansion.
 
-Port of the count-side part of `ccve_tpu.ops.sort_merge`. A `SortedTable`
-holds the build rows sorted by key. When the key span fits 30 bits
-(`pack32`), the join packs every key into one int32, `key' << 1 | tag`
-(build rows odd, probes even, `key' = key - (kmin - 1)`), sorts the probe
-stream into runs and counts, for each build row j, the probes equal to
-it: `bc[j]`. Then
+Port of `ccve_tpu.ops.sort_merge`. A `SortedTable` holds the build rows
+sorted by key. When the key span fits 30 bits (`pack32`), every key packs
+into one int32, `key' << 1 | tag` with `key' = key - (kmin - 1)`.
 
-    count = Σ bc,    checksum = Σ bc · payloads.
+ - Count side (`sorted_match_totals`, `sorted_build_counts`): probes even,
+   builds odd. The probe stream is sorted into runs (`count_side_plan`)
+   and each build row j gets `bc[j]`, the probes equal to it; then
+   count = Σ bc and checksum = Σ bc · payloads.
+ - Stats side (`sorted_match_stats`, `sorted_match_ranks`,
+   `sorted_expand`): builds even, so they precede the probes of their key.
+   The probes are sorted with their row ids (kernels.pairsort), merged
+   with the build stream and its payloads, and scanned: per probe row its
+   match count `mult` and matched-payload sum `psum` (kernels.merge_scan),
+   or every matched (row, key, payload) triple, compacted
+   (kernels.compact).
 
-Counts add up over any partition of the probe stream, so the probe sort
-stops early and leaves sorted runs (`count_side_plan`).
-
-Not ported yet: the wide-key, packed-int64 and generic branches of
-`sorted_match_totals` (ROADMAP Queue 1, slice 3) and the per-probe stats,
-ranks and expansion (slice 2). They raise `NotImplementedError`.
+The stats side's kernel route needs `pack32` with key_bits <= 29 (the
+packed probe stays under the INT32_MAX padding) and `pay32` (payloads ride
+an int32 plane); other tables take the generic route, one stable int64
+torch.sort of build ∪ probe plus scans. Both routes are exact for payloads
+of any sign. Not ported yet: the wide-key and packed-int64 branches of
+`sorted_match_totals` and `sorted_build_counts` (ROADMAP Queue 1, slice
+3); they raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from ccve_tpu_torch.kernels import bigsort
+from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
 from ccve_tpu_torch.kernels.merge_scan import merge_counts_i32
 
 # The static fields of a SortedTable, as `ccve_tpu.ops.sort_merge` has them.
@@ -178,33 +188,49 @@ def _count_side_bc(p32: torch.Tensor, b32: torch.Tensor, m: int) -> torch.Tensor
     return merge_counts_i32(runs, 1 << run_log, n, b32, m)
 
 
-def pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
-    """(p32, b32): probe keys clamped into [kmin - 1, kmin - 1 + span) and
-    packed even, build keys packed odd. An int32 probe column is clamped
-    and shifted in int32 when both clamp bounds fit, else in int64."""
+def _shifted_keys(table: SortedTable, probe_keys: torch.Tensor):
+    """(b, p): build keys as `key' << 1` and probe keys clamped into
+    [kmin - 1, kmin - 1 + span) and shifted the same way, both int32 and
+    untagged. An int32 probe column is clamped and shifted in int32 when
+    both clamp bounds fit, else in int64."""
     kmin, key_bits = table.pack32
     key_lo = kmin - 1
     key_span = 1 << key_bits
-    b32 = (((table.keys - key_lo) << 1) | 1).to(torch.int32)
+    b = ((table.keys - key_lo) << 1).to(torch.int32)
     if (
         probe_keys.dtype == torch.int32
         and -(2**31) <= key_lo
         and key_lo + key_span - 1 < 2**31
     ):
         clamped = probe_keys.clamp(key_lo, key_lo + key_span - 1)
-        p32 = (clamped - key_lo) << 1
+        p = (clamped - key_lo) << 1
     else:
         shifted = probe_keys.to(torch.int64) - key_lo
-        p32 = (shifted.clamp(0, key_span - 1) << 1).to(torch.int32)
-    return p32.contiguous(), b32.contiguous()
+        p = (shifted.clamp(0, key_span - 1) << 1).to(torch.int32)
+    return b, p
+
+
+def pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
+    """(p32, b32) of the count side: probes packed even, builds odd."""
+    b, p = _shifted_keys(table, probe_keys)
+    return p.contiguous(), (b | 1).contiguous()
+
+
+def stats_pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
+    """(b32, p32) of the stats side: builds packed even, probes odd, so a
+    key's builds sort before its probes. Clamped probes match nothing: the
+    low clamp sits below every build key', the high one above. With
+    key_bits <= 29 the largest probe stays under INT32_MAX, the padding."""
+    b, p = _shifted_keys(table, probe_keys)
+    return b.contiguous(), (p | 1).contiguous()
 
 
 def _require_pack32(table: SortedTable, what: str) -> None:
     if table.pack32 is None:
         raise NotImplementedError(
-            f"{what}: the table's key span does not fit 30 bits (or it is "
-            "empty); the wide-key, packed-int64 and generic branches are "
-            "ROADMAP Queue 1, slice 3, not ported yet"
+            f"{what}: the table's key span does not fit 30 bits; the "
+            "wide-key and packed-int64 branches are ROADMAP Queue 1, slice "
+            "3, not ported yet"
         )
 
 
@@ -220,16 +246,347 @@ def _probe_on(table: SortedTable, probe_keys) -> torch.Tensor:
 def sorted_build_counts(table: SortedTable, probe_keys) -> torch.Tensor:
     """bc int32[m]: bc[j] = the number of probe keys equal to
     table.keys[j] (table order, which is sorted order)."""
+    probe = _probe_on(table, probe_keys)
+    if not table.keys.numel():
+        return torch.zeros(0, dtype=torch.int32, device=table.device)
     _require_pack32(table, "sorted_build_counts")
-    p32, b32 = pack32_streams(table, _probe_on(table, probe_keys))
+    p32, b32 = pack32_streams(table, probe)
     return _count_side_bc(p32, b32, table.keys.numel())
 
 
 def sorted_match_totals(table: SortedTable, probe_keys):
     """(match count, matched-payload sum) of a single-level join, both
     int64 scalars on the table's device. Exact for negative payloads: they
-    never enter the sort, and the dot carries the sign."""
+    never enter the sort, and the dot carries the sign. An empty table
+    gives (0, 0)."""
+    probe = _probe_on(table, probe_keys)
+    if not table.keys.numel():
+        zero = torch.zeros((), dtype=torch.int64, device=table.device)
+        return zero, zero.clone()
     _require_pack32(table, "sorted_match_totals")
-    p32, b32 = pack32_streams(table, _probe_on(table, probe_keys))
+    p32, b32 = pack32_streams(table, probe)
     bc = _count_side_bc(p32, b32, table.keys.numel()).to(torch.int64)
     return bc.sum(), (bc * table.payloads).sum()
+
+
+# ---------------------------------------------------------------------------
+# Stats side: per-probe stats, ranks and expansion
+# ---------------------------------------------------------------------------
+
+
+class MatchStats(NamedTuple):
+    mult: torch.Tensor  # int32[n]: matches per probe key
+    psum: torch.Tensor  # int64[n]: sum of matched payloads per probe key
+
+
+class Route(NamedTuple):
+    """The steps of the stats side's kernel route: the kernels
+    (`KERNELS`), or their plain versions (`PLAIN`), which a card run times
+    as the yardstick."""
+
+    sort_multi: Callable  # (keys, planes, tile_log) -> (keys, planes)
+    merge_two: Callable  # (ak, avs, bk, bvs) -> (keys, planes)
+    merge_stats: Callable  # (s, v, n) -> (mult, psum)
+    compact: Callable  # (planes, mask) -> (planes, count)
+
+
+KERNELS = Route(
+    pairsort.sort_multi_i32, pairsort.merge_sorted_multi_i32,
+    merge_scan.merge_stats_i32, compact.compact_i32,
+)
+PLAIN = Route(
+    pairsort.sort_multi_plain, pairsort.merge_sorted_multi_plain,
+    merge_scan.merge_stats_plain, compact.compact_plain,
+)
+
+
+def _kernel_route_ok(table: SortedTable) -> bool:
+    return table.pack32 is not None and table.pack32[1] <= 29 and table.pay32
+
+
+def _run_starts(keys: torch.Tensor) -> torch.Tensor:
+    starts = torch.ones(keys.numel(), dtype=torch.bool, device=keys.device)
+    starts[1:] = keys[1:] != keys[:-1]
+    return starts
+
+
+def _segment_base(flags: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """`values` at each position's latest flagged position (0 before the
+    first): the copy-last scan. A cumsum numbers the flags, a scatter
+    records where each one sits, and a gather reads it back; no step
+    synchronises with the host. (The cummax of where(flags, position, -1)
+    gives the same positions, but torch.cummax takes 51 ms for 17M int64
+    on an H100 against 1.5 ms for this form.)"""
+    n = flags.numel()
+    seg = flags.cumsum(0) - 1  # the number of flags up to here, less one
+    where_flag = torch.zeros(n + 1, dtype=torch.int64, device=flags.device)
+    # unflagged positions all write the spare slot n, which is never read
+    where_flag.scatter_(0, torch.where(flags, seg, n), torch.arange(n, device=flags.device))
+    return torch.where(seg >= 0, values[where_flag[seg.clamp(min=0)]], 0)
+
+
+def merged_stream(table: SortedTable, probe_keys, tile_log=None, route: Route = KERNELS):
+    """The kernel route's merged stream (s, v) int32[n + m]: the packed
+    probes sorted with their row ids, merged with the build stream and its
+    int32 payloads (builds first at equal keys)."""
+    probe = _probe_on(table, probe_keys)
+    b32, p32 = stats_pack32_streams(table, probe)
+    rows = torch.arange(probe.numel(), dtype=torch.int32, device=probe.device)
+    tl = pairsort.TILE_LOG if tile_log is None else tile_log
+    sk, (sv,) = route.sort_multi(p32, [rows], tl)
+    s, (v,) = route.merge_two(sk, [sv], b32, [table.payloads.to(torch.int32)])
+    return s, v
+
+
+def _merged_stats(table: SortedTable, probe: torch.Tensor):
+    """The generic route: one stable sort of build ∪ probe, then prefix
+    scans. Returns (mult, psum, row, is_build, key, payload) in merged
+    order, mult and psum zero at build positions, row -1 there (builds
+    precede probes at equal keys: they come first in the concatenation
+    and the sort is stable)."""
+    m, n = table.keys.numel(), probe.numel()
+    dev = table.device
+    keys = torch.cat([table.keys, probe.to(torch.int64)])
+    pay = torch.cat([table.payloads, torch.zeros(n, dtype=torch.int64, device=dev)])
+    row = torch.cat([
+        torch.full((m,), -1, dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev),
+    ])
+    sk, order = keys.sort(stable=True)
+    spay, srow = pay[order], row[order]
+    is_build = srow < 0
+    ib = is_build.to(torch.int64)
+    count = ib.cumsum(0)
+    bpay = torch.where(is_build, spay, 0)
+    total = bpay.cumsum(0)
+    starts = _run_starts(sk)
+    mult = torch.where(is_build, 0, count - _segment_base(starts, count - ib))
+    psum = torch.where(is_build, 0, total - _segment_base(starts, total - bpay))
+    return mult, psum, srow, is_build, sk, spay
+
+
+def sorted_match_stats(
+    table: SortedTable,
+    probe_keys,
+    allow_negative: bool = False,
+    use_kernel: bool | None = None,
+    tile_log: int | None = None,
+    *,
+    route: Route = KERNELS,
+) -> MatchStats:
+    """Per-probe-key (match count, matched-payload sum), in probe-row
+    order.
+
+    The kernel route (tables with key_bits <= 29 and int32 payloads; not
+    with `use_kernel=False`) sorts the probes with their row ids, merges
+    in the build stream and scans it, writing each probe's stats to its
+    row. Other tables take the generic route. Both are exact for payloads
+    of any sign, so `allow_negative` (the JAX package's switch to a
+    segmented scan) changes nothing here. `tile_log` sets the probe sort's
+    tile."""
+    del allow_negative  # every route is exact for negative payloads
+    probe = _probe_on(table, probe_keys)
+    n = probe.numel()
+    if use_kernel is not False and _kernel_route_ok(table):
+        s, v = merged_stream(table, probe, tile_log, route)
+        mult, psum = route.merge_stats(s, v, n)
+        return MatchStats(mult=mult, psum=psum)
+    mult_sorted, psum_sorted, srow, is_build, _, _ = _merged_stats(table, probe)
+    mult = torch.zeros(n, dtype=torch.int32, device=table.device)
+    psum = torch.zeros(n, dtype=torch.int64, device=table.device)
+    probes = ~is_build
+    rows = srow[probes].to(torch.int64)
+    mult[rows] = mult_sorted[probes].to(torch.int32)
+    psum[rows] = psum_sorted[probes]
+    return MatchStats(mult=mult, psum=psum)
+
+
+def rank_table(table: SortedTable) -> SortedTable:
+    """Twin of `table` whose payload is the sorted row index at each key
+    run's first row and 0 elsewhere: the input of `sorted_match_ranks`. A
+    probe key matches exactly one whole key run, so the twin's
+    matched-payload sum is the run's start row. Shares the key column;
+    the static fields are recomputed for the index payloads."""
+    m = table.keys.numel()
+    idx = torch.arange(m, dtype=torch.int64, device=table.device)
+    payloads = torch.where(_run_starts(table.keys), idx, 0)
+    pack = None
+    if table.pack32 is not None and m > 0:
+        kmin, key_bits = table.pack32
+        pay_bits = max((2 * (m - 1) + 1).bit_length(), 2)
+        if key_bits + pay_bits <= 62:
+            pack = (kmin, key_bits, pay_bits)
+    return SortedTable(
+        keys=table.keys,
+        payloads=payloads,
+        pack=pack,
+        pack32=table.pack32,
+        pay32=m < 2**31,
+        max_mult=table.max_mult,
+        span62=table.span62,
+        wide_ok=table.span62 and m < 2**31,
+        span_bits=table.span_bits,
+    )
+
+
+def sorted_match_ranks(
+    rtable: SortedTable,
+    probe_keys,
+    use_kernel: bool | None = None,
+    tile_log: int | None = None,
+):
+    """(mult int32[n], start int32[n]) per probe key, in probe order: the
+    match count and the first matching row of the sorted table (0 where
+    mult == 0). `rtable` is a `rank_table` twin."""
+    st = sorted_match_stats(rtable, probe_keys, use_kernel=use_kernel, tile_log=tile_log)
+    return st.mult, st.psum.to(torch.int32)
+
+
+def _fit(rows, keys, pays, total, capacity: int):
+    """The first `capacity` slots of the compacted triples; slots past
+    `total` hold row -1, key 0 and payload 0."""
+    dev = rows.device
+    take = min(capacity, rows.numel())
+    live = torch.arange(take, device=dev) < total
+    out_rows = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
+    out_keys = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    out_pays = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    out_rows[:take] = torch.where(live, rows[:take].to(torch.int32), -1)
+    out_keys[:take] = torch.where(live, keys[:take], 0)
+    out_pays[:take] = torch.where(live, pays[:take], 0)
+    return out_rows, out_keys, out_pays, total
+
+
+def _candidates(is_build, starts, cargo, fan_out: int):
+    """Per merged position: (total matches, [payload of the run's f-th
+    build], [valid candidate mask]) for f = 1..fan_out. A probe with at
+    least f builds in its run emits one triple with the f-th's payload,
+    which a copy-last scan from the f-th build carries forward."""
+    ib = is_build.to(torch.int64)
+    count = ib.cumsum(0)
+    ordinal = count - _segment_base(starts, count - ib)  # build: its 1-based
+    #                                  place in the run; probe: the run's builds
+    total = torch.where(is_build, 0, ordinal).sum()
+    pays, valid = [], []
+    for f in range(1, fan_out + 1):
+        pays.append(_segment_base(is_build & (ordinal == f), cargo))
+        valid.append(~is_build & (ordinal >= f))
+    return total, pays, valid
+
+
+def expand_candidates(
+    table: SortedTable, probe_keys, tile_log: int | None = None, route: Route = KERNELS
+):
+    """The kernel route's expansion before its compaction: (planes
+    int32[3, F·L], valid bool[F·L], total int64 scalar) over the merged
+    stream of L = n + m elements, F = max_mult. The planes hold (probe
+    row, key', payload) per candidate; `valid` marks the matched
+    triples."""
+    s, v = merged_stream(table, probe_keys, tile_log, route)
+    is_build = (s & 1) == 0
+    key = s >> 1
+    fan_out = max(int(table.max_mult), 1)
+    total, pays, valid = _candidates(is_build, _run_starts(key), v, fan_out)
+    planes = torch.stack([v.repeat(fan_out), key.repeat(fan_out), torch.cat(pays)])
+    return planes, torch.cat(valid), total
+
+
+def sorted_expand(
+    table: SortedTable,
+    probe_keys,
+    capacity: int,
+    use_kernel: bool | None = None,
+    tile_log: int | None = None,
+    *,
+    route: Route = KERNELS,
+):
+    """Every matched (probe row, build key, build payload) triple of one
+    join level. Returns (rows int32[capacity], keys int64[capacity],
+    payloads int64[capacity], total int64 scalar): the first
+    min(total, capacity) slots hold triples, the rest row -1, key 0 and
+    payload 0; `total` counts all matches, so it may exceed `capacity`.
+
+    The probe stream and the build stream merge as in `sorted_match_stats`;
+    for f = 1..max_mult the f-th build's payload of each key run reaches
+    its probes by a copy-last scan, and a probe with at least f builds
+    makes one candidate. The candidates are compacted in merged order
+    (`compact_i32` on the kernel route), so triples come out grouped by
+    key; their multiset is the contract."""
+    if capacity < 0:
+        raise ValueError(f"capacity {capacity} < 0")
+    probe = _probe_on(table, probe_keys)
+    if use_kernel is not False and _kernel_route_ok(table):
+        planes, valid, total = expand_candidates(table, probe, tile_log, route)
+        packed, _ = route.compact(planes, valid)
+        key_lo = table.pack32[0] - 1
+        return _fit(
+            packed[0], packed[1].to(torch.int64) + key_lo, packed[2].to(torch.int64),
+            total, capacity,
+        )
+    fan_out = max(int(table.max_mult), 1)
+    _, _, srow, is_build, sk, spay = _merged_stats(table, probe)
+    total, pays, valid = _candidates(is_build, _run_starts(sk), spay, fan_out)
+    mask = torch.cat(valid)
+    return _fit(
+        srow.repeat(fan_out)[mask], sk.repeat(fan_out)[mask], torch.cat(pays)[mask],
+        total, capacity,
+    )
+
+
+# Device bytes an expand tile takes per merged-stream element and per
+# candidate slot (max_mult per element), with margin: the sizing rule of
+# `expand_tile_rows`.
+EXPAND_BYTES_PER_ELEMENT = 160
+EXPAND_BYTES_PER_CANDIDATE = 64
+
+
+def _free_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def expand_tile_rows(table: SortedTable) -> int:
+    """Probe rows per `sorted_expand_tiled` tile: as many as half the
+    table device's free memory holds (each tile's merged stream also holds
+    the m build rows)."""
+    per_element = EXPAND_BYTES_PER_ELEMENT + EXPAND_BYTES_PER_CANDIDATE * max(
+        int(table.max_mult), 1
+    )
+    rows = _free_bytes(table.device) // 2 // per_element - table.keys.numel()
+    return max(int(rows), 1 << 16)
+
+
+def sorted_expand_tiled(
+    table: SortedTable,
+    probe_keys,
+    tile_rows: int | None = None,
+    use_kernel: bool | None = None,
+    tile_log: int | None = None,
+    *,
+    route: Route = KERNELS,
+):
+    """`sorted_expand` over the probe stream in tiles of `tile_rows` rows
+    (default: `expand_tile_rows`, which sizes them by free memory).
+    Expansion is independent per probe row, so tiling is exact. Returns
+    (tiles, total): one (rows int64[cap], keys int64[cap], payloads
+    int64[cap], total int64 scalar) per tile, cap = tile length ×
+    max_mult, with rows in global probe coordinates (-1 past the tile's
+    total), and the grand total as a Python int (reading it is the only
+    synchronization)."""
+    probe = torch.as_tensor(probe_keys).reshape(-1)
+    n = probe.numel()
+    tile = int(tile_rows) if tile_rows else expand_tile_rows(table)
+    if tile < 1:
+        raise ValueError(f"tile_rows {tile} < 1")
+    fan_out = max(int(table.max_mult), 1)
+    tiles = []
+    for start in range(0, max(n, 1), tile):
+        part = probe[start : start + tile]
+        rows, keys, pays, total = sorted_expand(
+            table, part, part.numel() * fan_out, use_kernel, tile_log, route=route
+        )
+        rows = torch.where(rows >= 0, rows.to(torch.int64) + start, -1)
+        tiles.append((rows, keys, pays, total))
+    grand = int(torch.stack([t[3] for t in tiles]).sum())
+    return tiles, grand

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from ccve_tpu_torch.kernels import bigsort, merge_scan
+from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
 from ccve_tpu_torch.ops import sort_merge as sm
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +88,132 @@ def test_totals_on_card_match_cpu(cuda, chunk_factor):
             got = (int(c), int(s))
         else:
             assert (int(c), int(s)) == got
+
+
+def _planes(rng, n, count, device):
+    return [_i32(rng.integers(-(2**31), 2**31 - 1, n), device) for _ in range(count)]
+
+
+def _same(got, want):
+    got_keys, got_vals = got
+    want_keys, want_vals = want
+    assert torch.equal(got_keys, want_keys)
+    assert len(got_vals) == len(want_vals)
+    for g, w in zip(got_vals, want_vals):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tile_log", [1, 4, 11, pairsort.TILE_LOG])
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("dom", [3, 2**31 - 1])
+def test_sort_tiles_multi_kernel(cuda, tile_log, n_planes, dom):
+    rng = np.random.default_rng(tile_log * 10 + n_planes)
+    n = 5 << tile_log
+    keys = _i32(rng.integers(-dom, dom, n), cuda)
+    vals = _planes(rng, n, n_planes, cuda)
+    _same(pairsort.sort_tiles_multi_i32(keys, vals, tile_log),
+          pairsort.sort_tiles_multi_plain(keys, vals, tile_log))
+
+
+@pytest.mark.parametrize("n", [1, 5, 2049, 10_000, 3 << 13])
+@pytest.mark.parametrize("n_planes", [1, 3])
+def test_merge_level_multi_kernel(cuda, n, n_planes):
+    rng = np.random.default_rng(n)
+    keys = _i32(rng.integers(0, 7, n), cuda)
+    vals = _planes(rng, n, n_planes, cuda)
+    for run_log in range(16):
+        got = pairsort.merge_level_multi_i32(keys, vals, run_log)
+        keys, vals = pairsort.merge_level_multi_plain(keys, vals, run_log)
+        _same(got, (keys, vals))
+
+
+@pytest.mark.parametrize(
+    "na, nb", [(0, 0), (0, 9), (9, 0), (3000, 2100), (1, 70_000), (100_003, 17)]
+)
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+def test_merge_two_multi_kernel(cuda, na, nb, n_planes):
+    rng = np.random.default_rng(na + nb + n_planes)
+    ak = _i32(np.sort(rng.integers(0, 50, na)), cuda)
+    bk = _i32(np.sort(rng.integers(0, 50, nb)), cuda)
+    avs = _planes(rng, na, n_planes, cuda)
+    bvs = _planes(rng, nb, n_planes, cuda)
+    _same(pairsort.merge_two_multi_i32(ak, avs, bk, bvs),
+          pairsort.merge_two_multi_plain(ak, avs, bk, bvs))
+
+
+@pytest.mark.parametrize("n", [0, 1, 8191, 8193, 100_000])
+def test_sort_multi_kernel_path(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = _i32(rng.integers(-(2**31), 2**31 - 1, n), cuda)
+    vals = _planes(rng, n, 2, cuda)
+    _same(pairsort.sort_multi_i32(keys, vals), pairsort.sort_multi_plain(keys, vals))
+    for run_log in (13, 14, 20):
+        _same(pairsort.sort_multi_i32_runs(keys, vals, run_log),
+              pairsort.sort_multi_runs_plain(keys, vals, run_log))
+
+
+def _stats_stream(rng, n, m, dom, pay_lo, pay_hi, device):
+    builds = np.sort(rng.integers(0, dom, m))
+    probes = rng.integers(0, dom + 3, n)  # some above every build
+    s = np.concatenate([builds * 2, probes * 2 + 1])
+    v = np.concatenate([rng.integers(pay_lo, pay_hi, m), np.arange(n)])
+    order = np.argsort(s, kind="stable")
+    return _i32(s[order], device), _i32(v[order], device)
+
+
+@pytest.mark.parametrize(
+    "n, m, dom, pay_lo, pay_hi",
+    [
+        (0, 10, 5, 0, 9),
+        (10, 0, 5, 0, 9),
+        (50_000, 30_000, 5000, 0, 2**20),
+        (70_000, 2000, 300, 2**29, 2**30),  # psum past 2^31
+        (40_000, 15_000, 700, -(2**31), 2**31 - 1),  # negative payloads
+        (300_000, 5, 2, 0, 1),  # zero payloads, long runs
+    ],
+)
+def test_merge_stats_kernel(cuda, n, m, dom, pay_lo, pay_hi):
+    rng = np.random.default_rng(n + m)
+    s, v = _stats_stream(rng, n, m, dom, pay_lo, pay_hi, cuda)
+    got = merge_scan.merge_stats_i32(s, v, n)
+    want = merge_scan.merge_stats_plain(s, v, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2047, 2049, 1_000_003])
+@pytest.mark.parametrize("kind", ["all", "none", "random"])
+def test_compact_kernel(cuda, n_planes, n, kind):
+    rng = np.random.default_rng(n + n_planes)
+    planes = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (n_planes, n)).astype(np.int32)
+    ).to(cuda)
+    mask = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+            "random": rng.random(n) < 0.4}[kind]
+    mask = torch.from_numpy(mask).to(cuda)
+    got, count = compact.compact_i32(planes, mask)
+    want, want_count = compact.compact_plain(planes, mask)
+    assert int(count) == int(want_count)
+    assert torch.equal(got, want)
+
+
+def test_slice_two_reaches_the_kernels(cuda):
+    """On CUDA tensors the stats and expand paths launch the kernels, never
+    the plain versions."""
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+
+    keys, pays = gen_rhs_table(20_000, 2)
+    probe = torch.from_numpy(gen_probe_table(100_000, 1, 20_000)[:, 0]).to(cuda)
+    counters = [pairsort.sort_tiles_multi_i32, pairsort.merge_level_multi_i32,
+                pairsort.merge_two_multi_i32, merge_scan.merge_stats_i32,
+                compact.compact_i32]
+    before = [fn.launches for fn in counters]
+    table = sm.build_sorted(keys, pays, cuda)
+    stats = sm.sorted_match_stats(table, probe)
+    rows, _, _, total = sm.sorted_expand(table, probe, 2 * probe.numel())
+    after = [fn.launches for fn in counters]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    cpu = sm.sorted_match_stats(sm.build_sorted(keys, pays), probe.cpu())
+    assert torch.equal(stats.mult.cpu(), cpu.mult)
+    assert torch.equal(stats.psum.cpu(), cpu.psum)
+    assert int(total) == int(cpu.mult.sum())
