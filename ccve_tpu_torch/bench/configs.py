@@ -3,8 +3,9 @@
 Ported, with the sort-merge engine and device-resident inputs:
 
  - config 1, the single equi-join of 1M build rows against 16M probe rows
-   drawn uniformly from [0, n_build] (`config1_single_join`), and its
-   materializing form (`config1_materialize`);
+   drawn uniformly from [0, n_build] (`config1_single_join`), its
+   materializing form (`config1_materialize`), and its wide-key form with
+   keys spread over 2^40 (`config1_wide`, int64 keys);
  - config 3's bulk engine, the 4-way chained join with about 50 % hits
    per level (`config3_four_way`).
 
@@ -19,6 +20,8 @@ import time
 import numpy as np
 import torch
 
+from ccve_tpu_torch.ops.sort_merge import require_device
+
 
 def numpy_totals(keys: np.ndarray, payloads: np.ndarray, probe: np.ndarray):
     """(count, checksum) of the join of `probe` against (keys, payloads),
@@ -29,16 +32,6 @@ def numpy_totals(keys: np.ndarray, payloads: np.ndarray, probe: np.ndarray):
     lo = np.searchsorted(sk, probe, side="left")
     hi = np.searchsorted(sk, probe, side="right")
     return int((hi - lo).sum()), int((prefix[hi] - prefix[lo]).sum())
-
-
-def require_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: run on a machine with a GPU, or ask for the "
-            "plain CPU path explicitly (device='cpu')"
-        )
-    return device
 
 
 TIME_REPS = 3  # timed calls after the warm-up; the best one is reported
@@ -112,6 +105,61 @@ def config1_single_join(
         "engine": engine,
         "device": _device_name(device),
         "timer": _timer(device),
+        "n_build": n_build,
+        "n_probe": n_probe,
+        "seconds": seconds,
+        "rows_per_s": n_probe / seconds,
+        "count": count,
+        "checksum": checksum,
+    }
+
+
+def config1_wide_host(n_build: int = 1_000_000, n_probe: int = 1 << 24,
+                      span_bits: int = 40):
+    """The wide-key config's host columns, as the JAX package's
+    `config1_wide` draws them (`np.random.default_rng(1)`): build keys
+    uniform in [0, 2^span_bits), half the probes drawn from the build keys
+    and half uniform over the span, shuffled; payloads uniform in
+    [0, 2^30). Returns (keys, payloads, probe)."""
+    rng = np.random.default_rng(1)
+    span = 1 << span_bits
+    keys = rng.integers(0, span, n_build, dtype=np.int64)
+    probe = np.concatenate([
+        rng.choice(keys, n_probe // 2),
+        rng.integers(0, span, n_probe - n_probe // 2, dtype=np.int64),
+    ])
+    rng.shuffle(probe)
+    payloads = rng.integers(0, 2**30, n_build, dtype=np.int64)
+    return keys, payloads, probe
+
+
+def config1_wide(
+    n_build: int = 1_000_000, n_probe: int = 1 << 24, span_bits: int = 40, device="cuda"
+) -> dict:
+    """Config 1 with int64 keys spread over 2^span_bits: `bulk_count` of
+    the single join through the count side's int64 streams and kernels
+    (the table has no `pack32`), timed after a warm-up, with count and
+    checksum asserted against numpy."""
+    from ccve_tpu_torch.exec.bulk import bulk_count
+    from ccve_tpu_torch.ops.sort_merge import build_sorted
+
+    device = require_device(device)
+    keys, payloads, probe = config1_wide_host(n_build, n_probe, span_bits)
+    expected = numpy_totals(keys, payloads, probe)
+    table = build_sorted(keys, payloads, device=device)
+    if table.pack32 is not None or not table.span62:
+        raise ValueError(f"span_bits {span_bits}: the table is not a wide one (31..61 bits)")
+    probe_dev = torch.from_numpy(probe).to(device).reshape(-1, 1)
+    seconds, res = time_call(lambda: bulk_count([table], probe_dev), device)
+    count, checksum = int(res.count), int(res.payload_checksums[0])
+    if (count, checksum) != expected:
+        raise AssertionError(f"(count, checksum) {(count, checksum)} != numpy {expected}")
+    return {
+        "name": "config1_wide",
+        "engine": "sort_merge",
+        "device": _device_name(device),
+        "timer": _timer(device),
+        "span_bits": span_bits,
         "n_build": n_build,
         "n_probe": n_probe,
         "seconds": seconds,

@@ -1,7 +1,8 @@
 """Command line of the port: `python -m ccve_tpu_torch.cli baseline --config N`.
 
 Only the `baseline` subcommand is ported: config 1 (sort-merge engine,
-counting or, with `--materialize`, emitting every matched triple) and
+counting or, with `--materialize`, emitting every matched triple, or with
+`--wide-span BITS` counting over int64 keys spread over 2^BITS) and
 config 3's bulk engine. Other configurations and engines exit non-zero
 with "not ported yet". The run goes to `--device` (default `cuda`);
 without a GPU it fails unless `--device cpu` asks for the plain CPU path.
@@ -16,25 +17,35 @@ import sys
 # the JAX CLI's --tiny sizes (its config-3 `block` belongs to the
 # chunk-at-a-time executors, which are not ported)
 TINY_KWARGS = {1: dict(n_build=4096, n_probe=65536), 3: dict(lhs=4000, rhs=256)}
+TINY_WIDE_KWARGS = dict(n_build=4096, n_probe=1 << 15)
 
 
 def cmd_baseline(args) -> int:
-    from ccve_tpu_torch.bench.configs import ALL_CONFIGS, config1_materialize
+    from ccve_tpu_torch.bench.configs import ALL_CONFIGS, config1_materialize, config1_wide
 
     if args.config not in ALL_CONFIGS:
         print(f"baseline --config {args.config}: not ported yet", file=sys.stderr)
         return 2
     kwargs = dict(TINY_KWARGS[args.config]) if args.tiny else {}
-    if args.engine is not None or args.materialize:
+    if args.engine is not None or args.materialize or args.wide_span is not None:
         if args.config != 1:
-            print("--engine and --materialize apply to --config 1 only", file=sys.stderr)
+            print("--engine, --materialize and --wide-span apply to --config 1 only",
+                  file=sys.stderr)
             return 2
     if args.engine is not None:
         if args.engine != "sort_merge":
             print(f"--engine {args.engine}: not ported yet", file=sys.stderr)
             return 2
-        if not args.materialize:
+        if not (args.materialize or args.wide_span is not None):
             kwargs["engine"] = args.engine
+    if args.wide_span is not None:
+        if args.materialize:
+            print("--wide-span counts; it does not combine with --materialize",
+                  file=sys.stderr)
+            return 2
+        kwargs = dict(TINY_WIDE_KWARGS) if args.tiny else {}
+        print(json.dumps(config1_wide(span_bits=args.wide_span, device=args.device, **kwargs)))
+        return 0
     run = config1_materialize if args.materialize else ALL_CONFIGS[args.config]
     print(json.dumps(run(device=args.device, **kwargs)))
     return 0
@@ -54,6 +65,11 @@ def main(argv=None) -> int:
         "--materialize", action="store_true",
         help="config 1 only: time the materializing join (sorted_expand_tiled "
         "emits every matched triple) instead of the count",
+    )
+    p.add_argument(
+        "--wide-span", type=int, default=None, metavar="BITS",
+        help="config 1 only: keys spread over 2^BITS (31..61), so the count "
+        "side runs on int64 keys (bench.configs.config1_wide)",
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(func=cmd_baseline)

@@ -10,10 +10,12 @@ matches m_l build rows at level l emits Π_l m_l output rows, and
 with one `match_stats` sweep per level and no fan-out materialized. A
 single level takes the count-side engine (`sorted_match_totals`), whose
 totals need no per-probe order. `bulk_materialize` expands level by level
-through `sorted_expand`.
+through `sorted_expand`. Tables of int64 keys (a key span above 2^30)
+take the int64 builds of the same kernels on both sides.
 
 Not ported yet: the hash tables (LP, CSR) and their match stats (ROADMAP
-Queue 1, slice 5); they raise `NotImplementedError`.
+Queue 1, slice 5), and a single-level count over a table whose key span
+reaches 2^62 (slice 3b); they raise `NotImplementedError`.
 """
 
 from __future__ import annotations

@@ -37,26 +37,33 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# name -> argtypes of every C entry point; each returns a cudaError_t as int
-_ENTRY_POINTS = {
+# name -> argtypes of every C entry point; each returns a cudaError_t as
+# int. Every kernel has an _i32 and an _i64 build (the key type) with the
+# same arguments, except the compaction (int32 planes only).
+_KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
-    "ccve_sort_tiles_i32": [_P, _P, _L, _I, _P],
+    "ccve_sort_tiles": [_P, _P, _L, _I, _P],
     # (x, y, n, run_log, stream)
-    "ccve_merge_level_i32": [_P, _P, _L, _I, _P],
-    # (runs, run_len, n_real, b32, m, bc, stream)
-    "ccve_merge_counts_i32": [_P, _L, _L, _P, _L, _P, _P],
+    "ccve_merge_level": [_P, _P, _L, _I, _P],
+    # (runs, run_len, n_real, b, m, bc, stream)
+    "ccve_merge_counts": [_P, _L, _L, _P, _L, _P, _P],
     # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n_tiles, tile_log, stream)
-    "ccve_sort_tiles_multi_i32": [_P] * 8 + [_I, _L, _I, _P],
+    "ccve_sort_tiles_multi": [_P] * 8 + [_I, _L, _I, _P],
     # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n, run_log, stream)
-    "ccve_merge_level_multi_i32": [_P] * 8 + [_I, _L, _I, _P],
+    "ccve_merge_level_multi": [_P] * 8 + [_I, _L, _I, _P],
     # (ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk, yv0, yv1, yv2,
     #  n_planes, stream)
-    "ccve_merge_two_multi_i32": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P],
+    "ccve_merge_two_multi": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P],
     # (s, v, L, n, scratch, mult, psum, stream)
-    "ccve_merge_stats_i32": [_P, _P, _L, _L, _P, _P, _P, _P],
-    # (planes, mask, n, n_planes, scratch, out, count, stream)
-    "ccve_compact_i32": [_P, _P, _L, _I, _P, _P, _P, _P],
+    "ccve_merge_stats": [_P, _P, _L, _L, _P, _P, _P, _P],
 }
+_ENTRY_POINTS = {
+    f"{name}_{suffix}": argtypes
+    for name, argtypes in _KEYED_ENTRY_POINTS.items()
+    for suffix in ("i32", "i64")
+}
+# (planes, mask, n, n_planes, scratch, out, count, stream)
+_ENTRY_POINTS["ccve_compact_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {
@@ -168,12 +175,15 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def check_i32(t: torch.Tensor, name: str) -> None:
-    """The checks every wrapper makes on an i32 operand."""
+SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
+
+
+def check_int(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    """The checks every wrapper makes on an operand of `dtype`."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != 1:
         raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -182,3 +192,16 @@ def check_i32(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {t.device}")
     if t.numel() >= 2**31:
         raise ValueError(f"{name}: {t.numel()} elements, the kernels take < 2^31")
+
+
+def check_i32(t: torch.Tensor, name: str) -> None:
+    """The checks every wrapper makes on an int32 operand."""
+    check_int(t, name, torch.int32)
+
+
+def key_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """The key type of an operand that may be int32 or int64 keys."""
+    dtype = getattr(t, "dtype", None)
+    if dtype not in SUFFIX:
+        raise TypeError(f"{name}: expected int32 or int64 keys, got {dtype}")
+    return dtype

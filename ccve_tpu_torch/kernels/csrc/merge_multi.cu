@@ -1,4 +1,5 @@
-// Multi-plane merges: int32 keys carrying P int32 cargo planes (P = 1..3).
+// Multi-plane merges: int32 or int64 keys carrying P int32 cargo planes
+// (P = 1..3); each entry point has an _i32 and an _i64 build.
 //
 //  - ccve_merge_level_multi_i32: one ladder level. Each pair of ascending
 //    runs of L = 2^run_log, [2pL, 2pL + L) and [2pL + L, 2pL + 2L),
@@ -16,11 +17,14 @@
 // ladder level by `_sort_padded_multi` and once by
 // `_merge_two_padded_multi` with B stored reversed; its tile splits come
 // precomputed from the XLA bisections `_merge_splits_alt` and
-// `_merge_splits_two`).
+// `_merge_splits_two`); the int64 builds replace `_make_merge_kernel_multi64`
+// (the same kernel on (hi, lo) int32 limb planes, launched by
+// `_sort_padded_multi64` and `merge_sorted_multi_i64`).
 //
 // What bounds it on an H100: each launch reads and writes every key and
-// every plane once, (1 + P) * 8 bytes per element, so device-memory
-// bandwidth bounds it; the merge itself is a few compares per element.
+// every plane once, (1 + P) * 8 bytes per element for int32 keys and
+// (2 + P) * 8 for int64, so device-memory bandwidth bounds it; the merge
+// itself is a few compares per element.
 //
 // Design: merge_level.cu's, with cargo. CUDA blocks run in no order, so
 // each block owns a fixed range of kChunk outputs and finds its own start
@@ -32,7 +36,8 @@
 // value from the recorded slot (two monotone streams of reads, so the
 // loads stay near coalesced). B is ascending: nothing is stored
 // reversed, and empty streams and the ragged last pair fall out of the
-// split arithmetic.
+// split arithmetic. The int64 key is native (no limbs); the shared staging
+// grows from 16 KB to 24 KB and stays static, under the 48 KB limit.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +57,8 @@ struct OutPlanes {
 
 // Number of a-values among the first d outputs of the stable merge of
 // ascending a[0, na) and b[0, nb): the least i with a[i] > b[d - i - 1].
-__device__ long long merge_path(const int* a, long long na, const int* b,
+template <typename K>
+__device__ long long merge_path(const K* a, long long na, const K* b,
                                 long long nb, long long d) {
   long long lo = d - nb > 0 ? d - nb : 0;
   long long hi = d < na ? d : na;
@@ -67,19 +73,20 @@ __device__ long long merge_path(const int* a, long long na, const int* b,
   return lo;
 }
 
+template <typename K>
 struct Shared {
-  int key[kChunk];
+  K key[kChunk];
   int src[kChunk];  // a-slot i as i, b-slot j as ~j
   long long split[2];
 };
 
 // Outputs [d0, d1) of the stable merge of (a, av)[0, la) and (b, bv)[0, lb)
 // go to (y, yv)[out0, out0 + d1 - d0).
-template <int P>
-__device__ void merge_chunk(const int* a, const InPlanes& av, long long la,
-                            const int* b, const InPlanes& bv, long long lb,
-                            long long d0, long long d1, int* y,
-                            const OutPlanes& yv, long long out0, Shared& sh) {
+template <typename K, int P>
+__device__ void merge_chunk(const K* a, const InPlanes& av, long long la,
+                            const K* b, const InPlanes& bv, long long lb,
+                            long long d0, long long d1, K* y,
+                            const OutPlanes& yv, long long out0, Shared<K>& sh) {
   if (threadIdx.x < 2) {
     sh.split[threadIdx.x] = merge_path(a, la, b, lb, threadIdx.x ? d1 : d0);
   }
@@ -94,12 +101,12 @@ __device__ void merge_chunk(const int* a, const InPlanes& av, long long la,
   }
   __syncthreads();
 
-  const int* s = sh.key;
+  const K* s = sh.key;
   const int first = static_cast<int>(threadIdx.x) * kPerThread;
   const int diag = first < cnt ? first : cnt;
-  int ai = static_cast<int>(merge_path(s, na, s + na, nb, diag));
+  int ai = static_cast<int>(merge_path<K>(s, na, s + na, nb, diag));
   int bi = diag - ai;
-  int out_key[kPerThread];
+  K out_key[kPerThread];
   int out_src[kPerThread];
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
@@ -133,12 +140,12 @@ __device__ void merge_chunk(const int* a, const InPlanes& av, long long la,
   }
 }
 
-template <int P>
-__global__ void merge_level_multi_kernel(const int* __restrict__ x,
-                                         InPlanes xv, int* __restrict__ y,
+template <typename K, int P>
+__global__ void merge_level_multi_kernel(const K* __restrict__ x,
+                                         InPlanes xv, K* __restrict__ y,
                                          OutPlanes yv, long long n,
                                          int run_log) {
-  __shared__ Shared sh;
+  __shared__ Shared<K> sh;
   const long long L = 1LL << run_log;
   const long long chunk = kChunk < 2 * L ? kChunk : 2 * L;  // divides 2L
   const long long out0 = static_cast<long long>(blockIdx.x) * chunk;
@@ -153,22 +160,22 @@ __global__ void merge_level_multi_kernel(const int* __restrict__ x,
     av.p[p] = xv.p[p] + a_base;
     bv.p[p] = av.p[p] + la;  // la < L only if lb == 0
   }
-  const int* a = x + a_base;
+  const K* a = x + a_base;
   const long long d0 = out0 - a_base;
   const long long d1 = d0 + chunk < la + lb ? d0 + chunk : la + lb;
-  merge_chunk<P>(a, av, la, a + la, bv, lb, d0, d1, y, yv, out0, sh);
+  merge_chunk<K, P>(a, av, la, a + la, bv, lb, d0, d1, y, yv, out0, sh);
 }
 
-template <int P>
-__global__ void merge_two_multi_kernel(const int* __restrict__ a,
+template <typename K, int P>
+__global__ void merge_two_multi_kernel(const K* __restrict__ a,
                                        InPlanes av, long long na,
-                                       const int* __restrict__ b,
+                                       const K* __restrict__ b,
                                        InPlanes bv, long long nb,
-                                       int* __restrict__ y, OutPlanes yv) {
-  __shared__ Shared sh;
+                                       K* __restrict__ y, OutPlanes yv) {
+  __shared__ Shared<K> sh;
   const long long d0 = static_cast<long long>(blockIdx.x) * kChunk;
   const long long d1 = d0 + kChunk < na + nb ? d0 + kChunk : na + nb;
-  merge_chunk<P>(a, av, na, b, bv, nb, d0, d1, y, yv, d0, sh);
+  merge_chunk<K, P>(a, av, na, b, bv, nb, d0, d1, y, yv, d0, sh);
 }
 
 InPlanes in_planes(const void* v0, const void* v1, const void* v2) {
@@ -181,25 +188,76 @@ OutPlanes out_planes(void* v0, void* v1, void* v2) {
       {static_cast<int*>(v0), static_cast<int*>(v1), static_cast<int*>(v2)}};
 }
 
-template <int P>
-int launch_level(const int* x, InPlanes xv, int* y, OutPlanes yv, long long n,
+template <typename K, int P>
+int launch_level(const K* x, InPlanes xv, K* y, OutPlanes yv, long long n,
                  int run_log, cudaStream_t stream) {
   const long long two_l = 2LL << run_log;
   const long long chunk = kChunk < two_l ? kChunk : two_l;
   const long long blocks = (n + chunk - 1) / chunk;
-  merge_level_multi_kernel<P><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                stream>>>(x, xv, y, yv, n, run_log);
+  merge_level_multi_kernel<K, P><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                   stream>>>(x, xv, y, yv, n, run_log);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
-int launch_two(const int* a, InPlanes av, long long na, const int* b,
-               InPlanes bv, long long nb, int* y, OutPlanes yv,
+template <typename K, int P>
+int launch_two(const K* a, InPlanes av, long long na, const K* b,
+               InPlanes bv, long long nb, K* y, OutPlanes yv,
                cudaStream_t stream) {
   const long long blocks = (na + nb + kChunk - 1) / kChunk;
-  merge_two_multi_kernel<P><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(a, av, na, b, bv, nb, y, yv);
+  merge_two_multi_kernel<K, P><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 stream>>>(a, av, na, b, bv, nb, y, yv);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int level_planes(const void* xk, const void* xv0, const void* xv1,
+                 const void* xv2, void* yk, void* yv0, void* yv1, void* yv2,
+                 int n_planes, long long n, int run_log, void* stream) {
+  if (n < 0 || n > 0x7FFFFFFFLL || run_log < 0 || run_log > 30 ||
+      n_planes < 1 || n_planes > kMaxPlanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const K* x = static_cast<const K*>(xk);
+  const InPlanes xv = in_planes(xv0, xv1, xv2);
+  K* y = static_cast<K*>(yk);
+  const OutPlanes yv = out_planes(yv0, yv1, yv2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_planes) {
+    case 1:
+      return launch_level<K, 1>(x, xv, y, yv, n, run_log, st);
+    case 2:
+      return launch_level<K, 2>(x, xv, y, yv, n, run_log, st);
+    default:
+      return launch_level<K, 3>(x, xv, y, yv, n, run_log, st);
+  }
+}
+
+template <typename K>
+int two_planes(const void* ak, const void* av0, const void* av1,
+               const void* av2, long long na, const void* bk, const void* bv0,
+               const void* bv1, const void* bv2, long long nb, void* yk,
+               void* yv0, void* yv1, void* yv2, int n_planes, void* stream) {
+  if (na < 0 || nb < 0 || na + nb > 0x7FFFFFFFLL || n_planes < 1 ||
+      n_planes > kMaxPlanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (na + nb == 0) return 0;
+  const K* a = static_cast<const K*>(ak);
+  const K* b = static_cast<const K*>(bk);
+  const InPlanes av = in_planes(av0, av1, av2);
+  const InPlanes bv = in_planes(bv0, bv1, bv2);
+  K* y = static_cast<K*>(yk);
+  const OutPlanes yv = out_planes(yv0, yv1, yv2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_planes) {
+    case 1:
+      return launch_two<K, 1>(a, av, na, b, bv, nb, y, yv, st);
+    case 2:
+      return launch_two<K, 2>(a, av, na, b, bv, nb, y, yv, st);
+    default:
+      return launch_two<K, 3>(a, av, na, b, bv, nb, y, yv, st);
+  }
 }
 
 }  // namespace
@@ -211,24 +269,18 @@ extern "C" int ccve_merge_level_multi_i32(const void* xk, const void* xv0,
                                           void* yv2, int n_planes,
                                           long long n, int run_log,
                                           void* stream) {
-  if (n < 0 || n > 0x7FFFFFFFLL || run_log < 0 || run_log > 30 ||
-      n_planes < 1 || n_planes > kMaxPlanes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n == 0) return 0;
-  const int* x = static_cast<const int*>(xk);
-  const InPlanes xv = in_planes(xv0, xv1, xv2);
-  int* y = static_cast<int*>(yk);
-  const OutPlanes yv = out_planes(yv0, yv1, yv2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n_planes) {
-    case 1:
-      return launch_level<1>(x, xv, y, yv, n, run_log, st);
-    case 2:
-      return launch_level<2>(x, xv, y, yv, n, run_log, st);
-    default:
-      return launch_level<3>(x, xv, y, yv, n, run_log, st);
-  }
+  return level_planes<int>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n,
+                           run_log, stream);
+}
+
+extern "C" int ccve_merge_level_multi_i64(const void* xk, const void* xv0,
+                                          const void* xv1, const void* xv2,
+                                          void* yk, void* yv0, void* yv1,
+                                          void* yv2, int n_planes,
+                                          long long n, int run_log,
+                                          void* stream) {
+  return level_planes<long long>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2,
+                                 n_planes, n, run_log, stream);
 }
 
 extern "C" int ccve_merge_two_multi_i32(const void* ak, const void* av0,
@@ -239,24 +291,18 @@ extern "C" int ccve_merge_two_multi_i32(const void* ak, const void* av0,
                                         void* yk, void* yv0, void* yv1,
                                         void* yv2, int n_planes,
                                         void* stream) {
-  if (na < 0 || nb < 0 || na + nb > 0x7FFFFFFFLL || n_planes < 1 ||
-      n_planes > kMaxPlanes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (na + nb == 0) return 0;
-  const int* a = static_cast<const int*>(ak);
-  const int* b = static_cast<const int*>(bk);
-  const InPlanes av = in_planes(av0, av1, av2);
-  const InPlanes bv = in_planes(bv0, bv1, bv2);
-  int* y = static_cast<int*>(yk);
-  const OutPlanes yv = out_planes(yv0, yv1, yv2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n_planes) {
-    case 1:
-      return launch_two<1>(a, av, na, b, bv, nb, y, yv, st);
-    case 2:
-      return launch_two<2>(a, av, na, b, bv, nb, y, yv, st);
-    default:
-      return launch_two<3>(a, av, na, b, bv, nb, y, yv, st);
-  }
+  return two_planes<int>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk,
+                         yv0, yv1, yv2, n_planes, stream);
+}
+
+extern "C" int ccve_merge_two_multi_i64(const void* ak, const void* av0,
+                                        const void* av1, const void* av2,
+                                        long long na, const void* bk,
+                                        const void* bv0, const void* bv1,
+                                        const void* bv2, long long nb,
+                                        void* yk, void* yv0, void* yv1,
+                                        void* yv2, int n_planes,
+                                        void* stream) {
+  return two_planes<long long>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb,
+                               yk, yv0, yv1, yv2, n_planes, stream);
 }

@@ -1,10 +1,11 @@
 // Merge stats: per-probe match count and matched-payload sum over the
 // merged sort-merge stream, written straight into probe-row order.
 //
-// Input: the merged, ascending int32 stream s[0, L) of `key' << 1 | tag`,
-// builds even (tag 0, so they precede the probes of their key) and probes
-// odd, with a cargo plane v: a build's payload (int32, any sign) or a
-// probe's row id in [0, n). INT32_MAX is sort padding, never a probe.
+// Input: the merged, ascending stream s[0, L) of `key' << 1 | tag` (int32,
+// or int64 in a second build), builds even (tag 0, so they precede the
+// probes of their key) and probes odd, with an int32 cargo plane v: a
+// build's payload (any sign) or a probe's row id in [0, n). The key type's
+// maximum is sort padding, never counted as a probe.
 // Output: mult int32[n] and psum int64[n]: for probe row r, the number of
 // builds with its key and the sum of their payloads.
 //
@@ -13,11 +14,16 @@
 // carrying the running build count, a 64-bit payload prefix in (hi, lo)
 // limbs and the run bases (a cummax, so payloads must be non-negative)
 // from one grid step to the next, and emits per-position planes plus an
-// unsort key that a second multi-plane sort turns into row order.
+// unsort key that a second multi-plane sort turns into row order. The
+// int64 build replaces `_kernel` (merge_scan.py:47, through `_call` and
+// `merge_scan_stats`) on the wide stats path (ops/sort_merge.py:504): the
+// same scan over (hi, lo) int32 limbs of the untagged key and of a tagged
+// int64 payload (pay * 2 + 1 for builds), with the same cummax base.
 //
 // What bounds it on an H100: device memory. Each of the two scan passes
-// reads the stream (8 bytes per element) and the last one scatters 12
-// bytes per probe; the scans themselves are a few operations per element.
+// reads the stream (8 bytes per element for int32 keys, 12 for int64) and
+// the last one scatters 12 bytes per probe; the scans themselves are a few
+// operations per element.
 //
 // Design: a segmented sum, (count, payload sum) restarting at each key
 // run, taken with a two-pass block scan, because CUDA blocks run in no
@@ -29,7 +35,9 @@
 // restriction are gone. Every probe's row id is unique, so pass 2
 // scatters mult and psum to out[row id] without atomics, and the TPU's
 // unsort sort, its unsort-key plane, the packed psum << mult_bits | mult
-// plane and the 64-bit limbs have no job (psum is native int64).
+// plane and the 64-bit limbs have no job (psum is native int64). The
+// int64 build widens the staged keys: 24 KB of static shared memory for
+// the chunk plus 8 KB for the scan buffer, under the 48 KB limit.
 
 #include <cuda_runtime.h>
 
@@ -39,7 +47,18 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kChunk = kThreads * kItems;  // stream elements per block
 constexpr int kScanThreads = 1024;
-constexpr int kPad = 0x7FFFFFFF;
+
+// Sort padding: the key type's maximum.
+template <typename K>
+struct Pad;
+template <>
+struct Pad<int> {
+  static constexpr int value = 0x7FFFFFFF;
+};
+template <>
+struct Pad<long long> {
+  static constexpr long long value = 0x7FFFFFFFFFFFFFFFLL;
+};
 
 // A segment of the stream: whether it holds a run start, and the build
 // count and payload sum since its last run start (or over all of it).
@@ -80,14 +99,16 @@ __device__ void block_scan(Seg x, Seg* buf, Seg& incl, Seg& excl) {
   __syncthreads();
 }
 
+template <typename K>
 struct Chunk {
-  int key[kChunk];
+  K key[kChunk];
   int val[kChunk];
-  int prev;  // packed value just before the chunk (unused for chunk 0)
+  K prev;  // packed value just before the chunk (unused for chunk 0)
 };
 
 // Stage the block's chunk of (s, v) in shared memory; returns its length.
-__device__ int load_chunk(const int* s, const int* v, long long L, Chunk& c) {
+template <typename K>
+__device__ int load_chunk(const K* s, const int* v, long long L, Chunk<K>& c) {
   const long long base = static_cast<long long>(blockIdx.x) * kChunk;
   const int cnt = static_cast<int>(L - base < kChunk ? L - base : kChunk);
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
@@ -100,9 +121,10 @@ __device__ int load_chunk(const int* s, const int* v, long long L, Chunk& c) {
 }
 
 // Element j of the chunk as a one-element segment.
-__device__ __forceinline__ Seg element(const Chunk& c, int j) {
-  const int s = c.key[j];
-  const int prev = j ? c.key[j - 1] : c.prev;
+template <typename K>
+__device__ __forceinline__ Seg element(const Chunk<K>& c, int j) {
+  const K s = c.key[j];
+  const K prev = j ? c.key[j - 1] : c.prev;
   const bool first = j == 0 && blockIdx.x == 0;
   const bool build = (s & 1) == 0;
   return Seg{first || (s >> 1) != (prev >> 1), build ? 1 : 0,
@@ -110,7 +132,8 @@ __device__ __forceinline__ Seg element(const Chunk& c, int j) {
 }
 
 // The segment of this thread's kItems elements.
-__device__ Seg thread_segment(const Chunk& c, int cnt) {
+template <typename K>
+__device__ Seg thread_segment(const Chunk<K>& c, int cnt) {
   Seg a = identity();
   const int j0 = static_cast<int>(threadIdx.x) * kItems;
 #pragma unroll
@@ -120,10 +143,11 @@ __device__ Seg thread_segment(const Chunk& c, int cnt) {
   return a;
 }
 
-__global__ void stats_reduce_kernel(const int* __restrict__ s,
+template <typename K>
+__global__ void stats_reduce_kernel(const K* __restrict__ s,
                                     const int* __restrict__ v, long long L,
                                     Seg* __restrict__ agg) {
-  __shared__ Chunk c;
+  __shared__ Chunk<K> c;
   __shared__ Seg buf[2 * kThreads];
   const int cnt = load_chunk(s, v, L, c);
   Seg incl, excl;
@@ -150,12 +174,13 @@ __global__ void stats_scan_blocks_kernel(Seg* __restrict__ agg,
   }
 }
 
-__global__ void stats_apply_kernel(const int* __restrict__ s,
+template <typename K>
+__global__ void stats_apply_kernel(const K* __restrict__ s,
                                    const int* __restrict__ v, long long L,
                                    const Seg* __restrict__ prefix,
                                    int* __restrict__ mult,
                                    long long* __restrict__ psum, long long n) {
-  __shared__ Chunk c;
+  __shared__ Chunk<K> c;
   __shared__ Seg buf[2 * kThreads];
   const int cnt = load_chunk(s, v, L, c);
   Seg incl, excl;
@@ -167,14 +192,39 @@ __global__ void stats_apply_kernel(const int* __restrict__ s,
     const int j = j0 + k;
     if (j < cnt) {
       run = combine(run, element(c, j));
-      const int key = c.key[j];
+      const K key = c.key[j];
       const int row = c.val[j];
-      if ((key & 1) && key != kPad && row >= 0 && row < n) {
+      if ((key & 1) && key != Pad<K>::value && row >= 0 && row < n) {
         mult[row] = run.count;
         psum[row] = run.sum;
       }
     }
   }
+}
+
+template <typename K>
+int launch(const void* s, const void* v, long long L, long long n,
+           void* scratch, void* mult, void* psum, void* stream) {
+  if (L < 0 || L > 0x7FFFFFFFLL || n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (L == 0) return 0;
+  const long long blocks = (L + kChunk - 1) / kChunk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const K* sp = static_cast<const K*>(s);
+  const int* vp = static_cast<const int*>(v);
+  Seg* agg = static_cast<Seg*>(scratch);
+  stats_reduce_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      sp, vp, L, agg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_scan_blocks_kernel<<<1, kScanThreads, 0, st>>>(agg, blocks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_apply_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      sp, vp, L, agg, static_cast<int*>(mult), static_cast<long long*>(psum),
+      n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -184,29 +234,17 @@ extern "C" long long ccve_merge_stats_scratch_bytes(long long L) {
   return ((L + kChunk - 1) / kChunk) * static_cast<long long>(sizeof(Seg));
 }
 
-// s, v: int32[L]; mult: int32[n], psum: int64[n] (rows that no probe of
-// the stream names are left as they are); scratch: as sized above.
+// s: int32[L] or int64[L]; v: int32[L]; mult: int32[n], psum: int64[n]
+// (rows that no probe of the stream names are left as they are); scratch:
+// as sized above.
 extern "C" int ccve_merge_stats_i32(const void* s, const void* v, long long L,
                                     long long n, void* scratch, void* mult,
                                     void* psum, void* stream) {
-  if (L < 0 || L > 0x7FFFFFFFLL || n < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (L == 0) return 0;
-  const long long blocks = (L + kChunk - 1) / kChunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sp = static_cast<const int*>(s);
-  const int* vp = static_cast<const int*>(v);
-  Seg* agg = static_cast<Seg*>(scratch);
-  stats_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      sp, vp, L, agg);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_scan_blocks_kernel<<<1, kScanThreads, 0, st>>>(agg, blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_apply_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      sp, vp, L, agg, static_cast<int*>(mult), static_cast<long long*>(psum),
-      n);
-  return static_cast<int>(cudaGetLastError());
+  return launch<int>(s, v, L, n, scratch, mult, psum, stream);
+}
+
+extern "C" int ccve_merge_stats_i64(const void* s, const void* v, long long L,
+                                    long long n, void* scratch, void* mult,
+                                    void* psum, void* stream) {
+  return launch<long long>(s, v, L, n, scratch, mult, psum, stream);
 }

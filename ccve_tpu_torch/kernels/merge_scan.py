@@ -1,13 +1,15 @@
-"""Scans of the sort-merge join's sorted streams.
+"""Scans of the sort-merge join's sorted streams, for int32 or int64 keys.
 
- - `merge_counts_i32` (kernel csrc/merge_counts.cu): per-build-row probe
-   counts from sorted probe runs, the counterpart of
-   `ccve_tpu.kernels.merge_scan.merge_counts_fused` summed over the runs of
-   an early-stopped sort, all runs in one launch.
- - `merge_stats_i32` (kernel csrc/merge_stats.cu): per-probe match count
-   and matched-payload sum over the merged build and probe stream, the
-   counterpart of `merge_scan_stats32` followed by its unsort sort: the
-   kernel writes each probe's result to its row directly.
+ - `merge_counts_i32` / `merge_counts_i64` (kernel csrc/merge_counts.cu):
+   per-build-row probe counts from sorted probe runs, the counterpart of
+   `ccve_tpu.kernels.merge_scan.merge_counts_fused` (int32) and of
+   `merge_scan_build_counts64` after `merge_sorted_i64_limbs` (int64),
+   summed over the runs of an early-stopped sort, all runs in one launch.
+ - `merge_stats_i32` / `merge_stats_i64` (kernel csrc/merge_stats.cu):
+   per-probe match count and matched-payload sum over the merged build and
+   probe stream, the counterpart of `merge_scan_stats32` (int32) and of
+   `merge_scan_stats` (int64, the wide stats path), each followed by its
+   unsort sort: the kernel writes each probe's result to its row directly.
 """
 
 from __future__ import annotations
@@ -15,20 +17,46 @@ from __future__ import annotations
 import torch
 
 from ccve_tpu_torch.kernels import _build
+from ccve_tpu_torch.kernels.bigsort import PAD
 
 
 def merge_counts_plain(
-    runs: torch.Tensor, run_len: int, n_real: int, b32: torch.Tensor, m: int
+    runs: torch.Tensor, run_len: int, n_real: int, b: torch.Tensor, m: int
 ) -> torch.Tensor:
-    """`merge_counts_i32` as searchsorted upper minus lower bound, summed
-    over the runs, on any device."""
-    want = b32 - 1
-    bc = torch.zeros(m, dtype=torch.int64, device=b32.device)
+    """`merge_counts_i32` / `merge_counts_i64` as searchsorted upper minus
+    lower bound, summed over the runs, on any device."""
+    want = b - 1
+    bc = torch.zeros(m, dtype=torch.int64, device=b.device)
     for lo in range(0, n_real, run_len):
         run = runs[lo : min(lo + run_len, n_real)]
         bc += torch.searchsorted(run, want, right=True)
         bc -= torch.searchsorted(run, want)
     return bc.to(torch.int32)
+
+
+def _merge_counts(wrapper, runs, run_len, n_real, b, m, dtype) -> torch.Tensor:
+    _build.check_int(runs, "runs", dtype)
+    _build.check_int(b, "b", dtype)
+    if b.numel() != m:
+        raise ValueError(f"b has {b.numel()} values, m = {m}")
+    if run_len < 1:
+        raise ValueError(f"run_len {run_len} < 1")
+    if not 0 <= n_real <= runs.numel():
+        raise ValueError(f"n_real {n_real} outside [0, {runs.numel()}]")
+    if runs.device != b.device:
+        raise ValueError(f"runs on {runs.device}, b on {b.device}")
+    if runs.device.type == "cpu":
+        return merge_counts_plain(runs, run_len, n_real, b, m)
+    bc = torch.empty(m, dtype=torch.int32, device=b.device)
+    if m:
+        entry = getattr(_build.load(), f"ccve_merge_counts_{_build.SUFFIX[dtype]}")
+        code = entry(
+            runs.data_ptr(), run_len, n_real, b.data_ptr(), m, bc.data_ptr(),
+            _build.stream(runs),
+        )
+        _build.check(code, wrapper.__name__)
+        wrapper.launches += 1
+    return bc
 
 
 def merge_counts_i32(
@@ -42,39 +70,25 @@ def merge_counts_i32(
     (packed `key' << 1`); the rest is padding and never counted. `b32` is
     the ascending build stream (`key' << 1 | 1`, keys may repeat: every row
     of a key gets that key's full count)."""
-    _build.check_i32(runs, "runs")
-    _build.check_i32(b32, "b32")
-    if b32.numel() != m:
-        raise ValueError(f"b32 has {b32.numel()} values, m = {m}")
-    if run_len < 1:
-        raise ValueError(f"run_len {run_len} < 1")
-    if not 0 <= n_real <= runs.numel():
-        raise ValueError(f"n_real {n_real} outside [0, {runs.numel()}]")
-    if runs.device != b32.device:
-        raise ValueError(f"runs on {runs.device}, b32 on {b32.device}")
-    if runs.device.type == "cpu":
-        return merge_counts_plain(runs, run_len, n_real, b32, m)
-    bc = torch.empty(m, dtype=torch.int32, device=b32.device)
-    if m:
-        code = _build.load().ccve_merge_counts_i32(
-            runs.data_ptr(), run_len, n_real, b32.data_ptr(), m,
-            bc.data_ptr(), _build.stream(runs),
-        )
-        _build.check(code, "merge_counts_i32")
-        merge_counts_i32.launches += 1
-    return bc
+    return _merge_counts(merge_counts_i32, runs, run_len, n_real, b32, m, torch.int32)
+
+
+def merge_counts_i64(
+    runs: torch.Tensor, run_len: int, n_real: int, b64: torch.Tensor, m: int
+) -> torch.Tensor:
+    """`merge_counts_i32` on int64 runs and build stream; bc stays int32."""
+    return _merge_counts(merge_counts_i64, runs, run_len, n_real, b64, m, torch.int64)
 
 
 merge_counts_i32.launches = 0
-
-
-I32_MAX = 2**31 - 1
+merge_counts_i64.launches = 0
+MERGE_COUNTS = {torch.int32: merge_counts_i32, torch.int64: merge_counts_i64}
 
 
 def merge_stats_plain(s: torch.Tensor, v: torch.Tensor, n: int):
-    """`merge_stats_i32` as torch scans (cumsums, each run's start found
-    by a cumsum over the run starts and a scatter, then a scatter to the
-    probe rows), on any device."""
+    """`merge_stats_i32` / `merge_stats_i64` as torch scans (cumsums, each
+    run's start found by a cumsum over the run starts and a scatter, then a
+    scatter to the probe rows), on any device."""
     mult = torch.zeros(n, dtype=torch.int32, device=s.device)
     psum = torch.zeros(n, dtype=torch.int64, device=s.device)
     length = s.numel()
@@ -93,21 +107,15 @@ def merge_stats_plain(s: torch.Tensor, v: torch.Tensor, n: int):
     start.scatter_(0, torch.where(run_start, run, length),
                    torch.arange(length, device=s.device))
     start = start[run]
-    probe = ~is_build & (s != I32_MAX) & (v >= 0) & (v < n)
+    probe = ~is_build & (s != PAD[s.dtype]) & (v >= 0) & (v < n)
     rows = v[probe].to(torch.int64)
     mult[rows] = (count - (count - ib)[start])[probe].to(torch.int32)
     psum[rows] = (total - (total - bpay)[start])[probe]
     return mult, psum
 
 
-def merge_stats_i32(s: torch.Tensor, v: torch.Tensor, n: int):
-    """(mult int32[n], psum int64[n]) in probe-row order from the merged
-    ascending stream `s` of `key' << 1 | tag` (builds even, probes odd,
-    INT32_MAX padding) and its cargo plane `v` (a build's payload, any
-    sign, or a probe's row id in [0, n)): for each probe row, the number
-    of builds with its key and the sum of their payloads. Rows that no
-    probe of the stream names stay 0."""
-    _build.check_i32(s, "s")
+def _merge_stats(wrapper, s, v, n, dtype):
+    _build.check_int(s, "s", dtype)
     _build.check_i32(v, "v")
     if v.numel() != s.numel() or v.device != s.device:
         raise ValueError(f"v has {v.numel()} values on {v.device}, s {s.numel()} on {s.device}")
@@ -123,13 +131,31 @@ def merge_stats_i32(s: torch.Tensor, v: torch.Tensor, n: int):
             lib.ccve_merge_stats_scratch_bytes(s.numel()), dtype=torch.uint8,
             device=s.device,
         )
-        code = lib.ccve_merge_stats_i32(
+        entry = getattr(lib, f"ccve_merge_stats_{_build.SUFFIX[dtype]}")
+        code = entry(
             s.data_ptr(), v.data_ptr(), s.numel(), n, scratch.data_ptr(),
             mult.data_ptr(), psum.data_ptr(), _build.stream(s),
         )
-        _build.check(code, "merge_stats_i32")
-        merge_stats_i32.launches += 1
+        _build.check(code, wrapper.__name__)
+        wrapper.launches += 1
     return mult, psum
 
 
+def merge_stats_i32(s: torch.Tensor, v: torch.Tensor, n: int):
+    """(mult int32[n], psum int64[n]) in probe-row order from the merged
+    ascending stream `s` of `key' << 1 | tag` (builds even, probes odd,
+    INT32_MAX padding) and its cargo plane `v` (a build's payload, any
+    sign, or a probe's row id in [0, n)): for each probe row, the number
+    of builds with its key and the sum of their payloads. Rows that no
+    probe of the stream names stay 0."""
+    return _merge_stats(merge_stats_i32, s, v, n, torch.int32)
+
+
+def merge_stats_i64(s: torch.Tensor, v: torch.Tensor, n: int):
+    """`merge_stats_i32` over an int64 stream `s` (INT64_MAX padding); the
+    cargo plane `v` stays int32."""
+    return _merge_stats(merge_stats_i64, s, v, n, torch.int64)
+
+
 merge_stats_i32.launches = 0
+merge_stats_i64.launches = 0

@@ -1,24 +1,30 @@
-"""Multi-plane sort and merge: int32 keys carrying 1-3 int32 cargo planes.
+"""Multi-plane sort and merge: int32 or int64 keys carrying 1-3 int32
+cargo planes.
 
 Counterpart of `ccve_tpu.kernels.pairsort` (`pallas_sort_multi_i32`,
-`pallas_sort_multi_i32_runs`, `merge_sorted_multi_i32`). Two kernels:
+`pallas_sort_multi_i32_runs`, `merge_sorted_multi_i32`, and for int64 keys
+`pallas_sort_multi_i64`, `merge_sorted_multi_i64`). Two kernels, each with
+an int32 and an int64 build:
 
- - `sort_tiles_multi_i32` (csrc/sort_tiles_multi.cu) sorts each
-   2^tile_log-key tile and moves the planes with their keys;
- - `merge_level_multi_i32` and `merge_two_multi_i32` (csrc/merge_multi.cu)
-   are one ladder level and the unequal merge of two sorted streams.
+ - `sort_tiles_multi_i32` / `_i64` (csrc/sort_tiles_multi.cu) sort each
+   2^tile_log-key tile and move the planes with their keys;
+ - `merge_level_multi_i32` / `_i64` and `merge_two_multi_i32` / `_i64`
+   (csrc/merge_multi.cu) are one ladder level and the unequal merge of two
+   sorted streams.
 
-The entry points `sort_multi_i32`, `sort_multi_i32_runs` and
-`merge_sorted_multi_i32` compose them. Every step is stable (ties keep
-their input order, A before B in a merge), where the TPU's sort is not, so
-a kernel and its plain version (a stable torch.sort plus a gather) agree
-exactly, and a sort's cargo order is determined. Against the JAX package
-only the key plane is exact; (key, cargo...) tuples agree as multisets.
+The entry points `sort_multi_i32`, `sort_multi_i64`, `sort_multi_i32_runs`,
+`merge_sorted_multi_i32` and `merge_sorted_multi_i64` compose them. Every
+step is stable (ties keep their input order, A before B in a merge), where
+the TPU's sort is not, so a kernel and its plain version (a stable
+torch.sort plus a gather) agree exactly, and a sort's cargo order is
+determined. Against the JAX package only the key plane is exact; (key,
+cargo...) tuples agree as multisets. The int64 key is native: the TPU's
+(hi, lo) limb planes have no job.
 
 Every n goes through the kernels: the JAX entry points' `n <= tile`
 `lax.sort` branches were a TPU tile-size workaround. Keys may take any
-int32 value: padding (INT32_MAX keys, zero cargo) is appended after the
-real elements and a stable sort keeps it behind them.
+value of their type: padding (the type's maximum as key, zero cargo) is
+appended after the real elements and a stable sort keeps it behind them.
 """
 
 from __future__ import annotations
@@ -28,15 +34,18 @@ from typing import Callable, Sequence
 import torch
 
 from ccve_tpu_torch.kernels import _build
+from ccve_tpu_torch.kernels.bigsort import PAD
 
 TILE_LOG = 13
-MAX_TILE_LOG = 13  # 2^13 (key, index) words = 64 KB of shared memory
+MAX_TILE_LOG = 13  # 2^13 (key, index) pairs: 64 KB (int32) or 80 KB (int64)
 MAX_PLANES = 3
-I32_MAX = 2**31 - 1
 
 
-def _check_planes(keys: torch.Tensor, vals: Sequence[torch.Tensor], name: str):
-    _build.check_i32(keys, f"{name} keys")
+def _check_planes(keys: torch.Tensor, vals: Sequence[torch.Tensor], name: str, dtype=None):
+    """The planes as a list, after checking keys (of `dtype`, or int32 or
+    int64 when None) and 1..MAX_PLANES int32 planes of the keys' length
+    and device."""
+    _build.check_int(keys, f"{name} keys", dtype or _build.key_dtype(keys, f"{name} keys"))
     vals = list(vals)
     if not 1 <= len(vals) <= MAX_PLANES:
         raise ValueError(f"{name}: {len(vals)} cargo planes, expected 1..{MAX_PLANES}")
@@ -89,10 +98,8 @@ def merge_two_multi_plain(ak, avs, bk, bvs):
     return keys, [torch.cat([a, b])[order] for a, b in zip(avs, bvs)]
 
 
-def sort_tiles_multi_i32(keys, vals, tile_log: int = TILE_LOG):
-    """Each 2^tile_log-key tile of int32[n] sorted ascending, stably, with
-    its cargo planes (n a multiple of the tile). Returns (keys, planes)."""
-    vals = _check_planes(keys, vals, "sort_tiles_multi_i32")
+def _sort_tiles_multi(wrapper, keys, vals, tile_log: int, dtype):
+    vals = _check_planes(keys, vals, wrapper.__name__, dtype)
     if not 1 <= tile_log <= MAX_TILE_LOG:
         raise ValueError(f"tile_log {tile_log} outside [1, {MAX_TILE_LOG}]")
     n = keys.numel()
@@ -103,23 +110,33 @@ def sort_tiles_multi_i32(keys, vals, tile_log: int = TILE_LOG):
     out_keys = torch.empty_like(keys)
     out_vals = [torch.empty_like(v) for v in vals]
     if n:
-        code = _build.load().ccve_sort_tiles_multi_i32(
+        entry = getattr(_build.load(), f"ccve_sort_tiles_multi_{_build.SUFFIX[dtype]}")
+        code = entry(
             keys.data_ptr(), *_ptrs(vals), out_keys.data_ptr(), *_ptrs(out_vals),
             len(vals), n >> tile_log, tile_log, _build.stream(keys),
         )
-        _build.check(code, "sort_tiles_multi_i32")
-        sort_tiles_multi_i32.launches += 1
+        _build.check(code, wrapper.__name__)
+        wrapper.launches += 1
     return out_keys, out_vals
 
 
+def sort_tiles_multi_i32(keys, vals, tile_log: int = TILE_LOG):
+    """Each 2^tile_log-key tile of int32[n] sorted ascending, stably, with
+    its cargo planes (n a multiple of the tile). Returns (keys, planes)."""
+    return _sort_tiles_multi(sort_tiles_multi_i32, keys, vals, tile_log, torch.int32)
+
+
+def sort_tiles_multi_i64(keys, vals, tile_log: int = TILE_LOG):
+    """`sort_tiles_multi_i32` for int64 keys (the planes stay int32)."""
+    return _sort_tiles_multi(sort_tiles_multi_i64, keys, vals, tile_log, torch.int64)
+
+
 sort_tiles_multi_i32.launches = 0
+sort_tiles_multi_i64.launches = 0
 
 
-def merge_level_multi_i32(keys, vals, run_log: int):
-    """One stable merge level over int32[n] keys made of ascending runs of
-    2^run_log (the last may be short), with their cargo planes: each pair
-    of neighbouring runs becomes one run of 2^(run_log+1)."""
-    vals = _check_planes(keys, vals, "merge_level_multi_i32")
+def _merge_level_multi(wrapper, keys, vals, run_log: int, dtype):
+    vals = _check_planes(keys, vals, wrapper.__name__, dtype)
     if not 0 <= run_log <= 30:
         raise ValueError(f"run_log {run_log} outside [0, 30]")
     if keys.device.type == "cpu":
@@ -127,58 +144,83 @@ def merge_level_multi_i32(keys, vals, run_log: int):
     out_keys = torch.empty_like(keys)
     out_vals = [torch.empty_like(v) for v in vals]
     if keys.numel():
-        code = _build.load().ccve_merge_level_multi_i32(
+        entry = getattr(_build.load(), f"ccve_merge_level_multi_{_build.SUFFIX[dtype]}")
+        code = entry(
             keys.data_ptr(), *_ptrs(vals), out_keys.data_ptr(), *_ptrs(out_vals),
             len(vals), keys.numel(), run_log, _build.stream(keys),
         )
-        _build.check(code, "merge_level_multi_i32")
-        merge_level_multi_i32.launches += 1
+        _build.check(code, wrapper.__name__)
+        wrapper.launches += 1
     return out_keys, out_vals
 
 
+def merge_level_multi_i32(keys, vals, run_log: int):
+    """One stable merge level over int32[n] keys made of ascending runs of
+    2^run_log (the last may be short), with their cargo planes: each pair
+    of neighbouring runs becomes one run of 2^(run_log+1)."""
+    return _merge_level_multi(merge_level_multi_i32, keys, vals, run_log, torch.int32)
+
+
+def merge_level_multi_i64(keys, vals, run_log: int):
+    """`merge_level_multi_i32` for int64 keys."""
+    return _merge_level_multi(merge_level_multi_i64, keys, vals, run_log, torch.int64)
+
+
 merge_level_multi_i32.launches = 0
+merge_level_multi_i64.launches = 0
+
+
+def _merge_two_multi(wrapper, ak, avs, bk, bvs, dtype):
+    name = wrapper.__name__
+    avs = _check_planes(ak, avs, f"{name} A", dtype)
+    bvs = _check_planes(bk, bvs, f"{name} B", dtype)
+    if len(avs) != len(bvs) or ak.device != bk.device:
+        raise ValueError(
+            f"{name}: A has {len(avs)} planes on {ak.device}, B {len(bvs)} on {bk.device}"
+        )
+    n = ak.numel() + bk.numel()
+    if n >= 2**31:
+        raise ValueError(f"{name}: {n} elements, the kernels take < 2^31")
+    if ak.device.type == "cpu":
+        return merge_two_multi_plain(ak, avs, bk, bvs)
+    out_keys = ak.new_empty(n)
+    out_vals = [avs[0].new_empty(n) for _ in avs]
+    if n:
+        entry = getattr(_build.load(), f"ccve_merge_two_multi_{_build.SUFFIX[dtype]}")
+        code = entry(
+            ak.data_ptr(), *_ptrs(avs), ak.numel(),
+            bk.data_ptr(), *_ptrs(bvs), bk.numel(),
+            out_keys.data_ptr(), *_ptrs(out_vals), len(avs), _build.stream(ak),
+        )
+        _build.check(code, name)
+        wrapper.launches += 1
+    return out_keys, out_vals
 
 
 def merge_two_multi_i32(ak, avs, bk, bvs):
     """The stable merge of two ascending int32 key streams with their cargo
     planes (ties: A's elements first; either stream may be empty).
     Returns (keys, planes) of length |A| + |B|."""
-    avs = _check_planes(ak, avs, "merge_two_multi_i32 A")
-    bvs = _check_planes(bk, bvs, "merge_two_multi_i32 B")
-    if len(avs) != len(bvs) or ak.device != bk.device:
-        raise ValueError(
-            f"merge_two_multi_i32: A has {len(avs)} planes on {ak.device}, "
-            f"B {len(bvs)} on {bk.device}"
-        )
-    n = ak.numel() + bk.numel()
-    if n >= 2**31:
-        raise ValueError(f"merge_two_multi_i32: {n} elements, the kernels take < 2^31")
-    if ak.device.type == "cpu":
-        return merge_two_multi_plain(ak, avs, bk, bvs)
-    out_keys = ak.new_empty(n)
-    out_vals = [ak.new_empty(n) for _ in avs]
-    if n:
-        code = _build.load().ccve_merge_two_multi_i32(
-            ak.data_ptr(), *_ptrs(avs), ak.numel(),
-            bk.data_ptr(), *_ptrs(bvs), bk.numel(),
-            out_keys.data_ptr(), *_ptrs(out_vals), len(avs), _build.stream(ak),
-        )
-        _build.check(code, "merge_two_multi_i32")
-        merge_two_multi_i32.launches += 1
-    return out_keys, out_vals
+    return _merge_two_multi(merge_two_multi_i32, ak, avs, bk, bvs, torch.int32)
+
+
+def merge_two_multi_i64(ak, avs, bk, bvs):
+    """`merge_two_multi_i32` for int64 keys."""
+    return _merge_two_multi(merge_two_multi_i64, ak, avs, bk, bvs, torch.int64)
 
 
 merge_two_multi_i32.launches = 0
+merge_two_multi_i64.launches = 0
 
 
 def pad_to_tile(keys, vals, tile_log: int):
     """(keys, planes) padded to a multiple of the 2^tile_log tile: keys with
-    INT32_MAX, planes with 0 (the tile sort's input)."""
+    their type's maximum, planes with 0 (the tile sort's input)."""
     pad = (-keys.numel()) % (1 << tile_log)
     if not pad:
         return keys, list(vals)
     return (
-        torch.cat([keys, keys.new_full((pad,), I32_MAX)]),
+        torch.cat([keys, keys.new_full((pad,), PAD[keys.dtype])]),
         [torch.cat([v, v.new_zeros(pad)]) for v in vals],
     )
 
@@ -223,9 +265,15 @@ def sort_multi_i32(keys, vals, tile_log: int = TILE_LOG):
     return _sort(keys, vals, tile_log, sort_tiles_multi_i32, merge_level_multi_i32)
 
 
-# The JAX package's name for the unequal merge: one kernel launch, no
+def sort_multi_i64(keys, vals, tile_log: int = TILE_LOG):
+    """`sort_multi_i32` for int64 keys."""
+    return _sort(keys, vals, tile_log, sort_tiles_multi_i64, merge_level_multi_i64)
+
+
+# The JAX package's names for the unequal merge: one kernel launch, no
 # padding, whatever the lengths.
 merge_sorted_multi_i32 = merge_two_multi_i32
+merge_sorted_multi_i64 = merge_two_multi_i64
 
 
 def sort_multi_runs_plain(keys, vals, run_log: int, tile_log: int = TILE_LOG):
@@ -236,7 +284,8 @@ def sort_multi_runs_plain(keys, vals, run_log: int, tile_log: int = TILE_LOG):
 
 
 def sort_multi_plain(keys, vals, tile_log: int = TILE_LOG):
-    """`sort_multi_i32` built from the plain versions, on any device: the
+    """`sort_multi_i32` / `sort_multi_i64` built from the plain versions,
+    on any device: the
     yardstick a card run holds the kernels against."""
     return _sort(keys, vals, tile_log, sort_tiles_multi_plain, merge_level_multi_plain)
 

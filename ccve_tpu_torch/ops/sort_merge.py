@@ -1,8 +1,12 @@
 """Sort-merge equi-join: count side, per-probe stats, ranks and expansion.
 
 Port of `ccve_tpu.ops.sort_merge`. A `SortedTable` holds the build rows
-sorted by key. When the key span fits 30 bits (`pack32`), every key packs
-into one int32, `key' << 1 | tag` with `key' = key - (kmin - 1)`.
+sorted by key. Every key packs into one word, `key' << 1 | tag` with
+`key' = key - (kmin - 1)`: an int32 when the key span fits 30 bits
+(`pack32`), else an int64 when it is below 2^62 (`span62`, the wide
+tables: hashed ids, timestamps, composite keys). The int64 bounds come off
+the sorted table's ends as device scalars, so packing reads nothing back
+to the host. Every kernel on these paths has an int32 and an int64 build.
 
  - Count side (`sorted_match_totals`, `sorted_build_counts`): probes even,
    builds odd. The probe stream is sorted into runs (`count_side_plan`)
@@ -16,13 +20,14 @@ into one int32, `key' << 1 | tag` with `key' = key - (kmin - 1)`.
    or every matched (row, key, payload) triple, compacted
    (kernels.compact).
 
-The stats side's kernel route needs `pack32` with key_bits <= 29 (the
-packed probe stays under the INT32_MAX padding) and `pay32` (payloads ride
-an int32 plane); other tables take the generic route, one stable int64
-torch.sort of build ∪ probe plus scans. Both routes are exact for payloads
-of any sign. Not ported yet: the wide-key and packed-int64 branches of
-`sorted_match_totals` and `sorted_build_counts` (ROADMAP Queue 1, slice
-3); they raise `NotImplementedError`.
+The stats side's kernel route needs `pay32` (payloads ride an int32
+plane) and runs on int32 keys when key_bits <= 29 (the packed probe stays
+under the INT32_MAX padding), else on int64 keys when `span62`; other
+tables take the generic route, one stable int64 torch.sort of build ∪
+probe plus scans. Every route is exact for payloads of any sign.
+`sorted_expand`'s kernel route is int32 only, as the JAX package's. Not
+ported yet: the count side of tables whose key span reaches 2^62 (ROADMAP
+Queue 1, slice 3b); it raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -35,7 +40,6 @@ import numpy as np
 import torch
 
 from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
-from ccve_tpu_torch.kernels.merge_scan import merge_counts_i32
 
 # The static fields of a SortedTable, as `ccve_tpu.ops.sort_merge` has them.
 META_FIELDS = (
@@ -93,9 +97,23 @@ def _pack32_meta(keys: np.ndarray):
     return (kmin, key_bits)
 
 
-def build_sorted(keys, payloads=None, device="cpu") -> SortedTable:
-    """A SortedTable on `device` from host key (and payload) columns;
-    payloads default to row + 10^7, as the reference's tables have."""
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises when it names CUDA and no GPU is
+    present: nothing falls back to the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: run on a machine with a GPU, or ask for the "
+            "plain CPU path explicitly (device='cpu')"
+        )
+    return device
+
+
+def build_sorted(keys, payloads=None, device="cuda") -> SortedTable:
+    """A SortedTable on `device` (default the GPU; raises without one) from
+    host key (and payload) columns; payloads default to row + 10^7, as the
+    reference's tables have."""
+    device = require_device(device)
     keys = np.ascontiguousarray(keys, dtype=np.int64)
     if payloads is None:
         payloads = np.arange(keys.shape[0], dtype=np.int64) + 10_000_000
@@ -146,6 +164,9 @@ def table_from_arrays(arrays: dict, meta: dict, device) -> SortedTable:
     return SortedTable(**cols, **meta)
 
 
+I64_MIN = -(2**63)
+I64_MAX = 2**63 - 1
+
 # Tuning hook: force the count-side ladder's skipped-level count (the
 # 0.8 * n_pad / m rule otherwise).
 SKIP_LEVELS_OVERRIDE: int | None = None
@@ -172,20 +193,24 @@ def count_side_plan(n: int, m: int, tile_log: int):
     return n_pad, tile_log + n_levels_full - skip
 
 
-def _count_side_bc(p32: torch.Tensor, b32: torch.Tensor, m: int) -> torch.Tensor:
-    """Dense per-build-row probe counts bc int32[m] from packed streams
-    (p32 = key' << 1 probes, b32 = key' << 1 | 1 builds, b32 ascending).
+def _count_side_bc(p: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
+    """Dense per-build-row probe counts bc int32[m] from packed streams of
+    one key type, int32 or int64 (p = key' << 1 probes, b = key' << 1 | 1
+    builds, b ascending).
 
-    Every n takes the same route: pad to a tile multiple with INT32_MAX,
-    tile sort, the merge levels the plan keeps, then the counts over all
-    runs. The JAX package's small-n branch (n <= 2^13) has no job with the
-    port's tile."""
+    Every n and both key types take the same route: pad to a tile
+    multiple with the key type's maximum, tile sort, the merge levels the
+    plan keeps, then the counts over all runs, restricted to the n real
+    probes (so padding is never counted). The JAX package's small-n branch
+    (n <= 2^13) has no job with the port's tile; nor have its int64
+    routes' limb planes, per-run limb merges, split-plane ladders and tie
+    fixup, which exist because the TPU has no 64-bit lanes."""
     tile_log = bigsort.TILE_LOG  # read per call, so a test can shrink it
-    n = p32.numel()
+    n = p.numel()
     n_pad, run_log = count_side_plan(n, m, tile_log)
-    padded = torch.cat([p32, p32.new_full((n_pad - n,), bigsort.I32_MAX)])
-    runs = bigsort.sort_runs_i32(padded, run_log, tile_log)
-    return merge_counts_i32(runs, 1 << run_log, n, b32, m)
+    padded = torch.cat([p, p.new_full((n_pad - n,), bigsort.PAD[p.dtype])])
+    runs = bigsort.sort_runs(padded, run_log, tile_log)
+    return merge_scan.MERGE_COUNTS[p.dtype](runs, 1 << run_log, n, b, m)
 
 
 def _shifted_keys(table: SortedTable, probe_keys: torch.Tensor):
@@ -196,7 +221,8 @@ def _shifted_keys(table: SortedTable, probe_keys: torch.Tensor):
     kmin, key_bits = table.pack32
     key_lo = kmin - 1
     key_span = 1 << key_bits
-    b = ((table.keys - key_lo) << 1).to(torch.int32)
+    # key' = key - kmin + 1: kmin - 1 is no int64 when kmin is INT64_MIN
+    b = ((table.keys - kmin + 1) << 1).to(torch.int32)
     if (
         probe_keys.dtype == torch.int32
         and -(2**31) <= key_lo
@@ -205,8 +231,11 @@ def _shifted_keys(table: SortedTable, probe_keys: torch.Tensor):
         clamped = probe_keys.clamp(key_lo, key_lo + key_span - 1)
         p = (clamped - key_lo) << 1
     else:
-        shifted = probe_keys.to(torch.int64) - key_lo
-        p = (shifted.clamp(0, key_span - 1) << 1).to(torch.int32)
+        # clamp first, to bounds saturated at the int64 range, so the
+        # subtract cannot wrap
+        lo, hi = max(key_lo, I64_MIN), min(key_lo + key_span - 1, I64_MAX)
+        clamped = probe_keys.to(torch.int64).clamp(lo, hi)
+        p = ((clamped - kmin + 1) << 1).to(torch.int32)
     return b, p
 
 
@@ -225,13 +254,48 @@ def stats_pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
     return b.contiguous(), (p | 1).contiguous()
 
 
-def _require_pack32(table: SortedTable, what: str) -> None:
-    if table.pack32 is None:
-        raise NotImplementedError(
-            f"{what}: the table's key span does not fit 30 bits; the "
-            "wide-key and packed-int64 branches are ROADMAP Queue 1, slice "
-            "3, not ported yet"
-        )
+def _shifted_keys64(table: SortedTable, probe_keys: torch.Tensor):
+    """(b, p) int64 of a wide table: build keys as `key' << 1` and probe
+    keys clamped into [kmin - 1, kmax + 1] and shifted the same way,
+    untagged. The bounds are 0-d tensors off the sorted table's ends (no
+    host read), saturated at the int64 range; the clamp comes before the
+    subtract, and key' is taken as key - kmin + 1, so nothing wraps. With
+    a span below 2^62 every packed key is below 2^63."""
+    kmin, kmax = table.keys[0], table.keys[-1]
+    lo = kmin.clamp(min=I64_MIN + 1) - 1
+    hi = kmax.clamp(max=I64_MAX - 1) + 1
+    b = (table.keys - kmin + 1) << 1
+    p = (probe_keys.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1
+    return b, p
+
+
+def pack64_streams(table: SortedTable, probe_keys: torch.Tensor):
+    """(p64, b64) of the count side of a wide table: probes packed even,
+    builds odd."""
+    b, p = _shifted_keys64(table, probe_keys)
+    return p.contiguous(), (b | 1).contiguous()
+
+
+def stats_pack64_streams(table: SortedTable, probe_keys: torch.Tensor):
+    """(b64, p64) of the stats side of a wide table: builds packed even,
+    probes odd. Clamped probes match nothing."""
+    b, p = _shifted_keys64(table, probe_keys)
+    return b.contiguous(), (p | 1).contiguous()
+
+
+def _count_streams(table: SortedTable, probe_keys: torch.Tensor, what: str):
+    """(p, b) of the count side: int32 streams when the table has
+    `pack32`, else int64 streams when its key span is below 2^62."""
+    if table.pack32 is not None:
+        return pack32_streams(table, probe_keys)
+    if table.span62:
+        return pack64_streams(table, probe_keys)
+    raise NotImplementedError(
+        f"{what}: the table's key span reaches 2^62, so `key' << 1` does "
+        "not fit an int64; the generic totals (the JAX package's int64 "
+        "sort plus merge_scan_stats) are ROADMAP Queue 1, slice 3b, not "
+        "ported yet"
+    )
 
 
 def _probe_on(table: SortedTable, probe_keys) -> torch.Tensor:
@@ -249,23 +313,22 @@ def sorted_build_counts(table: SortedTable, probe_keys) -> torch.Tensor:
     probe = _probe_on(table, probe_keys)
     if not table.keys.numel():
         return torch.zeros(0, dtype=torch.int32, device=table.device)
-    _require_pack32(table, "sorted_build_counts")
-    p32, b32 = pack32_streams(table, probe)
-    return _count_side_bc(p32, b32, table.keys.numel())
+    p, b = _count_streams(table, probe, "sorted_build_counts")
+    return _count_side_bc(p, b, table.keys.numel())
 
 
 def sorted_match_totals(table: SortedTable, probe_keys):
     """(match count, matched-payload sum) of a single-level join, both
-    int64 scalars on the table's device. Exact for negative payloads: they
-    never enter the sort, and the dot carries the sign. An empty table
-    gives (0, 0)."""
+    int64 scalars on the table's device: the count side on int32 streams
+    (`pack32`) or int64 streams (key span below 2^62). Exact for negative
+    payloads: they never enter the sort, and the dot carries the sign. An
+    empty table gives (0, 0)."""
     probe = _probe_on(table, probe_keys)
     if not table.keys.numel():
         zero = torch.zeros((), dtype=torch.int64, device=table.device)
         return zero, zero.clone()
-    _require_pack32(table, "sorted_match_totals")
-    p32, b32 = pack32_streams(table, probe)
-    bc = _count_side_bc(p32, b32, table.keys.numel()).to(torch.int64)
+    p, b = _count_streams(table, probe, "sorted_match_totals")
+    bc = _count_side_bc(p, b, table.keys.numel()).to(torch.int64)
     return bc.sum(), (bc * table.payloads).sum()
 
 
@@ -280,28 +343,43 @@ class MatchStats(NamedTuple):
 
 
 class Route(NamedTuple):
-    """The steps of the stats side's kernel route: the kernels
-    (`KERNELS`), or their plain versions (`PLAIN`), which a card run times
-    as the yardstick."""
+    """The steps of the stats side's kernel route, on int32 keys and on
+    int64 keys (the `64` steps): the kernels (`KERNELS`), or their plain
+    versions (`PLAIN`), which a card run times as the yardstick."""
 
     sort_multi: Callable  # (keys, planes, tile_log) -> (keys, planes)
     merge_two: Callable  # (ak, avs, bk, bvs) -> (keys, planes)
     merge_stats: Callable  # (s, v, n) -> (mult, psum)
     compact: Callable  # (planes, mask) -> (planes, count)
+    sort_multi64: Callable
+    merge_two64: Callable
+    merge_stats64: Callable
 
 
 KERNELS = Route(
     pairsort.sort_multi_i32, pairsort.merge_sorted_multi_i32,
     merge_scan.merge_stats_i32, compact.compact_i32,
+    pairsort.sort_multi_i64, pairsort.merge_sorted_multi_i64,
+    merge_scan.merge_stats_i64,
 )
 PLAIN = Route(
     pairsort.sort_multi_plain, pairsort.merge_sorted_multi_plain,
     merge_scan.merge_stats_plain, compact.compact_plain,
+    pairsort.sort_multi_plain, pairsort.merge_sorted_multi_plain,
+    merge_scan.merge_stats_plain,
 )
 
 
-def _kernel_route_ok(table: SortedTable) -> bool:
-    return table.pack32 is not None and table.pack32[1] <= 29 and table.pay32
+def stats_key_type(table: SortedTable) -> torch.dtype | None:
+    """The key type of the stats side's kernel route on `table`: int32
+    when the tagged key fits under INT32_MAX (key_bits <= 29), int64 when
+    the key span is below 2^62, None (the generic route) otherwise, for an
+    empty table, or when payloads do not fit the int32 cargo plane."""
+    if not table.pay32 or not table.keys.numel():
+        return None
+    if table.pack32 is not None and table.pack32[1] <= 29:
+        return torch.int32
+    return torch.int64 if table.span62 else None
 
 
 def _run_starts(keys: torch.Tensor) -> torch.Tensor:
@@ -326,15 +404,24 @@ def _segment_base(flags: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 
 def merged_stream(table: SortedTable, probe_keys, tile_log=None, route: Route = KERNELS):
-    """The kernel route's merged stream (s, v) int32[n + m]: the packed
-    probes sorted with their row ids, merged with the build stream and its
-    int32 payloads (builds first at equal keys)."""
+    """The kernel route's merged stream (s int32 or int64[n + m], v
+    int32[n + m]): the packed probes sorted with their row ids, merged with
+    the build stream and its int32 payloads (builds first at equal keys),
+    on the key type `stats_key_type` picks."""
+    key_type = stats_key_type(table)
+    if key_type is None:
+        raise ValueError("merged_stream: the table has no kernel route (stats_key_type)")
     probe = _probe_on(table, probe_keys)
-    b32, p32 = stats_pack32_streams(table, probe)
+    if key_type == torch.int32:
+        b, p = stats_pack32_streams(table, probe)
+        sort_multi, merge_two = route.sort_multi, route.merge_two
+    else:
+        b, p = stats_pack64_streams(table, probe)
+        sort_multi, merge_two = route.sort_multi64, route.merge_two64
     rows = torch.arange(probe.numel(), dtype=torch.int32, device=probe.device)
     tl = pairsort.TILE_LOG if tile_log is None else tile_log
-    sk, (sv,) = route.sort_multi(p32, [rows], tl)
-    s, (v,) = route.merge_two(sk, [sv], b32, [table.payloads.to(torch.int32)])
+    sk, (sv,) = sort_multi(p, [rows], tl)
+    s, (v,) = merge_two(sk, [sv], b, [table.payloads.to(torch.int32)])
     return s, v
 
 
@@ -377,19 +464,22 @@ def sorted_match_stats(
     """Per-probe-key (match count, matched-payload sum), in probe-row
     order.
 
-    The kernel route (tables with key_bits <= 29 and int32 payloads; not
-    with `use_kernel=False`) sorts the probes with their row ids, merges
-    in the build stream and scans it, writing each probe's stats to its
-    row. Other tables take the generic route. Both are exact for payloads
-    of any sign, so `allow_negative` (the JAX package's switch to a
-    segmented scan) changes nothing here. `tile_log` sets the probe sort's
-    tile."""
+    The kernel route (tables with int32 payloads and a key span below
+    2^62, on int32 keys when key_bits <= 29 and on int64 keys otherwise;
+    not with `use_kernel=False`) sorts the probes with their row ids,
+    merges in the build stream and scans it, writing each probe's stats to
+    its row: no unsort sort. Other tables take the generic route. Both are
+    exact for payloads of any sign, so `allow_negative` (the JAX package's
+    switch to a segmented scan) changes nothing here. `tile_log` sets the
+    probe sort's tile."""
     del allow_negative  # every route is exact for negative payloads
     probe = _probe_on(table, probe_keys)
     n = probe.numel()
-    if use_kernel is not False and _kernel_route_ok(table):
+    key_type = None if use_kernel is False else stats_key_type(table)
+    if key_type is not None:
         s, v = merged_stream(table, probe, tile_log, route)
-        mult, psum = route.merge_stats(s, v, n)
+        merge_stats = route.merge_stats if key_type == torch.int32 else route.merge_stats64
+        mult, psum = merge_stats(s, v, n)
         return MatchStats(mult=mult, psum=psum)
     mult_sorted, psum_sorted, srow, is_build, _, _ = _merged_stats(table, probe)
     mult = torch.zeros(n, dtype=torch.int32, device=table.device)
@@ -515,12 +605,12 @@ def sorted_expand(
     if capacity < 0:
         raise ValueError(f"capacity {capacity} < 0")
     probe = _probe_on(table, probe_keys)
-    if use_kernel is not False and _kernel_route_ok(table):
+    if use_kernel is not False and stats_key_type(table) == torch.int32:
         planes, valid, total = expand_candidates(table, probe, tile_log, route)
         packed, _ = route.compact(planes, valid)
-        key_lo = table.pack32[0] - 1
+        kmin = table.pack32[0]  # key = key' - 1 + kmin; kmin - 1 may be no int64
         return _fit(
-            packed[0], packed[1].to(torch.int64) + key_lo, packed[2].to(torch.int64),
+            packed[0], (packed[1].to(torch.int64) - 1) + kmin, packed[2].to(torch.int64),
             total, capacity,
         )
     fan_out = max(int(table.max_mult), 1)

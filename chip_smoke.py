@@ -30,10 +30,28 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 10. Duplicate keys (256K build rows, 4 per key, 4M probes): per-probe
     stats and the expanded triple multiset against numpy.
 11. Runs `config3_four_way` and `config1_materialize` as the CLI would.
+12. Slice 3's int64 kernels (tile sort, merge level, counts, multi-plane
+    tile sort, multi-plane merges, stats scan) against their plain
+    versions at small ragged shapes, exactly: keys near ±2^62 and at the
+    int64 extremes, INT64_MAX padding, n off the tile, P = 1..3, empty
+    streams.
+13. `config1_wide` at full size (1M build rows with keys over 2^40, 2^24
+    probes) through `bulk_count` and `sorted_match_totals`, counters zeroed
+    just before: count and checksum against numpy and the all-plain path;
+    the int64 count-side kernels again at its shapes; times.
+14. The wide stats side on phase 13's data: `sorted_match_stats` (mult and
+    psum on every row against numpy's searchsorted ranges, the all-plain
+    route identical), `sorted_match_ranks` on the rank twin, a 2-level
+    `bulk_count` against the numpy oracle, each with counters zeroed just
+    before; the int64 stats kernels again at its shapes; times.
+15. The int64/int32 ratio: config 1's own streams (phase 4) widened to
+    int64 through the same count side, timed beside the int32 streams.
 
-Prints the per-kernel JSON line, then the card line, then, only when every
-phase passed, the last line `{"ok": true, "device": {...}}`. Any failure
-raises and exits non-zero.
+Prints the per-kernel JSON line (each kernel's launches on its main path,
+max |kernel - plain|, its time, its plain version's, its bound and the
+library call's), then the card line, then, only when every phase passed,
+the last line `{"ok": true, "device": {...}}`. Any failure raises and
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -57,20 +75,29 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
     check_sampled_triples,
     config1_materialize,
     config1_single_join,
+    config1_wide_host,
     config3_data,
     config3_four_way,
+    numpy_totals,
 )
 from ccve_tpu_torch.config import PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
 from ccve_tpu_torch.exec.bulk import bulk_count, combine_levels  # noqa: E402
-from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_join  # noqa: E402
+from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_join, oracle_pipeline  # noqa: E402
 from ccve_tpu_torch.kernels import _build, bigsort, compact, merge_scan, pairsort  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
 
 N_BUILD = 1_000_000
 N_PROBE = 16_000_000
+N_PROBE_WIDE = 1 << 24
 REPS = 10
 I32_MAX = 2**31 - 1
+I64_MAX = 2**63 - 1
+# The card's peaks from NVIDIA's H100 SXM data sheet, for the bounds: HBM
+# bandwidth, and the non-tensor float32 rate as the rate of one integer
+# compare or add (the data sheet lists no int32 or int64 rate).
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -107,14 +134,46 @@ NEW_WRAPPERS = {
 }
 
 
-def zero_new_counters() -> None:
-    for fns in NEW_WRAPPERS.values():
+# slice 3's wrappers, the int64 builds
+WIDE_WRAPPERS = {
+    "sort_tiles_i64": (bigsort.sort_tiles_i64,),
+    "merge_level_i64": (bigsort.merge_level_i64,),
+    "merge_counts_i64": (merge_scan.merge_counts_i64,),
+    "sort_tiles_multi_i64": (pairsort.sort_tiles_multi_i64,),
+    "merge_multi_i64": (pairsort.merge_level_multi_i64, pairsort.merge_two_multi_i64),
+    "merge_stats_i64": (merge_scan.merge_stats_i64,),
+}
+WIDE_COUNT = ("sort_tiles_i64", "merge_level_i64", "merge_counts_i64")
+WIDE_STATS = ("sort_tiles_multi_i64", "merge_multi_i64", "merge_stats_i64")
+# kernels whose plain version is itself the one PyTorch call that computes
+# the same function (torch.sort per tile or run pair, torch.searchsorted,
+# boolean indexing): their library time is the plain time, not taken twice
+LIBRARY_IS_PLAIN = {
+    "sort_tiles_i32", "merge_level_i32", "merge_counts_i32", "compact_i32",
+    "sort_tiles_i64", "merge_level_i64", "merge_counts_i64",
+}
+
+
+def zero_counters(wrappers: dict) -> None:
+    for fns in wrappers.values():
         for fn in fns:
             fn.launches = 0
 
 
-def new_counters() -> dict:
-    return {name: sum(fn.launches for fn in fns) for name, fns in NEW_WRAPPERS.items()}
+def read_counters(wrappers: dict) -> dict:
+    return {name: sum(fn.launches for fn in fns) for name, fns in wrappers.items()}
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, what bounds it): the least time the card could take to move
+    `nbytes` through HBM and to do `ops` integer operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ALU_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def log2_ceil(x: int) -> int:
+    return max(int(x) - 1, 0).bit_length()
 
 
 def main() -> int:
@@ -144,7 +203,7 @@ def main() -> int:
         "merge_level_i32": bigsort.merge_level_i32,
         "merge_counts_i32": merge_scan.merge_counts_i32,
     }
-    max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS], 0)
+    max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS], 0)
 
     def same(name: str, got, want, what: str):
         """Exact equality of a kernel's output with its plain version's:
@@ -193,7 +252,7 @@ def main() -> int:
     for nt in (1, 2, 3, 5, 13):
         x = values(nt << bigsort.TILE_LOG)
         for run_log in range(bigsort.TILE_LOG, bigsort.TILE_LOG + 5):
-            same("merge_level_i32", bigsort.sort_runs_i32(x, run_log),
+            same("merge_level_i32", bigsort.sort_runs(x, run_log),
                  bigsort.sort_runs_plain(x, run_log),
                  f"sort_runs nt={nt} run_log={run_log}")
 
@@ -302,6 +361,15 @@ def main() -> int:
             med(cuda_ms(lambda: merge_scan.merge_counts_plain(runs, 1 << run_log, n, b32, m))),
         ),
     }
+    # (bytes, operations) of each kernel's work in one bulk_count: keys read
+    # and written once per launch; tile_log compares per key in the tile
+    # sort, one per key and level in the merges, two binary searches per
+    # build row and run in the counts
+    work = {
+        "sort_tiles_i32": (8 * n_pad, n_pad * tile_log),
+        "merge_level_i32": (8 * n_pad * len(levels), n_pad * len(levels)),
+        "merge_counts_i32": (4 * (n + 2 * m), 2 * m * n_runs * log2_ceil(1 << run_log)),
+    }
     # end to end, in turns: plain, kernel, kernel, plain
     e2e = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
@@ -401,49 +469,70 @@ def main() -> int:
     log(f"phase slice-2 kernels (small shapes): ok ({time.perf_counter() - t0:.1f} s), "
         f"max |kernel - plain| {max_err}")
 
-    def path_kernels(tbl, col, path):
+    def path_kernels(tbl, col, path, key="i32"):
         """The stats side's kernel route step by step at a path's shapes,
-        each kernel against its plain version on the same input; returns
-        the inputs, for the times."""
+        on int32 (`key` "i32") or int64 ("i64") keys, each kernel against
+        its plain version on the same input; returns the inputs, for the
+        times."""
         tl = pairsort.TILE_LOG
         n = col.numel()
-        b32, p32 = sm.stats_pack32_streams(tbl, col)
+        pack = sm.stats_pack32_streams if key == "i32" else sm.stats_pack64_streams
+        sort_tiles = getattr(pairsort, f"sort_tiles_multi_{key}")
+        merge_level = getattr(pairsort, f"merge_level_multi_{key}")
+        merge_two = getattr(pairsort, f"merge_two_multi_{key}")
+        b32, p32 = pack(tbl, col)
         rows = torch.arange(n, dtype=torch.int32, device=col.device)
         pk, pv = pairsort.pad_to_tile(p32, [rows], tl)
-        level_in = [pairsort.sort_tiles_multi_i32(pk, pv, tl)]
-        same("sort_tiles_multi_i32", level_in[0], pairsort.sort_tiles_multi_plain(pk, pv, tl), path)
+        level_in = [sort_tiles(pk, pv, tl)]
+        same(f"sort_tiles_multi_{key}", level_in[0], pairsort.sort_tiles_multi_plain(pk, pv, tl), path)
         for lv in range(max((pk.numel() >> tl) - 1, 0).bit_length()):
             k, v = level_in[-1]
-            level_in.append(pairsort.merge_level_multi_i32(k, v, tl + lv))
-            same("merge_multi_i32", level_in[-1],
+            level_in.append(merge_level(k, v, tl + lv))
+            same(f"merge_multi_{key}", level_in[-1],
                  pairsort.merge_level_multi_plain(k, v, tl + lv), f"{path} level {tl + lv}")
         sk, sv = level_in.pop()
         two = (sk[:n], [x[:n] for x in sv], b32, [tbl.payloads.to(torch.int32)])
-        merged = pairsort.merge_two_multi_i32(*two)
-        same("merge_multi_i32", merged, pairsort.merge_two_multi_plain(*two), f"{path} merge two")
+        merged = merge_two(*two)
+        same(f"merge_multi_{key}", merged, pairsort.merge_two_multi_plain(*two), f"{path} merge two")
         return {"tile": (pk, pv), "levels": level_in, "two": two, "merged": merged}
 
-    def path_ms(inputs):
+    def path_ms(inputs, key="i32"):
         """(kernel ms, plain ms) of the sort and merges of one call."""
         tl = pairsort.TILE_LOG
         pk, pv = inputs["tile"]
         two = inputs["two"]
+        sort_tiles = getattr(pairsort, f"sort_tiles_multi_{key}")
+        merge_level = getattr(pairsort, f"merge_level_multi_{key}")
+        merge_two = getattr(pairsort, f"merge_two_multi_{key}")
 
         def levels(fn):
             return sum(med(cuda_ms(lambda k=k, v=v, r=tl + i: fn(k, v, r)))
                        for i, (k, v) in enumerate(inputs["levels"]))
 
         return {
-            "sort_tiles_multi_i32": (
-                med(cuda_ms(lambda: pairsort.sort_tiles_multi_i32(pk, pv, tl))),
+            f"sort_tiles_multi_{key}": (
+                med(cuda_ms(lambda: sort_tiles(pk, pv, tl))),
                 med(cuda_ms(lambda: pairsort.sort_tiles_multi_plain(pk, pv, tl))),
             ),
-            "merge_multi_i32": (
-                levels(pairsort.merge_level_multi_i32)
-                + med(cuda_ms(lambda: pairsort.merge_two_multi_i32(*two))),
+            f"merge_multi_{key}": (
+                levels(merge_level) + med(cuda_ms(lambda: merge_two(*two))),
                 levels(pairsort.merge_level_multi_plain)
                 + med(cuda_ms(lambda: pairsort.merge_two_multi_plain(*two))),
             ),
+        }
+
+    def path_work(inputs):
+        """(bytes, operations) of the multi-plane sort and of the merges of
+        one call: each key and plane read and written once per launch; a
+        tile sort's tile_log compares per key, a merge's one."""
+        tl = pairsort.TILE_LOG
+        pk, pv = inputs["tile"]
+        width = pk.element_size() + 4 * len(pv)
+        n_pad, n_levels = pk.numel(), len(inputs["levels"])
+        merged = inputs["merged"][0].numel()
+        return {
+            "sort": (2 * n_pad * width, n_pad * tl),
+            "merge": (2 * (n_levels * n_pad + merged) * width, n_levels * n_pad + merged),
         }
 
     def in_turns(kernel_fn, plain_fn):
@@ -462,10 +551,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"phase config-3 data: ok ({time.perf_counter() - t0:.1f} s), oracle count "
         f"{want3}, checksums {want3_chk}")
-    zero_new_counters()
+    zero_counters(NEW_WRAPPERS)
     res3 = bulk_count(tables3, probe3)
     torch.cuda.synchronize()
-    launches3 = new_counters()
+    launches3 = read_counters(NEW_WRAPPERS)
     got3 = (int(res3.count), [int(c) for c in res3.payload_checksums])
     if got3 != (want3, want3_chk):
         raise AssertionError(f"config 3 bulk_count gave {got3}, oracle {(want3, want3_chk)}")
@@ -497,6 +586,11 @@ def main() -> int:
         med(cuda_ms(lambda: merge_scan.merge_stats_i32(ms3, mv3, n3))),
         med(cuda_ms(lambda: merge_scan.merge_stats_plain(ms3, mv3, n3))),
     )
+    L3 = ms3.numel()
+    # the stats scan reads the stream and its plane and writes mult and
+    # psum per probe row; a few operations (compare, tag, two adds) per
+    # element
+    work["merge_stats_i32"] = (8 * L3 + 12 * n3, 4 * L3)
     e3 = in_turns(lambda: bulk_count(tables3, probe3), plain3)
     log(f"times on [{card}], CUDA events, medians (per level: 1M probes, 50K builds):")
     log(f"  bulk_count config 3 (1M x 4 levels), kernel path: {spread(e3['kernel'])} "
@@ -508,10 +602,10 @@ def main() -> int:
 
     # ---- 9. config 1 materialized at full size (phase 4's data) ------------
     col1 = probe_dev[:, 0].contiguous()
-    zero_new_counters()
+    zero_counters(NEW_WRAPPERS)
     tiles, total = sm.sorted_expand_tiled(table, col1)
     torch.cuda.synchronize()
-    launches_m = new_counters()
+    launches_m = read_counters(NEW_WRAPPERS)
     psum_m = sum(int(t[2].sum()) for t in tiles)
     if (total, psum_m) != (want_count, want_checksum):
         raise AssertionError(f"sorted_expand_tiled gave ({total}, {psum_m}), numpy "
@@ -541,6 +635,12 @@ def main() -> int:
         med(cuda_ms(lambda: compact.compact_i32(planes_m, valid_m))),
         med(cuda_ms(lambda: compact.compact_plain(planes_m, valid_m))),
     )
+    w_m = path_work(inputs_m)
+    n_c = planes_m.shape[1]
+    work["sort_tiles_multi_i32"] = w_m["sort"]
+    work["merge_multi_i32"] = w_m["merge"]
+    # the compaction reads C planes and the mask and writes C planes
+    work["compact_i32"] = (8 * planes_m.numel() + n_c, n_c * planes_m.shape[0])
     em = in_turns(lambda: sm.sorted_expand_tiled(table, col1),
                   lambda: sm.sorted_expand_tiled(table, col1, route=sm.PLAIN))
     torch.cuda.reset_peak_memory_stats()
@@ -564,11 +664,11 @@ def main() -> int:
     probe_d = gen_probe_table(4_000_000, 1, 262_144)[:, 0]
     table_d = sm.build_sorted(keys_d, pays_d, device="cuda")
     col_d = torch.from_numpy(probe_d.astype(np.int32)).cuda()
-    zero_new_counters()
+    zero_counters(NEW_WRAPPERS)
     stats_d = sm.sorted_match_stats(table_d, col_d)
     tiles_d, total_d = sm.sorted_expand_tiled(table_d, col_d)
     torch.cuda.synchronize()
-    launches_d = new_counters()
+    launches_d = read_counters(NEW_WRAPPERS)
     order_d = np.argsort(keys_d, kind="stable")
     sk_d, sp_d = keys_d[order_d], pays_d[order_d]
     lo_d = np.searchsorted(sk_d, probe_d, side="left")
@@ -606,6 +706,293 @@ def main() -> int:
     result = config1_materialize(device="cuda")
     log(f"phase config1_materialize: ok {json.dumps(result)}")
 
+    # ---- 12. slice 3's int64 kernels against plain versions, small shapes -
+    t0 = time.perf_counter()
+
+    def wide_values(n, dom=None):
+        """int64 keys: half near ±2^62, some at the int64 extremes, the
+        rest over the range; or uniform in [0, dom)."""
+        if dom is not None:
+            return torch.from_numpy(rng.integers(0, dom, n).astype(np.int64)).cuda()
+        v = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+        near = rng.random(n) < 0.5
+        k = int(near.sum())
+        v[near] = rng.integers(2**62 - 64, 2**62 + 64, k) * rng.choice([-1, 1], k)
+        v[rng.random(n) < 0.02] = I64_MAX
+        v[rng.random(n) < 0.02] = -(2**63)
+        return torch.from_numpy(v).cuda()
+
+    for tile_log_w in (bigsort.TILE_LOG, 11, 4, 1):
+        for nt in (1, 3, 13):
+            for dom in (None, 7):
+                x = wide_values(nt << tile_log_w, dom)
+                same("sort_tiles_i64", bigsort.sort_tiles_i64(x, tile_log_w),
+                     bigsort.sort_tiles_plain(x, tile_log_w), f"tile_log={tile_log_w} nt={nt}")
+    for n_w in (1, 5, 2049, 10_000, 13 << 11):
+        for dom in (None, 3):
+            runs_w = wide_values(n_w, dom)  # runs of one value are sorted
+            for run_log_w in range(16):
+                same("merge_level_i64", bigsort.merge_level_i64(runs_w, run_log_w),
+                     bigsort.merge_level_plain(runs_w, run_log_w), f"n={n_w} run_log={run_log_w}")
+                runs_w = bigsort.merge_level_plain(runs_w, run_log_w)
+    for nt in (1, 2, 3, 5, 13):
+        x = wide_values(nt << bigsort.TILE_LOG)
+        for run_log_w in range(bigsort.TILE_LOG, bigsort.TILE_LOG + 5):
+            same("merge_level_i64", bigsort.sort_runs(x, run_log_w),
+                 bigsort.sort_runs_plain(x, run_log_w), f"sort_runs nt={nt} run_log={run_log_w}")
+
+    def counts64_case(n_c, m_c, run_log_c, dom, builds, what):
+        base = 2**61 - 4 * dom  # packed keys near 2^62
+        probes = (base + rng.integers(0, dom + 8, n_c)) * 2
+        probes[: min(n_c, 5)] = 0  # clamped-low probes
+        n_pad_c = n_c + (-n_c) % (1 << 11)
+        p = torch.from_numpy(np.concatenate([probes, np.full(n_pad_c - n_c, I64_MAX)])).cuda()
+        runs_c = bigsort.sort_runs_plain(p, run_log_c, 11)
+        b = torch.from_numpy((base + np.sort(builds)) * 2 + 1).cuda()
+        same("merge_counts_i64", merge_scan.merge_counts_i64(runs_c, 1 << run_log_c, n_c, b, m_c),
+             merge_scan.merge_counts_plain(runs_c, 1 << run_log_c, n_c, b, m_c), what)
+
+    counts64_case(100_000, 30_000, 11, 40_000, rng.choice(40_000, 30_000, replace=False), "many runs")
+    counts64_case(40_000, 70_000, 13, 50_000, rng.integers(0, 50_000, 70_000), "dup builds, m > n")
+    counts64_case(33_333, 100, 14, 1000, rng.integers(0, 1000, 100), "ragged n")
+    counts64_case(0, 10, 11, 50, np.arange(10), "no probes")
+    counts64_case(4096, 1, 11, 3, np.array([1]), "one build")
+
+    for tile_log_w in (pairsort.TILE_LOG, 11, 4, 1):
+        for n_planes in (1, 2, 3):
+            for dom in (None, 3):
+                keys_s, vals_s = wide_values(3 << tile_log_w, dom), planes_of(3 << tile_log_w, n_planes)
+                same("sort_tiles_multi_i64",
+                     pairsort.sort_tiles_multi_i64(keys_s, vals_s, tile_log_w),
+                     pairsort.sort_tiles_multi_plain(keys_s, vals_s, tile_log_w),
+                     f"tile_log={tile_log_w} P={n_planes}")
+    for n_w in (1, 5, 2049, 10_000, 3 << 13):
+        for n_planes in (1, 3):
+            keys_s, vals_s = wide_values(n_w, 3), planes_of(n_w, n_planes)
+            for run_log_w in range(16):
+                same("merge_multi_i64", pairsort.merge_level_multi_i64(keys_s, vals_s, run_log_w),
+                     pairsort.merge_level_multi_plain(keys_s, vals_s, run_log_w),
+                     f"level n={n_w} P={n_planes} run_log={run_log_w}")
+                keys_s, vals_s = pairsort.merge_level_multi_plain(keys_s, vals_s, run_log_w)
+    for na, nb in ((0, 0), (0, 9), (9, 0), (3000, 2100), (1, 70_000), (100_003, 17)):
+        for n_planes in (1, 2, 3):
+            ak, bk = wide_values(na).sort().values, wide_values(nb).sort().values
+            avs, bvs = planes_of(na, n_planes), planes_of(nb, n_planes)
+            same("merge_multi_i64", pairsort.merge_two_multi_i64(ak, avs, bk, bvs),
+                 pairsort.merge_two_multi_plain(ak, avs, bk, bvs), f"merge two {na}+{nb} P={n_planes}")
+    for n_w in (1, 8191, 8193, 100_000):
+        keys_s, vals_s = wide_values(n_w), planes_of(n_w, 2)
+        same("sort_tiles_multi_i64", pairsort.sort_multi_i64(keys_s, vals_s),
+             pairsort.sort_multi_plain(keys_s, vals_s), f"sort_multi n={n_w}")
+
+    def stats64_case(n_s, m_s, dom, pay_lo, pay_hi, what, pad=0):
+        base = 2**61  # key' near 2^61: the packed stream near 2^62
+        builds = np.sort(rng.integers(0, dom, m_s))
+        probes = rng.integers(0, dom + 3, n_s)
+        s_np = np.concatenate([(base + builds) * 2, (base + probes) * 2 + 1])
+        v_np = np.concatenate([rng.integers(pay_lo, pay_hi, m_s), np.arange(n_s)])
+        order = np.argsort(s_np, kind="stable")
+        s_np = np.concatenate([s_np[order], np.full(pad, I64_MAX)])
+        v_np = np.concatenate([v_np[order], np.zeros(pad, np.int64)])
+        s_d = torch.from_numpy(s_np).cuda()
+        v_d = torch.from_numpy(v_np.astype(np.int32)).cuda()
+        same("merge_stats_i64", merge_scan.merge_stats_i64(s_d, v_d, n_s),
+             merge_scan.merge_stats_plain(s_d, v_d, n_s), what)
+
+    stats64_case(0, 10, 5, 0, 9, "no probes")
+    stats64_case(10, 0, 5, 0, 9, "no builds")
+    stats64_case(50_000, 30_000, 5000, 0, 2**20, "duplicate builds")
+    stats64_case(70_000, 2000, 300, 2**29, 2**30, "psum past 2^31")
+    stats64_case(40_000, 15_000, 700, -(2**31), 2**31 - 1, "negative payloads")
+    stats64_case(300_000, 5, 2, 0, 1, "zero payloads, long runs")
+    stats64_case(30_000, 9000, 1000, 0, 100, "sort padding at the end", pad=777)
+    torch.cuda.synchronize()
+    log(f"phase slice-3 kernels (small shapes): ok ({time.perf_counter() - t0:.1f} s), "
+        f"max |kernel - plain| {max_err}")
+
+    # ---- 13. config1_wide at full size: the int64 count side --------------
+    t0 = time.perf_counter()
+    keys_w, pays_w, probe_w = config1_wide_host(N_BUILD, N_PROBE_WIDE, 40)
+    want_w = numpy_totals(keys_w, pays_w, probe_w)
+    sk_w = np.sort(keys_w)
+    lo_w = np.searchsorted(sk_w, probe_w, side="left")
+    hi_w = np.searchsorted(sk_w, probe_w, side="right")
+    table_w = sm.build_sorted(keys_w, pays_w)
+    if table_w.pack32 is not None or not table_w.span62:
+        raise AssertionError("config1_wide's table is not a wide one")
+    col_w = torch.from_numpy(probe_w).cuda()
+    torch.cuda.synchronize()
+    log(f"phase config1_wide data: ok ({time.perf_counter() - t0:.1f} s), numpy count "
+        f"{want_w[0]}, checksum {want_w[1]}")
+    zero_counters(WIDE_WRAPPERS)
+    res_w = bulk_count([table_w], col_w.view(-1, 1))
+    torch.cuda.synchronize()
+    launches_w = read_counters(WIDE_WRAPPERS)
+    got_w = (int(res_w.count), int(res_w.payload_checksums[0]))
+    if got_w != want_w:
+        raise AssertionError(f"config1_wide bulk_count gave {got_w}, numpy {want_w}")
+    idle = [k for k in WIDE_COUNT if launches_w[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by config1_wide's bulk_count: {idle}")
+    tot_w = sm.sorted_match_totals(table_w, col_w)
+    if (int(tot_w[0]), int(tot_w[1])) != want_w:
+        raise AssertionError(f"sorted_match_totals gave {tot_w}, numpy {want_w}")
+    p64, b64 = sm.pack64_streams(table_w, col_w)
+    n_w, m_w = p64.numel(), b64.numel()
+    n_pad_w, run_log_w = sm.count_side_plan(n_w, m_w, bigsort.TILE_LOG)
+    padded_w = torch.cat([p64, p64.new_full((n_pad_w - n_w,), I64_MAX)])
+
+    def plain_totals_w():
+        runs_p = bigsort.sort_runs_plain(padded_w, run_log_w)
+        bc = merge_scan.merge_counts_plain(runs_p, 1 << run_log_w, n_w, b64, m_w).long()
+        return bc.sum(), (bc * table_w.payloads).sum()
+
+    pc_w, ps_w = plain_totals_w()
+    if (int(pc_w), int(ps_w)) != want_w:
+        raise AssertionError(f"config1_wide plain path gave ({int(pc_w)}, {int(ps_w)})")
+    n_runs_w = -(-n_pad_w // (1 << run_log_w))
+    log(f"phase config1_wide: ok, bulk_count and sorted_match_totals count {got_w[0]} "
+        f"checksum {got_w[1]} (numpy and plain path agree); launches "
+        f"{ {k: launches_w[k] for k in WIDE_COUNT} }; {n_runs_w} runs of 2^{run_log_w}, "
+        f"n_pad {n_pad_w}")
+    levels_w = list(range(bigsort.TILE_LOG, bigsort.TILE_LOG + launches_w["merge_level_i64"]))
+    tiles_w = bigsort.sort_tiles_i64(padded_w)
+    same("sort_tiles_i64", tiles_w, bigsort.sort_tiles_plain(padded_w, bigsort.TILE_LOG), "config1_wide")
+    level_in_w = [tiles_w]
+    for lv in levels_w:
+        out = bigsort.merge_level_i64(level_in_w[-1], lv)
+        same("merge_level_i64", out, bigsort.merge_level_plain(level_in_w[-1], lv),
+             f"config1_wide run_log={lv}")
+        level_in_w.append(out)
+    runs_w = level_in_w.pop()
+    same("merge_counts_i64", merge_scan.merge_counts_i64(runs_w, 1 << run_log_w, n_w, b64, m_w),
+         merge_scan.merge_counts_plain(runs_w, 1 << run_log_w, n_w, b64, m_w), "config1_wide")
+    torch.cuda.synchronize()
+    log(f"phase kernels (config1_wide shapes): ok, max |kernel - plain| {max_err}")
+    for name, (kt, pt) in {
+        "sort_tiles_i64": (
+            med(cuda_ms(lambda: bigsort.sort_tiles_i64(padded_w))),
+            med(cuda_ms(lambda: bigsort.sort_tiles_plain(padded_w, bigsort.TILE_LOG))),
+        ),
+        "merge_level_i64": (
+            sum(med(cuda_ms(lambda x=x, lv=lv: bigsort.merge_level_i64(x, lv)))
+                for x, lv in zip(level_in_w, levels_w)),
+            sum(med(cuda_ms(lambda x=x, lv=lv: bigsort.merge_level_plain(x, lv)))
+                for x, lv in zip(level_in_w, levels_w)),
+        ),
+        "merge_counts_i64": (
+            med(cuda_ms(lambda: merge_scan.merge_counts_i64(runs_w, 1 << run_log_w, n_w, b64, m_w))),
+            med(cuda_ms(lambda: merge_scan.merge_counts_plain(runs_w, 1 << run_log_w, n_w, b64, m_w))),
+        ),
+    }.items():
+        kernel_ms[name] = (kt, pt)
+    work["sort_tiles_i64"] = (16 * n_pad_w, n_pad_w * bigsort.TILE_LOG)
+    work["merge_level_i64"] = (16 * n_pad_w * len(levels_w), n_pad_w * len(levels_w))
+    work["merge_counts_i64"] = (8 * (n_w + m_w) + 4 * m_w,
+                                2 * m_w * n_runs_w * log2_ceil(1 << run_log_w))
+    ew = in_turns(lambda: bulk_count([table_w], col_w.view(-1, 1)), plain_totals_w)
+    log(f"times on [{card}], CUDA events, medians:")
+    log(f"  bulk_count config1_wide (1M build x 2^24 probe, span 2^40), kernel path: "
+        f"{spread(ew['kernel'])} = {N_PROBE_WIDE / med(ew['kernel']) / 1e3:.1f}M probe rows/s")
+    log(f"  all-plain torch path: {spread(ew['plain'])}")
+    for name in WIDE_COUNT:
+        kt, pt = kernel_ms[name]
+        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms ({launches_w[name]} launch(es) "
+            f"per bulk_count)")
+
+    # ---- 14. the wide stats side on phase 13's data ------------------------
+    t0 = time.perf_counter()
+    zero_counters(WIDE_WRAPPERS)
+    stats_w = sm.sorted_match_stats(table_w, col_w)
+    torch.cuda.synchronize()
+    launches_s = read_counters(WIDE_WRAPPERS)
+    prefix_w = np.concatenate([[0], np.cumsum(pays_w[np.argsort(keys_w, kind="stable")])])
+    if not (np.array_equal(stats_w.mult.cpu().numpy(), hi_w - lo_w)
+            and np.array_equal(stats_w.psum.cpu().numpy(), prefix_w[hi_w] - prefix_w[lo_w])):
+        raise AssertionError("config1_wide stats: mult or psum disagree with numpy")
+    idle = [k for k in WIDE_STATS if launches_s[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the wide sorted_match_stats: {idle}")
+    plain_s = sm.sorted_match_stats(table_w, col_w, route=sm.PLAIN)
+    if not (torch.equal(plain_s.mult, stats_w.mult) and torch.equal(plain_s.psum, stats_w.psum)):
+        raise AssertionError("config1_wide stats: the all-plain route disagrees")
+    rt_w = sm.rank_table(table_w)
+    zero_counters(WIDE_WRAPPERS)
+    mult_r, start_r = sm.sorted_match_ranks(rt_w, col_w)
+    torch.cuda.synchronize()
+    launches_r = read_counters(WIDE_WRAPPERS)
+    live = (hi_w - lo_w) > 0
+    if not (np.array_equal(mult_r.cpu().numpy(), hi_w - lo_w)
+            and np.array_equal(start_r.cpu().numpy()[live], lo_w[live])):
+        raise AssertionError("config1_wide ranks disagree with numpy")
+    half = 1 << 20
+    probe2 = np.stack([probe_w[:half], probe_w[half : 2 * half]], axis=1)
+    rows2 = oracle_pipeline(probe2, [OracleBuildTable(keys_w, pays_w)] * 2, PayloadMode.FULL)
+    want2 = (rows2.shape[0], [int(rows2[:, 3].sum()), int(rows2[:, 5].sum())])
+    probe2_d = torch.from_numpy(probe2).cuda()
+    zero_counters(WIDE_WRAPPERS)
+    res2 = bulk_count([table_w, table_w], probe2_d)
+    torch.cuda.synchronize()
+    launches_2 = read_counters(WIDE_WRAPPERS)
+    got2 = (int(res2.count), [int(c) for c in res2.payload_checksums])
+    if got2 != want2:
+        raise AssertionError(f"2-level wide bulk_count gave {got2}, oracle {want2}")
+    for what, lc in (("ranks", launches_r), ("2-level bulk_count", launches_2)):
+        idle = [k for k in WIDE_STATS if lc[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by the wide {what}: {idle}")
+    res2p = combine_levels([sm.sorted_match_stats(table_w, probe2_d[:, i].contiguous(),
+                                                  route=sm.PLAIN) for i in range(2)])
+    if (int(res2p.count), [int(c) for c in res2p.payload_checksums]) != got2:
+        raise AssertionError("2-level wide bulk_count: the all-plain path disagrees")
+    log(f"phase config1_wide stats: ok ({time.perf_counter() - t0:.1f} s), mult and psum of "
+        f"{N_PROBE_WIDE} rows, ranks and a 2-level bulk_count (count {got2[0]}, checksums "
+        f"{got2[1]}) match numpy and its oracle, all-plain identical; launches "
+        f"{ {k: launches_s[k] for k in WIDE_STATS} } (stats), "
+        f"{ {k: launches_2[k] for k in WIDE_STATS} } (2 levels)")
+    inputs_w = path_kernels(table_w, col_w, "config1_wide stats", key="i64")
+    ms_w, mv_w = inputs_w["merged"]
+    mv_w = mv_w[0]
+    same("merge_stats_i64", merge_scan.merge_stats_i64(ms_w, mv_w, n_w),
+         merge_scan.merge_stats_plain(ms_w, mv_w, n_w), "config1_wide")
+    torch.cuda.synchronize()
+    log(f"phase kernels (wide stats shapes): ok, max |kernel - plain| {max_err}")
+    kernel_ms.update(path_ms(inputs_w, key="i64"))
+    kernel_ms["merge_stats_i64"] = (
+        med(cuda_ms(lambda: merge_scan.merge_stats_i64(ms_w, mv_w, n_w))),
+        med(cuda_ms(lambda: merge_scan.merge_stats_plain(ms_w, mv_w, n_w))),
+    )
+    w_w = path_work(inputs_w)
+    work["sort_tiles_multi_i64"] = w_w["sort"]
+    work["merge_multi_i64"] = w_w["merge"]
+    work["merge_stats_i64"] = (12 * ms_w.numel() + 12 * n_w, 4 * ms_w.numel())
+    es = in_turns(lambda: sm.sorted_match_stats(table_w, col_w),
+                  lambda: sm.sorted_match_stats(table_w, col_w, route=sm.PLAIN))
+    log(f"times on [{card}], CUDA events, medians:")
+    log(f"  sorted_match_stats config1_wide (1M build x 2^24 probe), kernel path: "
+        f"{spread(es['kernel'])}")
+    log(f"  all-plain torch path: {spread(es['plain'])}")
+    for name in WIDE_STATS:
+        kt, pt = kernel_ms[name]
+        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms ({launches_s[name]} launch(es) "
+            f"per call)")
+
+    # ---- 15. the int64/int32 ratio on config 1's own data ------------------
+    p32_c, b32_c = sm.pack32_streams(table, col)
+    p64_c, b64_c = p32_c.long(), b32_c.long()
+    m_c = b32_c.numel()
+    bc32 = sm._count_side_bc(p32_c, b32_c, m_c)
+    bc64 = sm._count_side_bc(p64_c, b64_c, m_c)
+    if not torch.equal(bc32, bc64):
+        raise AssertionError("config 1: the int64 count side disagrees with the int32 one")
+    er = {"i32": [], "i64": []}
+    for which in ("i32", "i64", "i64", "i32"):
+        er[which] += cuda_ms((lambda: sm._count_side_bc(p32_c, b32_c, m_c)) if which == "i32"
+                             else (lambda: sm._count_side_bc(p64_c, b64_c, m_c)))
+    ratio = med(er["i64"]) / med(er["i32"])
+    log(f"phase int64/int32 ratio: ok, config 1's streams (1M x 16M) through the count side: "
+        f"int32 {spread(er['i32'])}, int64 {spread(er['i64'])}, ratio {ratio:.4f} [{card}]")
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -621,16 +1008,36 @@ def main() -> int:
                             "ccve_tpu/kernels/merge_scan.py:240"),
         "compact_i32": ("ccve_tpu_torch/kernels/csrc/compact.cu",
                         "ccve_tpu/kernels/compact.py:77"),
+        "sort_tiles_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
+                           "ccve_tpu/kernels/pairsort.py:563"),
+        "merge_level_i64": ("ccve_tpu_torch/kernels/csrc/merge_level.cu",
+                            "ccve_tpu/kernels/pairsort.py:592"),
+        "merge_counts_i64": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
+                             "ccve_tpu/kernels/merge_scan.py:784"),
+        "sort_tiles_multi_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles_multi.cu",
+                                 "ccve_tpu/kernels/pairsort.py:563"),
+        "merge_multi_i64": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
+                            "ccve_tpu/kernels/pairsort.py:592"),
+        "merge_stats_i64": ("ccve_tpu_torch/kernels/csrc/merge_stats.cu",
+                            "ccve_tpu/kernels/merge_scan.py:47"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per
     # call at the materialize shapes, and per level at config 3's for the
-    # stats scan, which only the stats path runs.
+    # stats scan, which only the stats path runs. Slice 3's are those of
+    # config1_wide's bulk_count (count side) and sorted_match_stats
+    # (stats side), with the times at their shapes.
     for name in NEW_WRAPPERS:
         launches[name] = launches3[name] + launches_m[name]
         kernel_ms[name] = ms_cfg3[name] if name == "merge_stats_i32" else ms_mat[name]
-    print(json.dumps({"kernels": [
-        {
+    for name in WIDE_COUNT:
+        launches[name] = launches_w[name]
+    for name in WIDE_STATS:
+        launches[name] = launches_s[name]
+    entries = []
+    for name in sources:
+        bound_ms, bound_by = bound(*work[name])
+        entries.append({
             "name": name,
             "route": "cuda",
             "source": sources[name][0],
@@ -639,9 +1046,11 @@ def main() -> int:
             "max_abs_err": max_err[name],
             "ms": kernel_ms[name][0],
             "plain_ms": kernel_ms[name][1],
-        }
-        for name in sources
-    ]}))
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": kernel_ms[name][1] if name in LIBRARY_IS_PLAIN else None,
+        })
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

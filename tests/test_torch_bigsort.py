@@ -30,7 +30,7 @@ def test_sort_runs_matches_jax_ladder(nt, cap):
         want = np.asarray(
             jax_bigsort._sort_padded_buf(jnp.asarray(x), TILE_LOG, 0, n_levels_cap=cap)
         ).reshape(-1)[:n_pad]
-    got = bigsort.sort_runs_i32(torch.from_numpy(x), TILE_LOG + cap, TILE_LOG)
+    got = bigsort.sort_runs(torch.from_numpy(x), TILE_LOG + cap, TILE_LOG)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -42,7 +42,7 @@ def test_sort_runs_every_cap(nt, dom):
     tile_log = 6
     x = _values(rng, nt << tile_log, dom)
     for run_log in range(tile_log, tile_log + 6):
-        got = bigsort.sort_runs_i32(torch.from_numpy(x), run_log, tile_log).numpy()
+        got = bigsort.sort_runs(torch.from_numpy(x), run_log, tile_log).numpy()
         run = 1 << run_log
         for s in range(0, x.size, run):
             np.testing.assert_array_equal(got[s : s + run], np.sort(x[s : s + run]))
@@ -83,7 +83,7 @@ def test_wrappers_check_their_operands():
     with pytest.raises(ValueError):
         bigsort.merge_level_i32(x[::2], 3)  # not contiguous
     with pytest.raises(ValueError):
-        bigsort.sort_runs_i32(x, TILE_LOG - 1, TILE_LOG)
+        bigsort.sort_runs(x, TILE_LOG - 1, TILE_LOG)
 
 
 def test_no_plain_version_off_the_cpu():

@@ -32,7 +32,7 @@ def test_n_level_bulk_count_matches_jax_and_oracle(n_joins, chunk_factor, dtype)
     keys, payloads = gen_rhs_table(120, chunk_factor)
     probe = gen_probe_table(900, n_joins, 240).astype(dtype)  # about half hit per level
     want = jax_bulk.bulk_count([jax_sm.build_sorted(keys, payloads)] * n_joins, probe)
-    got = bulk.bulk_count([sm.build_sorted(keys, payloads)] * n_joins, torch.from_numpy(probe))
+    got = bulk.bulk_count([sm.build_sorted(keys, payloads, device="cpu")] * n_joins, torch.from_numpy(probe))
     count, checksums = _expected(probe, keys, payloads, n_joins)
     assert int(got.count) == int(want.count) == count
     assert [int(c) for c in got.payload_checksums] == [int(c) for c in want.payload_checksums]
@@ -43,7 +43,7 @@ def test_n_level_bulk_count_matches_jax_and_oracle(n_joins, chunk_factor, dtype)
 def test_n_level_tile_rows(tile_rows):
     keys, payloads = gen_rhs_table(80, 2)
     probe = gen_probe_table(700, 3, 100)
-    tables = [sm.build_sorted(keys, payloads)] * 3
+    tables = [sm.build_sorted(keys, payloads, device="cpu")] * 3
     got = bulk.bulk_count(tables, probe, tile_rows=tile_rows)
     count, checksums = _expected(probe, keys, payloads, 3)
     assert int(got.count) == count
@@ -64,7 +64,7 @@ def test_levels_with_different_tables():
     ]
     probe = np.stack([rng.integers(0, 55, 2000), rng.integers(0, 70, 2000) * 2**30,
                       rng.integers(0, 65, 2000)], axis=1)
-    got = bulk.bulk_count([sm.build_sorted(k, p) for k, p in builds], probe)
+    got = bulk.bulk_count([sm.build_sorted(k, p, device="cpu") for k, p in builds], probe)
     rows = oracle.oracle_pipeline(
         probe, [oracle.OracleBuildTable(k, p) for k, p in builds], PayloadMode.FULL
     )
@@ -81,11 +81,11 @@ def test_levels_with_different_tables():
 def test_bulk_materialize_matches_oracle(mode, n_joins, chunk_factor):
     keys, payloads = gen_rhs_table(96, chunk_factor)
     probe = gen_probe_table(600, n_joins, 150)
-    got = bulk.bulk_materialize([sm.build_sorted(keys, payloads)] * n_joins, probe, mode)
+    got = bulk.bulk_materialize([sm.build_sorted(keys, payloads, device="cpu")] * n_joins, probe, mode)
     want = oracle.oracle_pipeline(probe, [oracle.OracleBuildTable(keys, payloads)] * n_joins, mode)
     assert got.dtype == torch.int64 and got.shape == want.shape
     oracle.assert_same_multiset(got.numpy(), want)
-    by_value = bulk.bulk_materialize([sm.build_sorted(keys, payloads)] * n_joins,
+    by_value = bulk.bulk_materialize([sm.build_sorted(keys, payloads, device="cpu")] * n_joins,
                                      torch.from_numpy(probe), mode.value)
     oracle.assert_same_multiset(by_value.numpy(), want)
 
@@ -111,16 +111,16 @@ def test_empty_build_table_bulk_count_is_zero():
     probe = np.arange(12, dtype=np.int64).reshape(6, 2)
     for n_joins, cols in ((1, probe[:, :1]), (2, probe)):
         want = jax_bulk.bulk_count([jax_sm.build_sorted(empty, empty)] * n_joins, cols)
-        got = bulk.bulk_count([sm.build_sorted(empty, empty)] * n_joins, cols)
+        got = bulk.bulk_count([sm.build_sorted(empty, empty, device="cpu")] * n_joins, cols)
         assert int(got.count) == int(want.count) == 0
         assert got.payload_checksums.tolist() == [0] * n_joins
         np.testing.assert_array_equal(np.asarray(want.payload_checksums), [0] * n_joins)
-    rows = bulk.bulk_materialize([sm.build_sorted(empty, empty)], probe[:, :1], PayloadMode.FULL)
+    rows = bulk.bulk_materialize([sm.build_sorted(empty, empty, device="cpu")], probe[:, :1], PayloadMode.FULL)
     assert rows.shape == (0, 3)
 
 
 def test_hash_tables_are_not_ported():
-    table = sm.build_sorted(np.arange(5))
+    table = sm.build_sorted(np.arange(5), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         bulk.match_stats(object(), torch.arange(3))
     with pytest.raises(NotImplementedError, match="slice 5"):

@@ -53,7 +53,7 @@ def test_sort_runs_kernel(cuda, nt):
     rng = np.random.default_rng(nt)
     x = _i32(rng.integers(-(2**31), 2**31 - 1, nt << bigsort.TILE_LOG), cuda)
     for run_log in range(bigsort.TILE_LOG, bigsort.TILE_LOG + 5):
-        got = bigsort.sort_runs_i32(x, run_log)
+        got = bigsort.sort_runs(x, run_log)
         assert torch.equal(got, bigsort.sort_runs_plain(x, run_log)), run_log
 
 
@@ -213,7 +213,169 @@ def test_slice_two_reaches_the_kernels(cuda):
     rows, _, _, total = sm.sorted_expand(table, probe, 2 * probe.numel())
     after = [fn.launches for fn in counters]
     assert all(a > b for a, b in zip(after, before)), (before, after)
-    cpu = sm.sorted_match_stats(sm.build_sorted(keys, pays), probe.cpu())
+    cpu = sm.sorted_match_stats(sm.build_sorted(keys, pays, device="cpu"), probe.cpu())
     assert torch.equal(stats.mult.cpu(), cpu.mult)
     assert torch.equal(stats.psum.cpu(), cpu.psum)
     assert int(total) == int(cpu.mult.sum())
+
+
+# ---- the int64 builds (slice 3) -------------------------------------------
+
+I64_MAX = 2**63 - 1
+
+
+def _i64(a, device):
+    return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+
+
+def _wide(rng, n, dom=None):
+    """int64 keys: near ±2^62 and over the whole range, or in [0, dom)."""
+    if dom is not None:
+        return rng.integers(0, dom, n, dtype=np.int64)
+    keys = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    near = rng.random(n) < 0.5
+    k = int(near.sum())
+    keys[near] = rng.integers(2**62 - 50, 2**62 + 50, k) * rng.choice([-1, 1], k)
+    keys[rng.random(n) < 0.05] = I64_MAX
+    return keys
+
+
+@pytest.mark.parametrize("tile_log", [1, 4, 11, bigsort.TILE_LOG])
+@pytest.mark.parametrize("nt", [1, 3, 13])
+def test_sort_tiles_i64_kernel(cuda, tile_log, nt):
+    rng = np.random.default_rng(nt * 100 + tile_log)
+    x = _i64(_wide(rng, nt << tile_log), cuda)
+    got = bigsort.sort_tiles_i64(x, tile_log)
+    assert torch.equal(got, bigsort.sort_tiles_plain(x, tile_log))
+
+
+@pytest.mark.parametrize("n", [1, 5, 2049, 10_000, 5 << 13])
+@pytest.mark.parametrize("dom", [3, None])
+def test_merge_level_i64_kernel(cuda, n, dom):
+    rng = np.random.default_rng(n)
+    runs = _i64(_wide(rng, n, dom), cuda)  # runs of one value are sorted
+    for run_log in range(16):
+        got = bigsort.merge_level_i64(runs, run_log)
+        runs = bigsort.merge_level_plain(runs, run_log)
+        assert torch.equal(got, runs), run_log
+
+
+@pytest.mark.parametrize("nt", [1, 2, 3, 5, 13])
+def test_sort_runs_i64_kernel(cuda, nt):
+    rng = np.random.default_rng(nt)
+    x = _i64(_wide(rng, nt << bigsort.TILE_LOG), cuda)
+    for run_log in range(bigsort.TILE_LOG, bigsort.TILE_LOG + 5):
+        got = bigsort.sort_runs(x, run_log)
+        assert torch.equal(got, bigsort.sort_runs_plain(x, run_log)), run_log
+
+
+@pytest.mark.parametrize(
+    "n, m, dup",
+    [(100_000, 30_000, False), (40_000, 70_000, True), (33_333, 100, True), (0, 10, False)],
+)
+def test_merge_counts_i64_kernel(cuda, n, m, dup):
+    rng = np.random.default_rng(n + m)
+    dom = max(m, 1000)
+    base = 2**61 - 5 * dom  # packed keys near the top of the int64 range
+    probes = (base + rng.integers(0, dom + 8, n)) * 2
+    n_pad = n + (-n) % 2048
+    p = _i64(np.concatenate([probes, np.full(n_pad - n, I64_MAX)]), cuda)
+    runs = bigsort.sort_runs_plain(p, 11, 11)
+    builds = rng.integers(0, dom, m) if dup else rng.choice(dom, m, replace=False)
+    b64 = _i64((base + np.sort(builds)) * 2 + 1, cuda)
+    got = merge_scan.merge_counts_i64(runs, 2048, n, b64, m)
+    assert torch.equal(got, merge_scan.merge_counts_plain(runs, 2048, n, b64, m))
+
+
+@pytest.mark.parametrize("tile_log", [1, 4, 11, pairsort.TILE_LOG])
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("dom", [3, None])
+def test_sort_tiles_multi_i64_kernel(cuda, tile_log, n_planes, dom):
+    rng = np.random.default_rng(tile_log * 10 + n_planes)
+    n = 5 << tile_log
+    keys = _i64(_wide(rng, n, dom), cuda)
+    vals = _planes(rng, n, n_planes, cuda)
+    _same(pairsort.sort_tiles_multi_i64(keys, vals, tile_log),
+          pairsort.sort_tiles_multi_plain(keys, vals, tile_log))
+
+
+@pytest.mark.parametrize("n", [1, 5, 2049, 10_000, 3 << 13])
+@pytest.mark.parametrize("n_planes", [1, 3])
+def test_merge_level_multi_i64_kernel(cuda, n, n_planes):
+    rng = np.random.default_rng(n)
+    keys = _i64(rng.integers(0, 7, n) + 2**62, cuda)
+    vals = _planes(rng, n, n_planes, cuda)
+    for run_log in range(16):
+        got = pairsort.merge_level_multi_i64(keys, vals, run_log)
+        keys, vals = pairsort.merge_level_multi_plain(keys, vals, run_log)
+        _same(got, (keys, vals))
+
+
+@pytest.mark.parametrize(
+    "na, nb", [(0, 0), (0, 9), (9, 0), (3000, 2100), (1, 70_000), (100_003, 17)]
+)
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+def test_merge_two_multi_i64_kernel(cuda, na, nb, n_planes):
+    rng = np.random.default_rng(na + nb + n_planes)
+    ak = _i64(np.sort(rng.integers(-50, 50, na) * 2**56), cuda)
+    bk = _i64(np.sort(rng.integers(-50, 50, nb) * 2**56), cuda)
+    avs = _planes(rng, na, n_planes, cuda)
+    bvs = _planes(rng, nb, n_planes, cuda)
+    _same(pairsort.merge_two_multi_i64(ak, avs, bk, bvs),
+          pairsort.merge_two_multi_plain(ak, avs, bk, bvs))
+
+
+@pytest.mark.parametrize("n", [0, 1, 8191, 8193, 100_000])
+def test_sort_multi_i64_kernel_path(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = _i64(_wide(rng, n), cuda)
+    vals = _planes(rng, n, 2, cuda)
+    _same(pairsort.sort_multi_i64(keys, vals), pairsort.sort_multi_plain(keys, vals))
+
+
+@pytest.mark.parametrize(
+    "n, m, dom, pay_lo, pay_hi",
+    [
+        (0, 10, 5, 0, 9),
+        (10, 0, 5, 0, 9),
+        (50_000, 30_000, 5000, 0, 2**20),
+        (70_000, 2000, 300, 2**29, 2**30),  # psum past 2^31
+        (40_000, 15_000, 700, -(2**31), 2**31 - 1),  # negative payloads
+        (300_000, 5, 2, 0, 1),  # zero payloads, long runs
+    ],
+)
+def test_merge_stats_i64_kernel(cuda, n, m, dom, pay_lo, pay_hi):
+    rng = np.random.default_rng(n + m)
+    s, v = _stats_stream(rng, n, m, dom, pay_lo, pay_hi, "cpu")
+    s = s.long()
+    s = ((((s >> 1) + 2**61) << 1) | (s & 1)).to(cuda)  # key' near 2^61
+    v = v.to(cuda)
+    got = merge_scan.merge_stats_i64(s, v, n)
+    want = merge_scan.merge_stats_plain(s, v, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wide_paths_reach_the_kernels(cuda):
+    """On CUDA tensors a wide table's count side and stats side launch the
+    int64 kernels, and agree with the CPU's plain versions."""
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 2**40, 20_000, dtype=np.int64)
+    pays = rng.integers(-(2**30), 2**30, keys.size)
+    probe_np = np.concatenate([rng.choice(keys, 60_000), rng.integers(0, 2**40, 40_000)])
+    probe = torch.from_numpy(probe_np).to(cuda)
+    counters = [bigsort.sort_tiles_i64, bigsort.merge_level_i64, merge_scan.merge_counts_i64,
+                pairsort.sort_tiles_multi_i64, pairsort.merge_level_multi_i64,
+                pairsort.merge_two_multi_i64, merge_scan.merge_stats_i64]
+    before = [fn.launches for fn in counters]
+    table = sm.build_sorted(keys, pays)
+    assert table.device.type == "cuda" and table.pack32 is None
+    count, checksum = sm.sorted_match_totals(table, probe)
+    stats = sm.sorted_match_stats(table, probe)
+    after = [fn.launches for fn in counters]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    cpu_table = sm.build_sorted(keys, pays, device="cpu")
+    want = sm.sorted_match_totals(cpu_table, probe_np)
+    assert (int(count), int(checksum)) == (int(want[0]), int(want[1]))
+    cpu = sm.sorted_match_stats(cpu_table, probe_np)
+    assert torch.equal(stats.mult.cpu(), cpu.mult)
+    assert torch.equal(stats.psum.cpu(), cpu.psum)

@@ -22,7 +22,7 @@ def _triples(rows, keys, pays):
 
 
 def _tables(keys, payloads):
-    return jax_sm.build_sorted(keys, payloads), sm.build_sorted(keys, payloads)
+    return jax_sm.build_sorted(keys, payloads), sm.build_sorted(keys, payloads, device="cpu")
 
 
 CASES = {
@@ -88,7 +88,7 @@ def test_capacity_contract(use_kernel):
     first `capacity` triples and still reports the full total."""
     keys = np.repeat(np.arange(40) * 3, 3)
     probe = torch.from_numpy(np.random.default_rng(5).integers(0, 125, 300))
-    table = sm.build_sorted(keys, np.arange(keys.size) + 500)
+    table = sm.build_sorted(keys, np.arange(keys.size) + 500, device="cpu")
     rows, ks, ps, total = sm.sorted_expand(table, probe, 2000, use_kernel=use_kernel)
     t = int(total)
     assert (rows[:t] >= 0).all() and (rows[t:] == -1).all()
@@ -103,7 +103,7 @@ def test_capacity_contract(use_kernel):
 def test_tiled_matches_monolithic(tile_rows):
     rng = np.random.default_rng(tile_rows)
     keys = np.sort(np.repeat(rng.integers(0, 500, 600), 2))
-    table = sm.build_sorted(keys, rng.integers(-(2**31), 2**31 - 1, keys.size))
+    table = sm.build_sorted(keys, rng.integers(-(2**31), 2**31 - 1, keys.size), device="cpu")
     probe = torch.from_numpy(rng.integers(-5, 510, 3001).astype(np.int32))
     whole = sm.sorted_expand(table, probe, probe.numel() * table.max_mult)
     tiles, total = sm.sorted_expand_tiled(table, probe, tile_rows=tile_rows)
@@ -115,7 +115,7 @@ def test_tiled_matches_monolithic(tile_rows):
 
 
 def test_tiled_default_tile_is_sized_by_memory(monkeypatch):
-    table = sm.build_sorted(np.repeat(np.arange(10), 4))
+    table = sm.build_sorted(np.repeat(np.arange(10), 4), device="cpu")
     monkeypatch.setattr(sm, "_free_bytes", lambda device: 2 * (1 << 30))
     per_row = sm.EXPAND_BYTES_PER_ELEMENT + 4 * sm.EXPAND_BYTES_PER_CANDIDATE
     assert sm.expand_tile_rows(table) == (1 << 30) // per_row - 40

@@ -50,7 +50,7 @@ def test_bulk_count_matches_oracle():
     rng = np.random.default_rng(4)
     probe = rng.integers(0, 320, (4000, 1))
     rows = oracle_pipeline(probe, [OracleBuildTable(keys, payloads)], PayloadMode.FULL)
-    got = bulk_count([sm.build_sorted(keys, payloads)], torch.from_numpy(probe))
+    got = bulk_count([sm.build_sorted(keys, payloads, device="cpu")], torch.from_numpy(probe))
     assert int(got.count) == rows.shape[0]
     assert int(got.payload_checksums[0]) == int(rows[:, 2].sum())
 
@@ -77,7 +77,7 @@ def test_skip_levels_override(monkeypatch, skip):
     monkeypatch.setattr(sm, "SKIP_LEVELS_OVERRIDE", skip)
     keys, payloads = gen_rhs_table(500, 1)
     probe = np.random.default_rng(skip).integers(0, 520, 3000)
-    table = sm.build_sorted(keys, payloads)
+    table = sm.build_sorted(keys, payloads, device="cpu")
     got = sm.sorted_match_totals(table, probe)
     assert (int(got[0]), int(got[1])) == _numpy_totals(keys, payloads, probe)
 
@@ -100,7 +100,7 @@ def test_negative_payloads_exact():
     keys = rng.integers(0, 300, 700)
     payloads = rng.integers(-5000, 5000, 700)
     probe = rng.integers(0, 320, 2500)
-    got = sm.sorted_match_totals(sm.build_sorted(keys, payloads), probe)
+    got = sm.sorted_match_totals(sm.build_sorted(keys, payloads, device="cpu"), probe)
     assert (int(got[0]), int(got[1])) == _numpy_totals(keys, payloads, probe)
 
 
@@ -116,7 +116,7 @@ def test_negative_payloads_exact():
 )
 def test_build_sorted_static_fields_match_jax(keys, payloads):
     want = jax_sm.build_sorted(keys, payloads)
-    got = sm.build_sorted(keys, payloads)
+    got = sm.build_sorted(keys, payloads, device="cpu")
     for f in sm.META_FIELDS:
         assert getattr(got, f) == getattr(want, f), f
     np.testing.assert_array_equal(got.keys.numpy(), np.asarray(want.keys))
@@ -126,20 +126,28 @@ def test_build_sorted_static_fields_match_jax(keys, payloads):
 
 
 def test_unported_branches_raise():
-    """The wide-key count side (slice 3) and hash tables (slice 5) raise.
-    An empty table and N-level joins are ported: they answer."""
-    wide = sm.build_sorted(np.array([0, 2**40]), np.array([1, 2]))
-    assert wide.pack32 is None
-    probe = np.array([0, 1])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        sm.sorted_match_totals(wide, probe)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        sm.sorted_build_counts(wide, probe)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        bulk_count([wide], probe[:, None])
-    count, checksum = sm.sorted_match_totals(sm.build_sorted(np.zeros(0, np.int64)), probe)
+    """The count side of a key span of 2^62 or more (slice 3b) and hash
+    tables (slice 5) raise. Wide tables (span past 2^30, below 2^62), an
+    empty table and N-level joins are ported: they answer."""
+    wide = sm.build_sorted(np.array([0, 2**40]), np.array([1, 2]), device="cpu")
+    assert wide.pack32 is None and wide.span62
+    probe = np.array([0, 1, 2**40, 2**40, -(2**63), 2**63 - 1])
+    count, checksum = sm.sorted_match_totals(wide, probe)
+    assert (int(count), int(checksum)) == (3, 5)
+    assert sm.sorted_build_counts(wide, probe).tolist() == [1, 2]
+    res = bulk_count([wide], probe[:, None])
+    assert int(res.count) == 3 and res.payload_checksums.tolist() == [5]
+    huge = sm.build_sorted(np.array([-(2**62), 2**62]), device="cpu")
+    assert not huge.span62
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        sm.sorted_match_totals(huge, probe)
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        sm.sorted_build_counts(huge, probe)
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        bulk_count([huge], probe[:, None])
+    count, checksum = sm.sorted_match_totals(sm.build_sorted(np.zeros(0, np.int64), device="cpu"), probe)
     assert (int(count), int(checksum)) == (0, 0)
-    narrow = sm.build_sorted(np.arange(10))
+    narrow = sm.build_sorted(np.arange(10), device="cpu")
     two = bulk_count([narrow, narrow], np.zeros((4, 2), np.int64))
     assert int(two.count) == 4 and two.payload_checksums.tolist() == [40_000_000] * 2
     with pytest.raises(NotImplementedError, match="slice"):
@@ -150,7 +158,7 @@ def test_unported_branches_raise():
 
 def test_tile_rows_and_empty_probe():
     keys, payloads = gen_rhs_table(500, 2)
-    table = sm.build_sorted(keys, payloads)
+    table = sm.build_sorted(keys, payloads, device="cpu")
     probe = np.random.default_rng(3).integers(0, 510, (7001, 1))
     whole = bulk_count([table], probe)
     tiled = bulk_count([table], probe, tile_rows=1000)

@@ -118,7 +118,7 @@ def test_sorted_match_stats_matches_jax_xla(use_kernel, keys, payloads, probe_lo
     jax_table = jax_sm.build_sorted(keys, payloads)
     want = jax_sm.sorted_match_stats(jax_table, jnp.asarray(probe.astype(np.int64)),
                                      allow_negative=True, use_kernel=False)
-    got = sm.sorted_match_stats(sm.build_sorted(keys, payloads), torch.from_numpy(probe),
+    got = sm.sorted_match_stats(sm.build_sorted(keys, payloads, device="cpu"), torch.from_numpy(probe),
                                 use_kernel=use_kernel)
     _check_stats(got, want)
 
@@ -128,7 +128,7 @@ def test_allow_negative_changes_nothing():
     keys = np.sort(rng.integers(0, 200, 700))
     payloads = rng.integers(-(2**20), 2**20, 700)
     probe = torch.from_numpy(rng.integers(-3, 210, 4000))
-    table = sm.build_sorted(keys, payloads)
+    table = sm.build_sorted(keys, payloads, device="cpu")
     a = sm.sorted_match_stats(table, probe)
     b = sm.sorted_match_stats(table, probe, allow_negative=True)
     assert torch.equal(a.mult, b.mult) and torch.equal(a.psum, b.psum)
@@ -140,7 +140,7 @@ def test_sorted_match_ranks(m, dom, n, use_kernel):
     rng = np.random.default_rng(m + dom + n)
     keys = rng.integers(0, dom, m).astype(np.int64)
     probe = rng.integers(-3, dom + 3, n).astype(np.int64)
-    rt = sm.rank_table(sm.build_sorted(keys, np.arange(m)))
+    rt = sm.rank_table(sm.build_sorted(keys, np.arange(m), device="cpu"))
     mult, start = sm.sorted_match_ranks(rt, torch.from_numpy(probe), use_kernel=use_kernel)
     sk = np.sort(keys)
     e_start = np.searchsorted(sk, probe, side="left")
@@ -154,7 +154,7 @@ def test_sorted_match_ranks(m, dom, n, use_kernel):
 def test_rank_table_matches_jax():
     keys = np.array([4, 1, 4, 9, 9, 9, 2])
     jax_rt = jax_sm.rank_table(jax_sm.build_sorted(keys))
-    rt = sm.rank_table(sm.build_sorted(keys))
+    rt = sm.rank_table(sm.build_sorted(keys, device="cpu"))
     np.testing.assert_array_equal(rt.payloads.numpy(), np.asarray(jax_rt.payloads))
     for f in sm.META_FIELDS:
         assert getattr(rt, f) == getattr(jax_rt, f), f
@@ -166,7 +166,7 @@ def test_empty_build_table_stats_and_counts_are_zero():
     empty = np.zeros(0, np.int64)
     probe = np.array([0, 5, -3, 7], np.int64)
     jax_table = jax_sm.build_sorted(empty, empty)
-    table = sm.build_sorted(empty, empty)
+    table = sm.build_sorted(empty, empty, device="cpu")
     want = jax_sm.sorted_match_stats(jax_table, jnp.asarray(probe))
     for use_kernel in (None, False):
         _check_stats(sm.sorted_match_stats(table, probe, use_kernel=use_kernel), want)

@@ -52,7 +52,7 @@ def test_stats_kernel_route_matches_jax_pallas(name, dtype):
         want = jax_sm.sorted_match_stats(jax_table, jnp.asarray(probe),
                                          allow_negative=allow_negative, use_kernel=True,
                                          tile_log=11)
-    got = sm.sorted_match_stats(sm.build_sorted(keys, payloads), torch.from_numpy(probe),
+    got = sm.sorted_match_stats(sm.build_sorted(keys, payloads, device="cpu"), torch.from_numpy(probe),
                                 allow_negative=allow_negative, tile_log=11)
     np.testing.assert_array_equal(got.mult.numpy(), np.asarray(want.mult))
     np.testing.assert_array_equal(got.psum.numpy(), np.asarray(want.psum))
