@@ -12,10 +12,13 @@ so that each counterpart is easy to find. This package never imports JAX
 nor `ccve_tpu` (whose `__init__` imports JAX); the host code it needs from
 there is carried as numpy code.
 
-Ported so far (ROADMAP Queue 1, slices 1 to 3): the count-side join
-(`exec.bulk.bulk_count` over one `ops.sort_merge.SortedTable`), per-probe
-stats and ranks (`sorted_match_stats`, `sorted_match_ranks`), N-level
-`bulk_count`, and the materializing join (`sorted_expand`,
-`sorted_expand_tiled`, `exec.bulk.bulk_materialize`); the count side,
-stats and ranks also on int64 keys (key spans from 2^30 to 2^62).
+Ported so far (ROADMAP Queue 1, slices 1 to 3 and slice 5's bulk path):
+the count-side join (`exec.bulk.bulk_count` over one
+`ops.sort_merge.SortedTable`), per-probe stats and ranks
+(`sorted_match_stats`, `sorted_match_ranks`), N-level `bulk_count`, and
+the materializing join (`sorted_expand`, `sorted_expand_tiled`,
+`exec.bulk.bulk_materialize`); the count side, stats and ranks also on
+int64 keys (key spans from 2^30 to 2^62); and the hash engines
+(`ops.hash_table` LP and CSR tables, `ops.hashing` murmur64) under
+`bulk_count` and `bulk_materialize`.
 """

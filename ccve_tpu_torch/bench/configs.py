@@ -1,16 +1,17 @@
 """Runnable benchmark configurations (BASELINE.json), ported one by one.
 
-Ported, with the sort-merge engine and device-resident inputs:
+Ported, with device-resident inputs:
 
  - config 1, the single equi-join of 1M build rows against 16M probe rows
-   drawn uniformly from [0, n_build] (`config1_single_join`), its
+   drawn uniformly from [0, n_build] (`config1_single_join`), on the
+   sort-merge engine or a hash table (`engine` hash_lp or hash_csr), its
    materializing form (`config1_materialize`), and its wide-key form with
-   keys spread over 2^40 (`config1_wide`, int64 keys);
+   keys spread over 2^40 (`config1_wide`, int64 keys), both sort-merge;
  - config 3's bulk engine, the 4-way chained join with about 50 % hits
    per level (`config3_four_way`).
 
-The other configurations and engines wait on their slices (ROADMAP
-Queue 1, slice 10).
+The other configurations wait on their slices (ROADMAP Queue 1, slice
+10).
 """
 
 from __future__ import annotations
@@ -60,16 +61,28 @@ def time_call(fn, device: torch.device):
     return best, out
 
 
-def config1_data(n_build: int, n_probe: int, device: torch.device):
-    """Config 1's inputs on `device`: (build table, probe column [n, 1]
-    int32, numpy's (count, checksum) of their join)."""
+def config1_data(n_build: int, n_probe: int, device, engine: str = "sort_merge"):
+    """Config 1's inputs on `device`: (build table of `engine`, probe column
+    [n, 1] int32, numpy's (count, checksum) of their join, seconds of the
+    table's build). `engine` is sort_merge (a sorted table), hash_lp or
+    hash_csr (built on the host)."""
+    from ccve_tpu_torch.ops.hash_table import build_csr, build_lp
     from ccve_tpu_torch.ops.sort_merge import build_sorted
 
+    builders = {"sort_merge": build_sorted, "hash_lp": build_lp, "hash_csr": build_csr}
+    if engine not in builders:
+        raise ValueError(f"engine {engine!r}: expected one of {tuple(builders)}")
+    device = torch.device(device)
     keys, payloads, probe = config1_host(n_build, n_probe)
-    table = build_sorted(keys, payloads, device=device)
-    # keys <= n_build < 2^31: the narrow column skips the int64 pack
+    t0 = time.perf_counter()
+    table = builders[engine](keys, payloads, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    build_seconds = time.perf_counter() - t0
+    # keys <= n_build < 2^31: the narrow column skips the int64 pack (a
+    # hash table's probe widens it)
     probe_dev = torch.from_numpy(probe.astype(np.int32)).to(device)
-    return table, probe_dev, numpy_totals(keys, payloads, probe[:, 0])
+    return table, probe_dev, numpy_totals(keys, payloads, probe[:, 0]), build_seconds
 
 
 def config1_host(n_build: int, n_probe: int):
@@ -86,16 +99,15 @@ def config1_single_join(
     engine: str = "sort_merge",
     device="cuda",
 ) -> dict:
-    """Config 1: `bulk_count` of the single join, timed after a warm-up,
-    with count and checksum asserted against numpy."""
+    """Config 1: `bulk_count` of the single join over a sorted table
+    (`engine` sort_merge), an LP table (hash_lp) or a CSR table (hash_csr),
+    timed after a warm-up, with count and checksum asserted against numpy.
+    The table's build (on the host for the hash tables) is reported apart
+    as `build_seconds`."""
     from ccve_tpu_torch.exec.bulk import bulk_count
 
-    if engine != "sort_merge":
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP Queue 1, slice 5)"
-        )
     device = require_device(device)
-    table, probe_dev, expected = config1_data(n_build, n_probe, device)
+    table, probe_dev, expected, build_seconds = config1_data(n_build, n_probe, device, engine)
     seconds, res = time_call(lambda: bulk_count([table], probe_dev), device)
     count, checksum = int(res.count), int(res.payload_checksums[0])
     if (count, checksum) != expected:
@@ -107,6 +119,7 @@ def config1_single_join(
         "timer": _timer(device),
         "n_build": n_build,
         "n_probe": n_probe,
+        "build_seconds": build_seconds,
         "seconds": seconds,
         "rows_per_s": n_probe / seconds,
         "count": count,

@@ -137,7 +137,7 @@ def main(argv=None) -> int:
     parser.add_argument("--n-probe", type=int, default=16_000_000)
     args = parser.parse_args(argv)
     device = require_device(args.device)
-    table, probe, expected = config1_data(args.n_build, args.n_probe, device)
+    table, probe, expected, _ = config1_data(args.n_build, args.n_probe, device)
     if device.type == "cuda":
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -20,17 +20,33 @@ from ccve_tpu_torch.kernels import _build
 from ccve_tpu_torch.kernels.bigsort import PAD
 
 
+PLAIN_SEARCHES = 1 << 22  # (run, build row) searches a batch of the plain counts
+
+
+def _run_counts(runs: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """int64[m]: Σ over the rows of `runs` (sorted rows, [R, L]) of the
+    entries equal to each `want` + 1, as upper minus lower bound."""
+    w = want.expand(runs.shape[0], -1).contiguous()
+    hi = torch.searchsorted(runs, w, right=True)
+    return (hi - torch.searchsorted(runs, w)).sum(0)
+
+
 def merge_counts_plain(
     runs: torch.Tensor, run_len: int, n_real: int, b: torch.Tensor, m: int
 ) -> torch.Tensor:
     """`merge_counts_i32` / `merge_counts_i64` as searchsorted upper minus
-    lower bound, summed over the runs, on any device."""
+    lower bound, summed over the runs, on any device. The whole runs are
+    searched as rows of one batch (PLAIN_SEARCHES searches at a time), so
+    many short runs cost a few calls, not one each."""
     want = b - 1
     bc = torch.zeros(m, dtype=torch.int64, device=b.device)
-    for lo in range(0, n_real, run_len):
-        run = runs[lo : min(lo + run_len, n_real)]
-        bc += torch.searchsorted(run, want, right=True)
-        bc -= torch.searchsorted(run, want)
+    n_full = n_real // run_len
+    rows = runs[: n_full * run_len].reshape(n_full, run_len)
+    step = max(PLAIN_SEARCHES // max(m, 1), 1)
+    for lo in range(0, n_full, step):
+        bc += _run_counts(rows[lo : lo + step], want)
+    if n_full * run_len < n_real:
+        bc += _run_counts(runs[n_full * run_len : n_real].reshape(1, -1), want)
     return bc.to(torch.int32)
 
 

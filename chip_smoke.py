@@ -46,6 +46,28 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     before; the int64 stats kernels again at its shapes; times.
 15. The int64/int32 ratio: config 1's own streams (phase 4) widened to
     int64 through the same count side, timed beside the int32 streams.
+16. Slice 4's kernel, the murmur64 hash (#12), against its plain version
+    at small shapes, exactly: the int64 extremes, unaligned n, n = 0.
+17. Config 1 (phase 4's data) through `build_lp` and `build_csr` at full
+    size and `bulk_count`, counters zeroed just before: count and checksum
+    against numpy and each table's all-plain route, per-row mult and psum
+    against `sorted_match_stats` on the same column; the hash launched on
+    both, the compaction on the LP drain. Build seconds, max_run, max_len.
+18. The hash at config 1's 16M probe keys against its plain version,
+    timed.
+19. `bulk_count` on the LP and CSR tables beside the sort-merge table on
+    the same data (medians of 20, min and max), the hash tables' all-plain
+    routes, and each engine's device idle share from torch.profiler.
+20. `bulk_materialize` over LP and CSR tables on phase 10's duplicate-key
+    data: the triple multiset against the sort-merge route's and numpy's.
+21. Runs `config1_single_join` with `engine` hash_lp and hash_csr as the
+    CLI would.
+22. The LP ladder at 5, 25 and 50 % hits on config 1's LP table (16M
+    probes): counters zeroed just before each ladder call; where at most a
+    quarter of the probes hit, the ladder must hold (one hash launch, four
+    compactions), so its own answer is the one returned. Ladder, full
+    width and the all-plain ladder against the exact per-row answer, CSR
+    and sort-merge counts against it; times of the four.
 
 Prints the per-kernel JSON line (each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
@@ -82,10 +104,20 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
 )
 from ccve_tpu_torch.config import PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
-from ccve_tpu_torch.exec.bulk import bulk_count, combine_levels  # noqa: E402
+from ccve_tpu_torch.bench.profile_config1 import busy_window  # noqa: E402
+from ccve_tpu_torch.exec.bulk import (  # noqa: E402
+    HASH_PLAIN,
+    bulk_count,
+    bulk_materialize,
+    combine_levels,
+    csr_match_stats,
+    lp_match_stats,
+)
 from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_join, oracle_pipeline  # noqa: E402
-from ccve_tpu_torch.kernels import _build, bigsort, compact, merge_scan, pairsort  # noqa: E402
+from ccve_tpu_torch.kernels import _build, bigsort, compact, merge_scan, murmur, pairsort  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
+from ccve_tpu_torch.ops.hash_table import build_csr, build_lp  # noqa: E402
+from ccve_tpu_torch.ops.hashing import murmurhash64_np  # noqa: E402
 
 N_BUILD = 1_000_000
 N_PROBE = 16_000_000
@@ -143,6 +175,15 @@ WIDE_WRAPPERS = {
     "merge_multi_i64": (pairsort.merge_level_multi_i64, pairsort.merge_two_multi_i64),
     "merge_stats_i64": (merge_scan.merge_stats_i64,),
 }
+# slice 4's kernel and the compaction it shares with slice 2, as the hash
+# engines launch them
+HASH_WRAPPERS = {
+    "murmurhash64_i64": (murmur.murmurhash64_i64,),
+    "compact_i32": (compact.compact_i32,),
+}
+HASH_OPS_PER_KEY = 10  # three shifts and xors, two 64-bit multiplies
+PROFILED_CALLS = 5  # back-to-back calls in each idle-share trace
+LADDER_HIT_PCTS = (5, 25, 50)  # hit rates of phase 22's probes, in percent
 WIDE_COUNT = ("sort_tiles_i64", "merge_level_i64", "merge_counts_i64")
 WIDE_STATS = ("sort_tiles_multi_i64", "merge_multi_i64", "merge_stats_i64")
 # kernels whose plain version is itself the one PyTorch call that computes
@@ -176,6 +217,27 @@ def log2_ceil(x: int) -> int:
     return max(int(x) - 1, 0).bit_length()
 
 
+def idle_share(fn) -> tuple[float, int]:
+    """(the device's idle share, device events) over PROFILED_CALLS
+    back-to-back calls of `fn` under torch.profiler: 1 - busy / window, as
+    bench/profile_config1.py takes it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    events = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device events")
+    busy, window = busy_window(events)
+    return 1 - busy / window, len(events)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -203,7 +265,7 @@ def main() -> int:
         "merge_level_i32": bigsort.merge_level_i32,
         "merge_counts_i32": merge_scan.merge_counts_i32,
     }
-    max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS], 0)
+    max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS], 0)
 
     def same(name: str, got, want, what: str):
         """Exact equality of a kernel's output with its plain version's:
@@ -993,6 +1055,184 @@ def main() -> int:
     log(f"phase int64/int32 ratio: ok, config 1's streams (1M x 16M) through the count side: "
         f"int32 {spread(er['i32'])}, int64 {spread(er['i64'])}, ratio {ratio:.4f} [{card}]")
 
+    # ---- 16. slice 4's kernel against its plain version, small shapes -----
+    t0 = time.perf_counter()
+    extremes = np.array([0, 1, -1, -(2**63), I64_MAX, 2**32 - 1, 2**32, -(2**32)], dtype=np.int64)
+    for n_h in (0, 1, 7, 8, 1001, (1 << 20) + 3):
+        x_np = rng.integers(-(2**63), I64_MAX, n_h, dtype=np.int64, endpoint=True)
+        x_np[: min(n_h, extremes.size)] = extremes[:n_h]
+        x_h = torch.from_numpy(x_np).cuda()
+        same("murmurhash64_i64", murmur.murmurhash64_i64(x_h), murmur.murmurhash64_plain(x_h),
+             f"n={n_h}")
+    got_np = murmur.murmurhash64_i64(torch.from_numpy(extremes).cuda()).cpu().numpy()
+    if not np.array_equal(got_np.view(np.uint64), murmurhash64_np(extremes)):
+        raise AssertionError("murmurhash64_i64 disagrees with numpy's uint64 hash")
+    torch.cuda.synchronize()
+    log(f"phase slice-4 kernel (small shapes): ok ({time.perf_counter() - t0:.1f} s), "
+        f"max |kernel - plain| {max_err['murmurhash64_i64']}, numpy's uint64 hash agrees")
+
+    # ---- 17. config 1 through the hash engines at full size ----------------
+    col64 = col.to(torch.int64)
+    ref = sm.sorted_match_stats(table, col)  # the cross-engine reference, per row
+    hash_tables, launches_h = {}, {}
+    for engine, builder, drain in (("hash_lp", build_lp, lp_match_stats),
+                                   ("hash_csr", build_csr, csr_match_stats)):
+        t0 = time.perf_counter()
+        tbl = builder(keys, payloads, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        hash_tables[engine] = (tbl, drain)
+        zero_counters(HASH_WRAPPERS)
+        res_h = bulk_count([tbl], probe_dev)
+        torch.cuda.synchronize()
+        launches_h[engine] = read_counters(HASH_WRAPPERS)
+        got_h = (int(res_h.count), int(res_h.payload_checksums[0]))
+        if got_h != (want_count, want_checksum):
+            raise AssertionError(f"{engine} bulk_count gave {got_h}, numpy "
+                                 f"{(want_count, want_checksum)}")
+        plain_h = combine_levels([drain(tbl, col64, route=HASH_PLAIN)])
+        if (int(plain_h.count), int(plain_h.payload_checksums[0])) != got_h:
+            raise AssertionError(f"{engine}: the all-plain route disagrees")
+        stats_h = drain(tbl, col64)
+        if not (torch.equal(stats_h.mult, ref.mult) and torch.equal(stats_h.psum, ref.psum)):
+            raise AssertionError(f"{engine}: per-row mult or psum differ from sorted_match_stats")
+        needed = ("murmurhash64_i64", "compact_i32") if engine == "hash_lp" else ("murmurhash64_i64",)
+        idle = [k for k in needed if launches_h[engine][k] == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by {engine}'s bulk_count: {idle}")
+        # a second hash launch is the LP ladder's full-width recompute
+        bound_what = (f"max_run {tbl.max_run} of {tbl.n_slots} slots, ladder "
+                      f"{'overflowed' if launches_h[engine]['murmurhash64_i64'] > 1 else 'held'}"
+                      if engine == "hash_lp"
+                      else f"max_len {tbl.max_len} of {tbl.n_buckets} buckets")
+        log(f"phase config 1 {engine}: ok, build {build_s:.3f} s on the host ({bound_what}); "
+            f"bulk_count count {got_h[0]} checksum {got_h[1]} (numpy and the all-plain route "
+            f"agree; mult and psum of all {col.numel()} rows equal sorted_match_stats'); "
+            f"launches {launches_h[engine]}")
+
+    # ---- 18. kernel #12 at config 1's probe keys, timed ---------------------
+    same("murmurhash64_i64", murmur.murmurhash64_i64(col64), murmur.murmurhash64_plain(col64),
+         "config 1 probes")
+    torch.cuda.synchronize()
+    kernel_ms["murmurhash64_i64"] = (
+        med(cuda_ms(lambda: murmur.murmurhash64_i64(col64))),
+        med(cuda_ms(lambda: murmur.murmurhash64_plain(col64))),
+    )
+    n_h = col64.numel()
+    work["murmurhash64_i64"] = (16 * n_h, HASH_OPS_PER_KEY * n_h)
+    bound_h = bound(*work["murmurhash64_i64"])
+    log(f"phase slice-4 kernel (config-1 shapes): ok, {n_h} keys: kernel "
+        f"{kernel_ms['murmurhash64_i64'][0]:.4f} ms, plain {kernel_ms['murmurhash64_i64'][1]:.4f} "
+        f"ms, bound {bound_h[0]:.4f} ms ({bound_h[1]}) [{card}]")
+
+    # ---- 19. the hash engines beside sort-merge on config 1 -----------------
+    calls = {"sort_merge": lambda: bulk_count([table], probe_dev)}
+    for engine, (tbl, drain) in hash_tables.items():
+        calls[engine] = lambda tbl=tbl: bulk_count([tbl], probe_dev)
+        calls[f"{engine} all-plain"] = (
+            lambda tbl=tbl, drain=drain: combine_levels([drain(tbl, col64, route=HASH_PLAIN)]))
+    lp_table = hash_tables["hash_lp"][0]
+    calls["hash_lp full width (no ladder)"] = (
+        lambda: combine_levels([lp_match_stats(lp_table, col64, compact_lanes=False)]))
+    e19 = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            e19[k] += cuda_ms(calls[k])
+    log(f"times on [{card}], CUDA events, medians of {2 * REPS}, config 1 (1M build x 16M probe):")
+    for k, ts in e19.items():
+        share = ""
+        if "plain" not in k:
+            idle_k, n_events = idle_share(calls[k])
+            share = f"; device idle share {idle_k:.4f} ({n_events} device events in {PROFILED_CALLS} calls)"
+        log(f"  bulk_count {k}: {spread(ts)} = {N_PROBE / med(ts) / 1e3:.1f}M probe rows/s{share}")
+
+    # ---- 20. bulk_materialize over hash tables, duplicate keys --------------
+    t0 = time.perf_counter()
+    want_trip = by_row_payload([want_rows[:, 0], want_rows[:, 2], want_rows[:, 3]])
+    rows_sm = bulk_materialize([table_d], col_d.view(-1, 1), PayloadMode.FULL)
+    got_sm = by_row_payload([rows_sm[:, i].cpu().numpy() for i in range(3)])
+    if not all(np.array_equal(g, w) for g, w in zip(got_sm, want_trip)):
+        raise AssertionError("bulk_materialize (sort-merge): triples disagree with numpy")
+    for engine, builder in (("hash_lp", build_lp), ("hash_csr", build_csr)):
+        tbl = builder(keys_d, pays_d, device="cuda")
+        zero_counters(HASH_WRAPPERS)
+        rows_h = bulk_materialize([tbl], col_d.view(-1, 1), PayloadMode.FULL)
+        torch.cuda.synchronize()
+        launches_mh = read_counters(HASH_WRAPPERS)
+        got_trip = by_row_payload([rows_h[:, i].cpu().numpy() for i in range(3)])
+        if not all(np.array_equal(g, w) for g, w in zip(got_trip, want_trip)):
+            raise AssertionError(f"bulk_materialize ({engine}): triples differ from numpy's "
+                                 "and the sort-merge route's")
+        idle = [k for k, v in launches_mh.items() if v == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched by {engine}'s bulk_materialize: {idle}")
+        log(f"phase materialize {engine}: ok, {rows_h.shape[0]} triples (262144 build rows, "
+            f"4 per key, x 4M probes) equal numpy's and the sort-merge route's; launches "
+            f"{launches_mh}")
+    log(f"phase hash materialize: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 21. the benchmark entry point on the hash engines -----------------
+    for engine in ("hash_lp", "hash_csr"):
+        result = config1_single_join(engine=engine, device="cuda")
+        log(f"phase config1_single_join {engine}: ok {json.dumps(result)}")
+
+    # ---- 22. the LP ladder's own answer, and its time, at lower hit rates --
+    # Config 1's build keys are 0 .. N_BUILD - 1 with payload key + 10^7, so
+    # probes uniform over [0, N_BUILD * 100 / pct) hit pct % of the time and
+    # every row's (mult, psum) is known exactly.
+    t0 = time.perf_counter()
+    csr_table = hash_tables["hash_csr"][0]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    ladder_log = []
+    for pct in LADDER_HIT_PCTS:
+        col_l = torch.randint(0, N_BUILD * 100 // pct, (N_PROBE,), generator=gen,
+                              device="cuda", dtype=torch.int64)
+        hit = col_l < N_BUILD
+        want_m, want_p = hit.to(torch.int32), torch.where(hit, col_l + 10_000_000, 0)
+        zero_counters(HASH_WRAPPERS)
+        ladder = lp_match_stats(lp_table, col_l, compact_lanes=True)
+        torch.cuda.synchronize()
+        lc = read_counters(HASH_WRAPPERS)
+        held = lc["murmurhash64_i64"] == 1  # a second hash is the full-width recompute
+        if pct <= 25 and not (held and lc["compact_i32"] == 4):
+            raise AssertionError(f"LP ladder at {pct} % hits: launches {lc}, expected the "
+                                 "ladder to hold (1 hash, 4 compactions)")
+        for what, s in (("ladder", ladder),
+                        ("full width", lp_match_stats(lp_table, col_l, compact_lanes=False)),
+                        ("all-plain ladder", lp_match_stats(lp_table, col_l, compact_lanes=True,
+                                                            route=HASH_PLAIN))):
+            if not (torch.equal(s.mult, want_m) and torch.equal(s.psum, want_p)):
+                raise AssertionError(f"LP {what} at {pct} % hits: mult or psum differ from "
+                                     "the exact answer")
+        want_l = (int(want_m.sum()), int(want_p.sum()))
+        calls = {
+            "ladder": lambda c=col_l: lp_match_stats(lp_table, c, compact_lanes=True),
+            "full width": lambda c=col_l: lp_match_stats(lp_table, c, compact_lanes=False),
+            "hash_csr": lambda c=col_l: bulk_count([csr_table], c.view(-1, 1)),
+            "sort_merge": lambda c=col_l.to(torch.int32): bulk_count([table], c.view(-1, 1)),
+        }
+        for engine in ("hash_csr", "sort_merge"):
+            res_l = calls[engine]()
+            if (int(res_l.count), int(res_l.payload_checksums[0])) != want_l:
+                raise AssertionError(f"{engine} at {pct} % hits: bulk_count gave "
+                                     f"{(int(res_l.count), int(res_l.payload_checksums[0]))}, "
+                                     f"exact {want_l}")
+        e22 = {k: [] for k in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for k in order:
+                e22[k] += cuda_ms(calls[k])
+        ladder_log.append(f"  {pct} % hits ({want_l[0]} matches; ladder "
+                          f"{'held' if held else 'overflowed'}, launches {lc}): "
+                          + "; ".join(f"{k} {spread(ts)}" for k, ts in e22.items()))
+    log(f"phase LP ladder: ok ({time.perf_counter() - t0:.1f} s), at "
+        f"{', '.join(map(str, LADDER_HIT_PCTS))} % hits the ladder's, full width's and the "
+        "all-plain ladder's mult and psum equal the exact answer on every row; CSR and "
+        "sort-merge count and checksum equal it")
+    log(f"times on [{card}], CUDA events, medians of {2 * REPS}, {N_PROBE} probes over config "
+        "1's tables (LP: lp_match_stats; CSR, sort-merge: bulk_count):")
+    for line in ladder_log:
+        log(line)
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -1020,6 +1260,8 @@ def main() -> int:
                             "ccve_tpu/kernels/pairsort.py:592"),
         "merge_stats_i64": ("ccve_tpu_torch/kernels/csrc/merge_stats.cu",
                             "ccve_tpu/kernels/merge_scan.py:47"),
+        "murmurhash64_i64": ("ccve_tpu_torch/kernels/csrc/murmur.cu",
+                             "ccve_tpu/kernels/murmur.py:68"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per
@@ -1034,6 +1276,10 @@ def main() -> int:
         launches[name] = launches_w[name]
     for name in WIDE_STATS:
         launches[name] = launches_s[name]
+    # slice 4: the hash's launches in phase 17's two bulk_count runs; the
+    # compaction's on the LP drain add to its slice-2 launches
+    launches["murmurhash64_i64"] = sum(lc["murmurhash64_i64"] for lc in launches_h.values())
+    launches["compact_i32"] += launches_h["hash_lp"]["compact_i32"]
     entries = []
     for name in sources:
         bound_ms, bound_by = bound(*work[name])

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.kernels import bigsort as jax_bigsort
 from ccve_tpu_torch.kernels import bigsort
+from torch_interpret import interpret
 
 TILE_LOG = 11
 
@@ -26,10 +26,9 @@ def test_sort_runs_matches_jax_ladder(nt, cap):
     rng = np.random.default_rng(10 * nt + cap)
     n_pad = nt << TILE_LOG
     x = _values(rng, n_pad)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(
-            jax_bigsort._sort_padded_buf(jnp.asarray(x), TILE_LOG, 0, n_levels_cap=cap)
-        ).reshape(-1)[:n_pad]
+    want = np.asarray(interpret(
+        lambda a: jax_bigsort._sort_padded_buf(a, TILE_LOG, 0, n_levels_cap=cap), jnp.asarray(x)
+    )).reshape(-1)[:n_pad]
     got = bigsort.sort_runs(torch.from_numpy(x), TILE_LOG + cap, TILE_LOG)
     np.testing.assert_array_equal(got.numpy(), want)
 

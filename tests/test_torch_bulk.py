@@ -120,14 +120,22 @@ def test_empty_build_table_bulk_count_is_zero():
 
 
 def test_hash_tables_are_not_ported():
+    """Hash tables are ported now (tests/test_torch_hash_bulk.py): an LP
+    level answers beside a sorted one; an unknown table type raises
+    TypeError, as the JAX package's `match_stats` does."""
+    from ccve_tpu_torch.ops.hash_table import build_lp
+
     table = sm.build_sorted(np.arange(5), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(TypeError, match="unknown table type"):
         bulk.match_stats(object(), torch.arange(3))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(TypeError, match="unknown table type"):
         bulk.bulk_count([table, object()], np.zeros((2, 2), np.int64))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(TypeError, match="unknown table type"):
         bulk.bulk_materialize([object()], np.zeros((2, 1), np.int64), PayloadMode.FULL)
     with pytest.raises(ValueError):
         bulk.bulk_count([table, table], np.zeros((4, 3), np.int64))
     stats = bulk.match_stats(table, torch.tensor([1, 9], dtype=torch.int32))
     assert stats.mult.tolist() == [1, 0]
+    mixed = bulk.bulk_count([table, build_lp(np.arange(5), device="cpu")],
+                            np.array([[1, 1], [2, 9], [4, 3]]))
+    assert int(mixed.count) == 2

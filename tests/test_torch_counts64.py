@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.kernels.merge_scan import merge_scan_build_counts64
 from ccve_tpu.ops import sort_merge as jax_sm
 from ccve_tpu_torch.kernels import bigsort, merge_scan
 from ccve_tpu_torch.ops import sort_merge as sm
+from torch_interpret import interpret
 
 I64_MAX = 2**63 - 1
 
@@ -46,9 +46,9 @@ def test_count_side_bc_i64_matches_jax_limb_ladder(monkeypatch, m, n):
     rng.shuffle(probes)
     p64, b64 = _streams(keys, probes)
     got = sm._count_side_bc(torch.from_numpy(p64), torch.from_numpy(b64), keys.size)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jax_sm._count_side_bc64(jnp.asarray(p64), jnp.asarray(b64), keys.size,
-                                                  tile_log=10))
+    want = np.asarray(interpret(
+        lambda p, b: jax_sm._count_side_bc64(p, b, keys.size, tile_log=10),
+        jnp.asarray(p64), jnp.asarray(b64)))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), _expected(keys, probes))
 
@@ -76,11 +76,10 @@ def test_merge_counts_i64_matches_jax_counts64(m, n, hi):
     probes = np.concatenate([rng.choice(keys, n // 2), rng.integers(hi - 2**30, hi, n - n // 2)])
     p64, b64 = _streams(keys, probes)
     merged = np.sort(np.concatenate([p64, b64]))
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(merge_scan_build_counts64(
-            jnp.asarray((merged >> 32).astype(np.int32)), jnp.asarray(merged.astype(np.int32)),
-            keys.size,
-        ))
+    want = np.asarray(interpret(
+        lambda hi, lo: merge_scan_build_counts64(hi, lo, keys.size),
+        jnp.asarray((merged >> 32).astype(np.int32)), jnp.asarray(merged.astype(np.int32)),
+    ))
     runs = torch.from_numpy(np.concatenate([np.sort(p64), np.full(77, I64_MAX)]))
     got = merge_scan.merge_counts_i64(runs, n, n, torch.from_numpy(b64), keys.size)
     np.testing.assert_array_equal(got.numpy(), want)

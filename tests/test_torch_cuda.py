@@ -379,3 +379,92 @@ def test_wide_paths_reach_the_kernels(cuda):
     cpu = sm.sorted_match_stats(cpu_table, probe_np)
     assert torch.equal(stats.mult.cpu(), cpu.mult)
     assert torch.equal(stats.psum.cpu(), cpu.psum)
+
+
+# ---- the hash engines (slice 4): kernel #12 and the LP ladder --------------
+
+MURMUR_EXTREMES = [0, 1, -1, -(2**63), I64_MAX, 2**32 - 1, 2**32, -(2**32)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 1001, (1 << 20) + 3])
+def test_murmurhash64_kernel(cuda, n):
+    from ccve_tpu_torch.kernels import murmur
+
+    rng = np.random.default_rng(n)
+    x_np = rng.integers(-(2**63), I64_MAX, n, dtype=np.int64, endpoint=True)
+    x_np[: min(n, len(MURMUR_EXTREMES))] = MURMUR_EXTREMES[: min(n, len(MURMUR_EXTREMES))]
+    x = _i64(x_np, cuda)
+    got = murmur.murmurhash64_i64(x)
+    assert torch.equal(got, murmur.murmurhash64_plain(x))
+    assert torch.equal(got.cpu(), murmur.murmurhash64_plain(x.cpu()))
+
+
+def _hash_data(n_build, chunk_factor, n_probe):
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+
+    keys, pays = gen_rhs_table(n_build, chunk_factor)
+    return keys, pays, gen_probe_table(n_probe, 2, n_build + n_build // 4)
+
+
+@pytest.mark.parametrize("n_build, chunk_factor, probe_dom, recomputes", [
+    (2048, 3, 40_000, False),  # about 2 % of probes hit: the ladder holds
+    (20_000, 2, 20_000, True),  # about half hit: stage 1 overflows
+])
+def test_lp_ladder_on_card(cuda, monkeypatch, n_build, chunk_factor, probe_dom, recomputes):
+    """At n >= 2^16 the LP drain takes the compacted ladder on the card:
+    the hash and the compaction launch, the ladder's own answer is kept
+    when its stages hold (no full-width recompute) and replaced when one
+    overflows, and the stats equal the CPU's."""
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu_torch.exec import bulk
+    from ccve_tpu_torch.kernels import murmur
+    from ccve_tpu_torch.ops import hash_table as ht
+
+    keys, pays = gen_rhs_table(n_build, chunk_factor)
+    col = gen_probe_table(70_000, 1, probe_dom)[:, 0]
+    inner = bulk.lp_match_stats
+    full_width_calls = []
+
+    def spy(tbl, k, compact_lanes=None, **route):
+        full_width_calls.append(compact_lanes)
+        return inner(tbl, k, compact_lanes, **route)
+
+    monkeypatch.setattr(bulk, "lp_match_stats", spy)
+    before = (murmur.murmurhash64_i64.launches, compact.compact_i32.launches)
+    got = inner(ht.build_lp(keys, pays, device=cuda), _i64(col, cuda))
+    after = (murmur.murmurhash64_i64.launches, compact.compact_i32.launches)
+    assert after[1] - before[1] == 3, (before, after)  # 70,000 -> 35,000 -> 17,500 -> 16,384
+    assert after[0] - before[0] == (2 if recomputes else 1), (before, after)
+    assert full_width_calls == ([False] if recomputes else [])
+    want = inner(ht.build_lp(keys, pays, device="cpu"), torch.from_numpy(col))
+    assert torch.equal(got.mult.cpu(), want.mult) and torch.equal(got.psum.cpu(), want.psum)
+    assert int(want.mult.max()) == chunk_factor
+
+
+@pytest.mark.parametrize("kinds", [("lp",), ("csr",), ("lp", "csr"), ("sorted", "lp")])
+def test_hash_bulk_count_on_card_matches_cpu(cuda, kinds):
+    from ccve_tpu_torch.exec import bulk
+    from ccve_tpu_torch.ops import hash_table as ht
+
+    builders = {"lp": ht.build_lp, "csr": ht.build_csr, "sorted": sm.build_sorted}
+    keys, pays, probe = _hash_data(30_000, 3, 200_000)
+    probe = probe[:, : len(kinds)]
+    got = bulk.bulk_count([builders[k](keys, pays, device=cuda) for k in kinds], probe)
+    want = bulk.bulk_count([builders[k](keys, pays, device="cpu") for k in kinds], probe)
+    assert int(got.count) == int(want.count) > 0
+    assert torch.equal(got.payload_checksums.cpu(), want.payload_checksums)
+
+
+@pytest.mark.parametrize("kind", ["lp", "csr"])
+def test_hash_bulk_materialize_on_card_matches_cpu(cuda, kind):
+    from ccve_tpu_torch.config import PayloadMode
+    from ccve_tpu_torch.exec import bulk
+    from ccve_tpu_torch.ops import hash_table as ht
+
+    build = ht.build_lp if kind == "lp" else ht.build_csr
+    keys, pays, probe = _hash_data(5_000, 3, 20_000)
+    before = compact.compact_i32.launches
+    got = bulk.bulk_materialize([build(keys, pays, device=cuda)] * 2, probe, PayloadMode.FULL)
+    assert compact.compact_i32.launches > before
+    want = bulk.bulk_materialize([build(keys, pays, device="cpu")] * 2, probe, PayloadMode.FULL)
+    assert torch.equal(got.cpu(), want)  # the compaction keeps the grid's order

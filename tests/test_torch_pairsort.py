@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.kernels.pairsort import merge_sorted_multi_i32 as jax_merge
 from ccve_tpu.kernels.pairsort import pallas_sort_multi_i32 as jax_sort
 from ccve_tpu_torch.kernels import pairsort
+from torch_interpret import interpret
 
 
 def _tuples(keys, vals):
@@ -32,9 +32,8 @@ def test_sort_multi_matches_jax(n_planes, tile_log, n, dom):
     rng = np.random.default_rng(n_planes * 7 + tile_log)
     keys = rng.integers(-dom, dom, n).astype(np.int32)
     vals = [rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32) for _ in range(n_planes)]
-    with pltpu.force_tpu_interpret_mode():
-        want_keys, want_vals = jax_sort(jnp.asarray(keys), [jnp.asarray(v) for v in vals],
-                                        tile_log=tile_log)
+    want_keys, want_vals = interpret(lambda k, vs: jax_sort(k, vs, tile_log=tile_log),
+                                     jnp.asarray(keys), [jnp.asarray(v) for v in vals])
     got_keys, got_vals = pairsort.sort_multi_i32(_i32(keys), [_i32(v) for v in vals], tile_log)
     np.testing.assert_array_equal(got_keys.numpy(), np.asarray(want_keys))
     np.testing.assert_array_equal(_tuples(got_keys, got_vals), _tuples(want_keys, want_vals))
@@ -54,11 +53,11 @@ def test_merge_sorted_multi_matches_jax(na, nb, n_planes):
     bk = np.sort(rng.integers(0, 700, nb)).astype(np.int32)
     avs = [rng.integers(0, 1 << 30, na).astype(np.int32) for _ in range(n_planes)]
     bvs = [rng.integers(0, 1 << 30, nb).astype(np.int32) for _ in range(n_planes)]
-    with pltpu.force_tpu_interpret_mode():
-        want_keys, want_vals = jax_merge(
-            jnp.asarray(ak), [jnp.asarray(v) for v in avs],
-            jnp.asarray(bk), [jnp.asarray(v) for v in bvs], tile_log=10,
-        )
+    want_keys, want_vals = interpret(
+        lambda a, av, b, bv: jax_merge(a, av, b, bv, tile_log=10),
+        jnp.asarray(ak), [jnp.asarray(v) for v in avs],
+        jnp.asarray(bk), [jnp.asarray(v) for v in bvs],
+    )
     got_keys, got_vals = pairsort.merge_sorted_multi_i32(
         _i32(ak), [_i32(v) for v in avs], _i32(bk), [_i32(v) for v in bvs]
     )

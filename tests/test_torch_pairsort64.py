@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.kernels.pairsort import merge_sorted_multi_i64 as jax_merge
 from ccve_tpu.kernels.pairsort import pallas_sort_multi_i64 as jax_sort
 from ccve_tpu_torch.kernels import pairsort
+from torch_interpret import interpret
 
 I64_MAX = 2**63 - 1
 
@@ -39,9 +39,8 @@ def test_sort_multi_i64_matches_jax(n_planes, n, dom):
     rng = np.random.default_rng(n_planes * 7 + n)
     keys = rng.integers(-dom, dom, n, dtype=np.int64)  # inside the JAX sentinels
     vals = _planes(rng, n, n_planes)
-    with pltpu.force_tpu_interpret_mode():
-        want_keys, want_vals = jax_sort(jnp.asarray(keys), [jnp.asarray(v) for v in vals],
-                                        tile_log=10)
+    want_keys, want_vals = interpret(lambda k, vs: jax_sort(k, vs, tile_log=10),
+                                     jnp.asarray(keys), [jnp.asarray(v) for v in vals])
     got_keys, got_vals = pairsort.sort_multi_i64(torch.from_numpy(keys), [_i32(v) for v in vals], 10)
     assert got_keys.dtype == torch.int64 and all(v.dtype == torch.int32 for v in got_vals)
     np.testing.assert_array_equal(got_keys.numpy(), np.asarray(want_keys))
@@ -59,11 +58,11 @@ def test_merge_sorted_multi_i64_matches_jax(na, nb, n_planes):
     ak = np.sort(rng.integers(0, 700, na) * 2**52 + 2**60)
     bk = np.sort(rng.integers(0, 700, nb) * 2**52 + 2**60)
     avs, bvs = _planes(rng, na, n_planes), _planes(rng, nb, n_planes)
-    with pltpu.force_tpu_interpret_mode():
-        want_keys, want_vals = jax_merge(
-            jnp.asarray(ak), [jnp.asarray(v) for v in avs],
-            jnp.asarray(bk), [jnp.asarray(v) for v in bvs], tile_log=10,
-        )
+    want_keys, want_vals = interpret(
+        lambda a, av, b, bv: jax_merge(a, av, b, bv, tile_log=10),
+        jnp.asarray(ak), [jnp.asarray(v) for v in avs],
+        jnp.asarray(bk), [jnp.asarray(v) for v in bvs],
+    )
     got_keys, got_vals = pairsort.merge_sorted_multi_i64(
         torch.from_numpy(ak), [_i32(v) for v in avs], torch.from_numpy(bk), [_i32(v) for v in bvs]
     )

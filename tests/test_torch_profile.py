@@ -28,7 +28,7 @@ def test_sweep_small_cpu(monkeypatch):
     monkeypatch.setattr(bigsort, "TILE_LOG", 9)
     monkeypatch.setattr(prof, "REPS", 1)
     monkeypatch.setattr(sort_merge, "SKIP_LEVELS_OVERRIDE", None)
-    table, probe, expected = config1_data(512, 8192, "cpu")
+    table, probe, expected, _ = config1_data(512, 8192, "cpu")
     rows = prof.sweep(table, probe, expected, probe.device)
     assert [skip for skip, _, _ in rows] == list(prof.SKIPS)
     # 16 tiles of 2^9: four merge levels at most, so a skip s leaves

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.kernels.pairsort import pallas_sort_i64_limbs
 from ccve_tpu_torch.kernels import bigsort
+from torch_interpret import interpret
 
 TILE_LOG = 10
 I64_MAX = 2**63 - 1
@@ -36,8 +36,9 @@ def _from_limbs(hi, lo):
 def test_sort_runs_i64_matches_jax_limb_ladder(n, cap):
     rng = np.random.default_rng(n + cap)
     x = _keys(rng, n)
-    with pltpu.force_tpu_interpret_mode():
-        hi, lo, run_log = pallas_sort_i64_limbs(jnp.asarray(x), tile_log=TILE_LOG, n_levels_cap=cap)
+    hi, lo, run_log = interpret(
+        lambda a: pallas_sort_i64_limbs(a, tile_log=TILE_LOG, n_levels_cap=cap), jnp.asarray(x))
+    run_log = int(run_log)
     want = _from_limbs(hi, lo)
     n_pad = want.size
     padded = np.concatenate([x, np.full(n_pad - n, I64_MAX)])  # JAX pads the same way

@@ -126,9 +126,10 @@ def test_build_sorted_static_fields_match_jax(keys, payloads):
 
 
 def test_unported_branches_raise():
-    """The count side of a key span of 2^62 or more (slice 3b) and hash
-    tables (slice 5) raise. Wide tables (span past 2^30, below 2^62), an
-    empty table and N-level joins are ported: they answer."""
+    """The count side of a key span of 2^62 or more (slice 3b) raises, and
+    so does a table of no known type. Wide tables (span past 2^30, below
+    2^62), an empty table, N-level joins and the hash tables are ported:
+    they answer."""
     wide = sm.build_sorted(np.array([0, 2**40]), np.array([1, 2]), device="cpu")
     assert wide.pack32 is None and wide.span62
     probe = np.array([0, 1, 2**40, 2**40, -(2**63), 2**63 - 1])
@@ -150,8 +151,13 @@ def test_unported_branches_raise():
     narrow = sm.build_sorted(np.arange(10), device="cpu")
     two = bulk_count([narrow, narrow], np.zeros((4, 2), np.int64))
     assert int(two.count) == 4 and two.payload_checksums.tolist() == [40_000_000] * 2
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(TypeError, match="unknown table type"):
         bulk_count([object()], probe[:, None])
+    from ccve_tpu_torch.ops.hash_table import build_csr
+
+    res = bulk_count([build_csr(np.array([0, 2**40]), np.array([1, 2]), device="cpu")],
+                     probe[:, None])
+    assert int(res.count) == 3 and res.payload_checksums.tolist() == [5]
     with pytest.raises(ValueError):
         sm.table_from_arrays({"keys": np.arange(3)}, {}, "cpu")
 

@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.core.datagen import gen_rhs_table
 from ccve_tpu.kernels.merge_scan import merge_scan_stats32
 from ccve_tpu.ops import sort_merge as jax_sm
 from ccve_tpu_torch.kernels import merge_scan
 from ccve_tpu_torch.ops import sort_merge as sm
+from torch_interpret import interpret, once
 
 
 def _stream(rng, n, m, dom, pay_lo, pay_hi):
@@ -52,8 +52,8 @@ def test_stats_scan_matches_jax_kernel(packed, n, m, dom):
     s, v = _stream(rng, n, m, dom, 0, 2**20 if packed else 2**30)
     builds = s[s % 2 == 0] >> 1
     mult_bits = max(int(np.bincount(builds).max()).bit_length(), 1) if packed else None
-    with pltpu.force_tpu_interpret_mode():
-        out = merge_scan_stats32(jnp.asarray(s), jnp.asarray(v), n, mult_bits=mult_bits)
+    out = interpret(lambda a, b: merge_scan_stats32(a, b, n, mult_bits=mult_bits),
+                    jnp.asarray(s), jnp.asarray(v))
     key2 = np.asarray(out[0])
     at = key2 < n
     want_mult = np.zeros(n, np.int64)
@@ -115,9 +115,9 @@ def test_sorted_match_stats_matches_jax_xla(use_kernel, keys, payloads, probe_lo
     probe = rng.integers(probe_lo, probe_hi, 3000).astype(dtype)
     if dtype == np.int32 or probe_hi < 2**40:
         probe[:50] = rng.choice(keys, 50)
-    jax_table = jax_sm.build_sorted(keys, payloads)
-    want = jax_sm.sorted_match_stats(jax_table, jnp.asarray(probe.astype(np.int64)),
-                                     allow_negative=True, use_kernel=False)
+    want = once(("stats xla", keys.tobytes(), probe.tobytes()), lambda: jax_sm.sorted_match_stats(
+        jax_sm.build_sorted(keys, payloads), jnp.asarray(probe.astype(np.int64)),
+        allow_negative=True, use_kernel=False))
     got = sm.sorted_match_stats(sm.build_sorted(keys, payloads, device="cpu"), torch.from_numpy(probe),
                                 use_kernel=use_kernel)
     _check_stats(got, want)

@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.kernels.merge_scan import merge_scan_stats
 from ccve_tpu.ops import sort_merge as jax_sm
 from ccve_tpu_torch.kernels import merge_scan
 from ccve_tpu_torch.ops import sort_merge as sm
+from torch_interpret import interpret
 
 I64_MAX = 2**63 - 1
 
@@ -58,8 +58,7 @@ def test_merge_stats_i64_matches_jax_scan(n, m, dom, pay_lo, pay_hi):
     s, v = _stream(rng, n, m, dom, pay_lo, pay_hi)
     is_build = (s & 1) == 0
     tagged = np.where(is_build, v.astype(np.int64) * 2 + 1, 0)  # JAX's tag convention
-    with pltpu.force_tpu_interpret_mode():
-        mult_e, psum_e = merge_scan_stats(jnp.asarray(s >> 1), jnp.asarray(tagged))
+    mult_e, psum_e = interpret(merge_scan_stats, jnp.asarray(s >> 1), jnp.asarray(tagged))
     want_mult = np.zeros(n, np.int32)
     want_psum = np.zeros(n, np.int64)
     want_mult[v[~is_build]] = np.asarray(mult_e)[~is_build]  # per element -> per row
@@ -110,15 +109,15 @@ def _numpy_probe_stats(keys, payloads, probes):
 @pytest.mark.parametrize("dtype", [np.int64, np.int32])
 def test_sorted_match_stats_wide_matches_jax_pallas(dtype):
     """Int32 probes against a wide table are widened, and clamp like int64
-    ones (the keys here span past 2^31)."""
-    keys, payloads, probes = _wide_setup()
+    ones (the keys here span past 2^31). Two 2^10 tiles of probes."""
+    keys, payloads, probes = _wide_setup(m=500, n=1200)
     probes = probes.astype(dtype) if dtype == np.int64 else (probes >> 10).astype(np.int32)
     keys = keys if dtype == np.int64 else keys >> 10
     jax_table = jax_sm.build_sorted(keys, payloads)
     assert jax_table.pack32 is None and jax_table.wide_ok
-    with pltpu.force_tpu_interpret_mode():
-        want = jax_sm.sorted_match_stats(jax_table, jnp.asarray(probes.astype(np.int64)),
-                                         use_kernel=True, tile_log=10)
+    want = interpret(lambda p: jax_sm.sorted_match_stats(jax_table, p, use_kernel=True,
+                                                         tile_log=10),
+                     jnp.asarray(probes.astype(np.int64)))
     table = sm.build_sorted(keys, payloads, device="cpu")
     assert sm.stats_key_type(table) == torch.int64
     got = sm.sorted_match_stats(table, torch.from_numpy(probes), tile_log=10)

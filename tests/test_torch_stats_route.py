@@ -8,28 +8,28 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.ops import sort_merge as jax_sm
 from ccve_tpu_torch.ops import sort_merge as sm
+from torch_interpret import interpret
 
 
 def _case(name):
     rng = np.random.default_rng(sum(map(ord, name)))
     if name == "wide psum":
-        keys = np.sort(rng.integers(0, 300, 2000))
-        return keys, rng.integers(2**29, 2**30, 2000), rng.integers(0, 310, 5000), False
+        keys = np.sort(rng.integers(0, 300, 1000))
+        return keys, rng.integers(2**29, 2**30, 1000), rng.integers(0, 310, 2500), False
     if name == "negative key range":
-        keys = np.sort(rng.integers(-1000, -600, 1500))
-        return keys, rng.integers(0, 2**20, 1500), rng.integers(-1005, -590, 5000), False
+        keys = np.sort(rng.integers(-1000, -600, 800))
+        return keys, rng.integers(0, 2**20, 800), rng.integers(-1005, -590, 2500), False
     if name == "allow_negative":
-        keys = np.sort(rng.integers(0, 500, 3000))
-        return keys, rng.integers(-(2**20), 2**20, 3000), rng.integers(-3, 510, 5000), True
+        keys = np.sort(rng.integers(0, 500, 1500))
+        return keys, rng.integers(-(2**20), 2**20, 1500), rng.integers(-3, 510, 2500), True
     if name == "small n":
         keys = np.sort(rng.integers(0, 50, 64))
         return keys, None, rng.integers(0, 55, 200), False
-    keys = np.sort(rng.integers(0, 500, 3000))  # "int32 probes", "int64 probes"
-    return keys, rng.integers(0, 2**20, 3000), rng.integers(-3, 510, 5000), False
+    keys = np.sort(rng.integers(0, 500, 1500))  # "int32 probes", "int64 probes"
+    return keys, rng.integers(0, 2**20, 1500), rng.integers(-3, 510, 2500), False
 
 
 @pytest.mark.parametrize(
@@ -48,10 +48,9 @@ def test_stats_kernel_route_matches_jax_pallas(name, dtype):
     probe = probe.astype(dtype)
     jax_table = jax_sm.build_sorted(keys, payloads)
     assert jax_table.pack32 is not None and jax_table.pack32[1] <= 29 and jax_table.pay32
-    with pltpu.force_tpu_interpret_mode():
-        want = jax_sm.sorted_match_stats(jax_table, jnp.asarray(probe),
-                                         allow_negative=allow_negative, use_kernel=True,
-                                         tile_log=11)
+    want = interpret(lambda p: jax_sm.sorted_match_stats(
+        jax_table, p, allow_negative=allow_negative, use_kernel=True, tile_log=11),
+        jnp.asarray(probe))
     got = sm.sorted_match_stats(sm.build_sorted(keys, payloads, device="cpu"), torch.from_numpy(probe),
                                 allow_negative=allow_negative, tile_log=11)
     np.testing.assert_array_equal(got.mult.numpy(), np.asarray(want.mult))

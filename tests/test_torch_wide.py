@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from ccve_tpu.config import PayloadMode
 from ccve_tpu.exec import bulk as jax_bulk
@@ -24,6 +23,7 @@ from ccve_tpu.ops import sort_merge as jax_sm
 from ccve_tpu_torch.bench.configs import config1_wide, config1_wide_host
 from ccve_tpu_torch.exec import bulk
 from ccve_tpu_torch.ops import sort_merge as sm
+from torch_interpret import interpret
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -65,8 +65,8 @@ def test_sorted_match_totals_wide_matches_jax(monkeypatch, seed, span):
     keys, payloads, probes = _wide_setup(span=span, seed=seed)
     jax_table = jax_sm.build_sorted(keys, payloads)
     assert jax_table.pack32 is None and jax_table.wide_ok
-    with pltpu.force_tpu_interpret_mode():
-        want = jax_sm.sorted_match_totals(jax_table, jnp.asarray(probes), use_kernel=True)
+    want = interpret(lambda p: jax_sm.sorted_match_totals(jax_table, p, use_kernel=True),
+                     jnp.asarray(probes))
     xla = jax_sm.sorted_match_totals(jax_table, jnp.asarray(probes), use_kernel=False)
     got = sm.sorted_match_totals(_crossed(jax_table), torch.from_numpy(probes))
     assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
@@ -89,12 +89,12 @@ def test_sorted_build_counts_wide_matches_jax(dtype):
 
 
 def test_sorted_match_ranks_wide_matches_jax_pallas():
-    keys, payloads, probes = _wide_setup(m=600, n=2000, seed=5)
+    keys, payloads, probes = _wide_setup(m=400, n=1200, seed=5)
     jax_rt = jax_sm.rank_table(jax_sm.build_sorted(keys, payloads))
     assert jax_rt.wide_ok
-    with pltpu.force_tpu_interpret_mode():
-        want_mult, want_start = jax_sm.sorted_match_ranks(jax_rt, jnp.asarray(probes),
-                                                          use_kernel=True, tile_log=10)
+    want_mult, want_start = interpret(
+        lambda p: jax_sm.sorted_match_ranks(jax_rt, p, use_kernel=True, tile_log=10),
+        jnp.asarray(probes))
     rt = sm.rank_table(sm.build_sorted(keys, payloads, device="cpu"))
     assert rt.pack32 is None and sm.stats_key_type(rt) == torch.int64
     mult, start = sm.sorted_match_ranks(rt, torch.from_numpy(probes), tile_log=10)
