@@ -1,12 +1,26 @@
-"""Command line of the port: `python -m ccve_tpu_torch.cli baseline --config N`.
+"""Command line of the port: `python -m ccve_tpu_torch.cli pipeline|baseline`.
 
-Only the `baseline` subcommand is ported: config 1 (counting on the
-sort-merge engine or, with `--engine hash_lp|hash_csr`, on a hash table;
-on the sort-merge engine, with `--materialize`, emitting every matched
-triple, or with `--wide-span BITS` counting over int64 keys spread over
-2^BITS) and config 3's bulk engine. Other configurations exit non-zero
-with "not ported yet". The run goes to `--device` (default `cuda`);
-without a GPU it fails unless `--device cpu` asks for the plain CPU path.
+ - `pipeline` is the reference's main executable (`simd_compaction_sevector`,
+   main.cpp:37-117), with the JAX CLI's flags and defaults plus `--device`:
+   the N-way join of a generated probe table against `--join-num` build
+   tables, on the sorted-chunk executor (`--table sorted --executor
+   sorted`, strategies none, full and binary) or the bulk engine
+   (`--executor bulk`, any table kind). Its stderr lines are the JAX CLI's:
+   [Settings], the [Bee] timings on the host clock, [Total Time],
+   [Throughput] and [Result Rows]. The cursor executor (`--executor
+   pipeline`), `--strategy dynamic`, `--record-occupancy` and
+   `--zebra-profile` exit 2 with "not ported yet".
+ - `baseline --config N` runs a benchmark configuration and prints one JSON
+   line: config 1 (counting on the sort-merge engine or, with `--engine
+   hash_lp|hash_csr`, on a hash table; on the sort-merge engine, with
+   `--materialize`, emitting every matched triple, or with `--wide-span
+   BITS` counting over int64 keys spread over 2^BITS), config 3 (the bulk
+   engine and the sorted-chunk executor) and config 7 (the sorted-chunk
+   executor's static compaction policies). Other configurations exit
+   non-zero with "not ported yet".
+
+The run goes to `--device` (default `cuda`); without a GPU it fails unless
+`--device cpu` asks for the plain CPU path.
 """
 
 from __future__ import annotations
@@ -14,10 +28,14 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
-# the JAX CLI's --tiny sizes (its config-3 `block` belongs to the
-# chunk-at-a-time executors, which are not ported)
-TINY_KWARGS = {1: dict(n_build=4096, n_probe=65536), 3: dict(lhs=4000, rhs=256)}
+# the JAX CLI's --tiny sizes
+TINY_KWARGS = {
+    1: dict(n_build=4096, n_probe=65536),
+    3: dict(lhs=4000, rhs=256, block=256),
+    7: dict(lhs=16384, rhs=512, block=256, segment_chunks=4),
+}
 TINY_WIDE_KWARGS = dict(n_build=4096, n_probe=1 << 15)
 
 
@@ -53,9 +71,145 @@ def cmd_baseline(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="ccve_tpu_torch")
-    sub = parser.add_subparsers(dest="cmd", required=True)
+class _Bee:
+    """Named host-clock timers printed as the JAX CLI's BeeProfiler prints
+    them (profiler.h:103-127)."""
+
+    def __init__(self):
+        self.stats: dict[str, list] = {}
+
+    def time(self, name: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        total, calls = self.stats.get(name, (0.0, 0))
+        self.stats[name] = (total + time.perf_counter() - t0, calls + 1)
+        return out
+
+    def end_profiling(self) -> None:
+        if not self.stats:
+            return
+        width = max(len(k) for k in self.stats)
+        for name in sorted(self.stats):
+            total, calls = self.stats[name]
+            print(f" [Bee] {name.ljust(width)}  total {total * 1e3:12.3f} ms"
+                  f"  calls {calls:10d}  avg {total / max(calls, 1) * 1e6:10.3f} us",
+                  file=sys.stderr)
+
+
+def _refusal(args) -> str | None:
+    """Why this `pipeline` command cannot run, or None."""
+    if args.table == "sorted" and args.executor == "pipeline":
+        return ("--table sorted pairs with --executor bulk or sorted (the pipelined "
+                "executor's ScanStructure is a hash-table cursor)")
+    if args.executor == "sorted" and args.table != "sorted":
+        return "--executor sorted requires --table sorted"
+    if args.executor == "pipeline":
+        return "--executor pipeline (the cursor executor): not ported yet"
+    if args.strategy == "dynamic":
+        return "--strategy dynamic (the bandit tuners): not ported yet"
+    if args.record_occupancy or args.zebra_profile:
+        return "--record-occupancy and --zebra-profile (the Zebra profiler): not ported yet"
+    return None
+
+
+def cmd_pipeline(args) -> int:
+    from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu_torch.ops.hash_table import build_csr, build_lp
+    from ccve_tpu_torch.ops.sort_merge import build_sorted, require_device
+
+    strategy = {
+        "none": CompactionStrategy.NONE,
+        "full": CompactionStrategy.FULL,
+        "binary": CompactionStrategy.BINARY,
+        "dynamic": CompactionStrategy.DYNAMIC,
+    }[args.strategy]
+    cfg = EngineConfig(
+        block_size=args.block_size,
+        n_joins=args.join_num,
+        lhs_size=args.lhs_size,
+        rhs_size=args.rhs_size,
+        chunk_factor=args.chunk_factor,
+        strategy=strategy,
+        payload_mode=PayloadMode(args.payload),
+        collect_tuples=args.collect_tuples,
+        tuner_segment_chunks=args.segment_chunks,
+    )
+    print(
+        f" [Settings] #joins: {cfg.n_joins}, strategy: {strategy.value}, "
+        f"table: {args.table}, executor: {args.executor}, "
+        f"|LHS|: {cfg.lhs_size}, |RHS|: {cfg.rhs_size}, "
+        f"chunk_factor: {cfg.chunk_factor}, block: {cfg.block_size}",
+        file=sys.stderr,
+    )
+    refusal = _refusal(args)
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
+    device = require_device(args.device)
+    bee = _Bee()
+    probe, (keys, payloads) = bee.time("[Generate Data]", lambda: (
+        gen_probe_table(cfg.lhs_size, cfg.n_joins, cfg.rhs_size),
+        gen_rhs_table(cfg.rhs_size, cfg.chunk_factor)))
+    builder = {"sorted": build_sorted, "lp": build_lp, "csr": build_csr}[args.table]
+    tables = bee.time("[Build Hash Tables]", lambda: [
+        builder(keys, payloads, device=device) for _ in range(cfg.n_joins)])
+
+    if args.executor == "bulk":
+        from ccve_tpu_torch.exec.bulk import bulk_count
+
+        t0 = time.perf_counter()
+        count = int(bulk_count(tables, probe).count)  # reading the count syncs
+        elapsed = time.perf_counter() - t0
+    else:
+        from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
+
+        out = SortedPipeline(tables, cfg).run(
+            probe, segment_chunks=args.segment_chunks, preload=args.preload)
+        count, elapsed = out["count"], out["seconds"]
+
+    print(f" [Total Time] {elapsed:.4f} s", file=sys.stderr)
+    print(f" [Throughput] {cfg.lhs_size / elapsed / 1e6:.2f}M probe rows/s", file=sys.stderr)
+    print(f" [Result Rows] {count}", file=sys.stderr)
+    bee.end_profiling()
+    return 0
+
+
+def _add_pipeline(sub):
+    p = sub.add_parser("pipeline", help="N-way join pipeline benchmark")
+    p.add_argument("--join-num", type=int, default=3)
+    p.add_argument("--chunk-factor", type=int, default=1)
+    p.add_argument("--lhs-size", type=int, default=20_000_000)
+    p.add_argument("--rhs-size", type=int, default=2_000_000)
+    p.add_argument("--block-size", type=int, default=2048)
+    p.add_argument("--strategy", choices=["none", "full", "binary", "dynamic"], default="none")
+    p.add_argument(
+        "--table", choices=["lp", "csr", "sorted"], default="csr",
+        help="build-table kind; 'sorted' pairs with --executor bulk or sorted",
+    )
+    p.add_argument(
+        "--executor", choices=["pipeline", "bulk", "sorted"], default="pipeline",
+        help="'pipeline': the chunk-at-a-time cursor executor (not ported yet); "
+        "'bulk': operator-at-a-time; 'sorted': chunk-at-a-time over sorted tables "
+        "with the fused drain kernel (exec/sorted_pipeline.py)",
+    )
+    p.add_argument("--payload", choices=["reference", "full"], default="reference")
+    p.add_argument("--collect-tuples", action="store_true")
+    p.add_argument("--record-occupancy", action="store_true",
+                   help="per-level chunk-occupancy histograms (not ported yet)")
+    p.add_argument("--segment-chunks", type=int, default=64)
+    p.add_argument(
+        "--preload", action="store_true",
+        help="copy the whole chunk batch to the device before the timed window "
+        "instead of streaming host chunk batches per segment",
+    )
+    p.add_argument("--zebra-profile", action="store_true",
+                   help="measured Zebra latency per segment (not ported yet)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(func=cmd_pipeline)
+
+
+def _add_baseline(sub):
     p = sub.add_parser("baseline", help="run a BASELINE.json benchmark configuration")
     p.add_argument("--config", type=int, required=True, choices=[1, 2, 3, 4, 5, 6, 7])
     p.add_argument("--tiny", action="store_true", help="CI-sized workload")
@@ -76,6 +230,13 @@ def main(argv=None) -> int:
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(func=cmd_baseline)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="ccve_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_pipeline(sub)
+    _add_baseline(sub)
     args = parser.parse_args(argv)
     return args.func(args)
 

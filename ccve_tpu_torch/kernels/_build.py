@@ -39,8 +39,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argtypes of every C entry point; each returns a cudaError_t as
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
-# same arguments, except the compaction (int32 planes only) and the hash
-# (int64 keys only).
+# same arguments, except the compaction and the drain (int32 planes only)
+# and the hash (int64 keys only).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
     "ccve_sort_tiles": [_P, _P, _L, _I, _P],
@@ -67,6 +67,9 @@ _ENTRY_POINTS = {
 _ENTRY_POINTS["ccve_compact_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P]
 # (x, y, n, stream)
 _ENTRY_POINTS["ccve_murmurhash64_i64"] = [_P, _P, _L, _P]
+# (mults, counts, thresholds, cache_in, ccnt_in, S, L, block, fanouts,
+#  total, cache_out, ccnt_out, work, rows, stream)
+_ENTRY_POINTS["ccve_drain_segment_i32"] = [_P] * 5 + [_L, _I, _I, _P] + [_P] * 5 + [_P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {

@@ -1,0 +1,181 @@
+"""The fused per-segment drain of the sorted-chunk executor (count only).
+
+Counterpart of `ccve_tpu.kernels.drain.drain_segment`: `drain_segment`
+(kernel csrc/drain.cu) runs a segment of S chunks, in order, through the
+whole level recursion of `exec.sorted_pipeline.SortedPipeline._run_tree`:
+at each level l < L-1 and drain rank t < fanouts[l], the rows with
+mult > t are compacted, the NaiveCompactor (compactor.cpp:5-41, threshold
+`thresholds[l]`) passes, absorbs or emits, and the emission descends; the
+last level adds Σ mult over its live rows (the count collapse). The
+compactor caches carry from chunk to chunk.
+
+Inputs, all int32 and on one device:
+
+    mults      [S, L, block]   per-level match counts of each chunk's rows
+    counts     [S]             live rows of each chunk (in [0, block])
+    thresholds [L]             per-level compaction thresholds
+    cache_m    [CL, L, block]  level l's cache holds planes l2 > l
+    cache_cnt  [CL]            rows in each cache (CL = max(L - 1, 1))
+
+Returns (total int64 scalar, cache_m out, cache counts int32[CL], work
+int32[L], rows int32[L]). Only each cache's live prefix of its planes
+l2 > l is defined. `work[l]` counts the chunks that entered level l (level
+0) or arrived non-empty, plus the compactions at l; `rows[l]` the rows
+that arrived; as in the JAX kernel, a compaction of an empty emission
+below an absorbed one counts too.
+
+The JAX kernel pads planes to max(block / 128, 8) x 128 lanes and sums in
+int32 (Mosaic has no 64-bit types); here planes are `block` wide and the
+total is int64. `record_occupancy` (the Zebra histograms) is the tuner
+slice's (ROADMAP Queue 1, slice 7b), and with it the JAX kernel's
+`branchy`, which changes only those histograms.
+
+Limits, the same on every device: L <= 8, block <= 4096, at most 64 drain
+paths (Π fanouts[:-1]) and L·(L-1) planes of shared memory within 226 KB;
+a configuration past them raises with its (L, block).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ccve_tpu_torch.kernels import _build
+
+MAX_LEVELS = 8
+MAX_BLOCK = 4096
+MAX_PATHS = 64  # the JAX package's gate on the fused route
+SMEM_LIMIT = 232448 - 1024  # a block's dynamic shared memory, less the static scratch
+
+
+def smem_bytes(n_levels: int, block: int) -> int:
+    """Shared memory of the kernel: level l's cache and the depth-l
+    emission buffer hold planes l2 > l each, L·(L-1) planes in all."""
+    return n_levels * (n_levels - 1) * block * 4
+
+
+def _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts):
+    for name, t in (("mults", mults), ("counts", counts), ("thresholds", thresholds),
+                    ("cache_m", cache_m), ("cache_cnt", cache_cnt)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected an int32 tensor, got {getattr(t, 'dtype', type(t))}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.device != mults.device:
+            raise ValueError(f"{name} on {t.device}, mults on {mults.device}")
+    if mults.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {mults.device}")
+    if mults.dim() != 3:
+        raise ValueError(f"mults: expected [S, L, block], got {tuple(mults.shape)}")
+    S, L, B = mults.shape
+    if B != block:
+        raise ValueError(f"mults planes are {B} wide, block {block}")
+    if not 1 <= L <= MAX_LEVELS or not 1 <= block <= MAX_BLOCK:
+        raise ValueError(f"(L={L}, block={block}): the drain takes L <= {MAX_LEVELS} "
+                         f"and block <= {MAX_BLOCK}")
+    if smem_bytes(L, block) > SMEM_LIMIT:
+        raise ValueError(f"(L={L}, block={block}) needs {smem_bytes(L, block)} bytes of "
+                         f"shared memory for its caches and emissions, over {SMEM_LIMIT}")
+    fanouts = tuple(int(f) for f in fanouts)
+    if len(fanouts) != L or min(fanouts) < 1:
+        raise ValueError(f"fanouts {fanouts}: expected {L} values >= 1")
+    if math.prod(fanouts[:-1]) > MAX_PATHS:
+        raise ValueError(f"fanouts {fanouts}: more than {MAX_PATHS} drain paths")
+    CL = max(L - 1, 1)
+    for name, t, shape in (("counts", counts, (S,)), ("thresholds", thresholds, (L,)),
+                           ("cache_m", cache_m, (CL, L, block)), ("cache_cnt", cache_cnt, (CL,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    return fanouts
+
+
+def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts):
+    """`drain_segment` in torch ops on [block] planes, with the compactor's
+    scalars as host ints, on any device (it reads each step's count back,
+    so on the card it syncs per step)."""
+    fanouts = _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts)
+    S, L, B = mults.shape
+    dev = mults.device
+    lane = torch.arange(B, device=dev)
+    cache = cache_m.clone()
+    ccnt = cache_cnt.tolist()
+    thr = thresholds.tolist()
+    work, rows = [0] * L, [0] * L
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def compacted(plane, at):
+        out = plane.new_zeros(B + 1)
+        out[at] = plane
+        return out[:B]
+
+    def gen(level, planes, c):
+        """One chunk (its planes, or None when it is empty) at `level`."""
+        nonlocal total
+        if level == L - 1:
+            if c:
+                total = total + torch.where(lane < c, planes[level], 0).sum(dtype=torch.int64)
+            return
+        for t in range(fanouts[level]):
+            emitted, ecnt = {}, 0
+            if c:
+                keep = (lane < c) & (planes[level] > t)
+                at = torch.where(keep, torch.cumsum(keep, 0) - 1, B)
+                ecnt = int(keep.sum())
+                emitted = {l2: compacted(planes[l2], at) for l2 in range(level + 1, L)}
+            cc = ccnt[level]
+            passthrough = ecnt >= thr[level] or ecnt >= B
+            new_count = cc + ecnt
+            if passthrough:
+                out, out_count = emitted, ecnt
+            elif new_count >= B:  # the cache fills: emit it, keep the overflow
+                room = B - cc
+                out = {l2: torch.cat([cache[level, l2, :cc], e[:room]]) for l2, e in emitted.items()}
+                for l2, e in emitted.items():
+                    cache[level, l2, : new_count - B] = e[room:ecnt]
+                ccnt[level], out_count = new_count - B, B
+            else:  # absorbed
+                for l2, e in emitted.items():
+                    cache[level, l2, cc:new_count] = e[:ecnt]
+                ccnt[level], out, out_count = new_count, None, 0
+            work[level] += 0 if passthrough else 1
+            work[level + 1] += 1 if out_count else 0
+            rows[level + 1] += out_count
+            gen(level + 1, out if out_count else None, out_count)
+
+    for i, c in enumerate(counts.tolist()):
+        work[0] += 1
+        rows[0] += c
+        gen(0, {l: mults[i, l] for l in range(L)} if c else None, c)
+    as_i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+    return total, cache, as_i32(ccnt), as_i32(work), as_i32(rows)
+
+
+def drain_segment(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts):
+    """The fused drain of one segment (see the module docstring): kernel
+    csrc/drain.cu on a CUDA device, `drain_segment_plain` on the CPU."""
+    fanouts = _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts)
+    if mults.device.type == "cpu":
+        return drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt,
+                                   block=block, fanouts=fanouts)
+    S, L, _ = mults.shape
+    dev = mults.device
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    cache_out = cache_m.clone()
+    ccnt_out = torch.empty_like(cache_cnt)
+    work = torch.empty(L, dtype=torch.int32, device=dev)
+    rows = torch.empty(L, dtype=torch.int32, device=dev)
+    fan = (ctypes.c_int * MAX_LEVELS)(*fanouts)
+    code = _build.load().ccve_drain_segment_i32(
+        mults.data_ptr(), counts.data_ptr(), thresholds.data_ptr(), cache_m.data_ptr(),
+        cache_cnt.data_ptr(), S, L, block, ctypes.cast(fan, ctypes.c_void_p),
+        total.data_ptr(), cache_out.data_ptr(), ccnt_out.data_ptr(), work.data_ptr(),
+        rows.data_ptr(), _build.stream(mults),
+    )
+    _build.check(code, "drain_segment")
+    drain_segment.launches += 1
+    return total[0], cache_out, ccnt_out, work, rows
+
+
+drain_segment.launches = 0

@@ -68,6 +68,29 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     compactions), so its own answer is the one returned. Ladder, full
     width and the all-plain ladder against the exact per-row answer, CSR
     and sort-merge counts against it; times of the four.
+23. Slice 7's kernel, the fused drain (#10), against its plain version at
+    small shapes, exactly (total, cache counts, work, rows, live cache
+    prefixes): the JAX-parity cases of tests/test_torch_drain.py and 24
+    random (L, block, fanouts, thresholds); a (L, block) that does not fit
+    shared memory must raise.
+24. Config 3 on the sorted-chunk executor at full size (phase 8's data,
+    block 2048) under NONE, FULL and BINARY, preloaded and streamed,
+    counters zeroed just before each: count 62,667, equal to the oracle
+    and phase 8's `bulk_count`, also on the torch drain route
+    (`use_kernel=False`); #10 launched once a preloaded run and once a
+    streamed segment, the rank pass's #6-#8 launched. run() seconds
+    (median of 5, min, max), the device idle share of the timed work, the
+    torch drain's seconds.
+25. #10 at config 3's shapes (the FULL run's mult planes, zero caches)
+    against its plain version, exactly; both timed with CUDA events, beside
+    the bound.
+26. Config 7 at full size (2M x 4 levels, hit rates 0.95, 0.03, 1, 1, 50K
+    build rows, block 2048): no_compaction, full_compaction and
+    mixed_static, preloaded, count equal to the oracle and `bulk_count`,
+    one #10 launch a run; times in interleaved rounds and idle shares.
+27. Runs `config7_heterogeneous_levels` as the CLI would (phase 11's
+    `config3_four_way` already ran the sorted executor's entries), and the
+    CLI's known-good `pipeline` command (`[Result Rows] 2992`).
 
 Prints the per-kernel JSON line (each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
@@ -100,9 +123,11 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
     config1_wide_host,
     config3_data,
     config3_four_way,
+    config7_data,
+    config7_heterogeneous_levels,
     numpy_totals,
 )
-from ccve_tpu_torch.config import PayloadMode  # noqa: E402
+from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
 from ccve_tpu_torch.bench.profile_config1 import busy_window  # noqa: E402
 from ccve_tpu_torch.exec.bulk import (  # noqa: E402
@@ -114,7 +139,9 @@ from ccve_tpu_torch.exec.bulk import (  # noqa: E402
     lp_match_stats,
 )
 from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_join, oracle_pipeline  # noqa: E402
+from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline  # noqa: E402
 from ccve_tpu_torch.kernels import _build, bigsort, compact, merge_scan, murmur, pairsort  # noqa: E402
+from ccve_tpu_torch.kernels.drain import MAX_PATHS, drain_segment, drain_segment_plain  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
 from ccve_tpu_torch.ops.hash_table import build_csr, build_lp  # noqa: E402
 from ccve_tpu_torch.ops.hashing import murmurhash64_np  # noqa: E402
@@ -136,13 +163,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn) -> list[float]:
-    """Per-call milliseconds of REPS calls of `fn` by CUDA events, after one
-    warm-up."""
+def cuda_ms(fn, reps: int = REPS) -> list[float]:
+    """Per-call milliseconds of `reps` calls of `fn` by CUDA events, after
+    one warm-up."""
     fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -265,7 +292,8 @@ def main() -> int:
         "merge_level_i32": bigsort.merge_level_i32,
         "merge_counts_i32": merge_scan.merge_counts_i32,
     }
-    max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS], 0)
+    max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS,
+                             "drain_segment"], 0)
 
     def same(name: str, got, want, what: str):
         """Exact equality of a kernel's output with its plain version's:
@@ -763,6 +791,7 @@ def main() -> int:
         f"launches {launches_d}")
 
     # ---- 11. the benchmark entry points ------------------------------------
+    # (config3_four_way also runs the sorted-chunk executor, phase 24's)
     result = config3_four_way(device="cuda")
     log(f"phase config3_four_way: ok {json.dumps(result)}")
     result = config1_materialize(device="cuda")
@@ -1233,6 +1262,222 @@ def main() -> int:
     for line in ladder_log:
         log(line)
 
+    # ---- 23. slice 7's kernel, the fused drain (#10), at small shapes ------
+    t0 = time.perf_counter()
+
+    def drain_same(args, fanouts, what):
+        """#10 against its plain version on the same card tensors: total,
+        cache counts, work, rows and every cache's live prefix."""
+        block = args[0].shape[2]
+        got = drain_segment(*args, block=block, fanouts=fanouts)
+        want = drain_segment_plain(*args, block=block, fanouts=fanouts)
+        same("drain_segment", [got[0], got[2], got[3], got[4]],
+             [want[0], want[2], want[3], want[4]], what)
+        for level in range(len(fanouts) - 1):
+            live = int(want[2][level])
+            same("drain_segment", got[1][level, level + 1 :, :live],
+                 want[1][level, level + 1 :, :live], f"{what} cache {level}")
+        return got
+
+    def drain_inputs(S, block, fanouts, thresholds, counts=None):
+        """int32 card inputs of #10: mults in [0, fanout] (the last level's
+        up to 5), counts (empty, partial and full chunks unless given),
+        caches with a random live prefix."""
+        L = len(fanouts)
+        highs = list(fanouts[:-1]) + [5]
+        mults = np.stack([rng.integers(0, h + 1, (S, block)) for h in highs], axis=1)
+        if counts is None:
+            counts = rng.choice([0, block, int(rng.integers(1, block))], S)
+        CL = max(L - 1, 1)
+        cache_cnt = rng.integers(0, block, CL) if L > 1 else np.zeros(1, np.int64)
+        return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
+                for a in (mults, counts, thresholds,
+                          rng.integers(0, max(highs) + 1, (CL, L, block)), cache_cnt)]
+
+    # test_torch_drain.py's cases against the JAX kernel, then random ones
+    for fanouts, thresholds, counts in (
+        ((1,), (0,), [128, 0, 77]),
+        ((1, 1), (64, 64), [128, 5, 60, 0, 128, 31]),
+        ((2, 2, 2), (128, 128, 128), [128, 0, 77, 128]),
+        ((3, 1, 2, 1), (0, 128, 64, 0), [128, 100, 0, 3, 128]),
+    ):
+        drain_same(drain_inputs(len(counts), 128, fanouts, thresholds, counts), fanouts,
+                   f"fanouts {fanouts} thresholds {thresholds}")
+    for case in range(24):
+        L = int(rng.integers(1, 6))
+        block = int(rng.choice([128, 384, 1024, 2048] + ([4096] if L <= 4 else [])))
+        fanouts = tuple(int(f) for f in rng.integers(1, 4, L))
+        while np.prod(fanouts[:-1]) > MAX_PATHS:
+            fanouts = tuple(max(f - 1, 1) for f in fanouts)
+        thresholds = [int(rng.choice([0, block // 2, block, int(rng.integers(1, block))]))
+                      for _ in range(L)]
+        drain_same(drain_inputs(int(rng.integers(0, 41)), block, fanouts, thresholds), fanouts,
+                   f"random case {case}: L={L} block={block} fanouts {fanouts}")
+    try:
+        drain_segment(*drain_inputs(2, 4096, (1,) * 5, [0] * 5), block=4096,
+                            fanouts=(1,) * 5)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("#10 ran (L=5, block=4096), which does not fit shared memory")
+    torch.cuda.synchronize()
+    log(f"phase slice-7 kernel (small shapes): ok ({time.perf_counter() - t0:.1f} s), max "
+        f"|kernel - plain| {max_err['drain_segment']}; refused: {refused}")
+
+    # ---- 24. config 3 on the sorted-chunk executor at full size ------------
+    t0 = time.perf_counter()
+    host3 = probe3.cpu().numpy().astype(np.int64)
+    rank_kernels = ("sort_tiles_multi_i32", "merge_multi_i32", "merge_stats_i32")
+    drain_wrappers = {"drain_segment": (drain_segment,), **NEW_WRAPPERS}
+    n_chunks3 = -(-host3.shape[0] // 2048)
+    launches_c3, c3_log, pipes3 = {}, [], {}
+
+    def chunked(host):
+        """A host probe table as `run(preload=True)` puts it on the card:
+        (int64[S, n_joins, 2048] chunk columns, int32[S] counts)."""
+        n, S = host.shape[0], -(-host.shape[0] // 2048)
+        cols = np.pad(host, ((0, S * 2048 - n), (0, 0))).reshape(S, 2048, host.shape[1])
+        return (torch.from_numpy(np.ascontiguousarray(cols.transpose(0, 2, 1))).cuda(),
+                torch.from_numpy(np.minimum(2048, n - 2048 * np.arange(S)).astype(np.int32))
+                .cuda())
+
+    all_cols, all_counts = chunked(host3)
+
+    def timed_section(pipe, cols, counts):
+        """`run`'s timed work on a preloaded stream: the segment, then the
+        flush (no host copy, no batch cut): the device idle share's window."""
+        thr = pipe.static_thresholds()
+        ps = pipe._process_chunks(pipe.fresh_state(), cols, counts, thr)
+        if pipe.config.strategy is not CompactionStrategy.NONE:
+            ps = pipe._flush_all(ps, thr)
+        return ps.result_count
+
+    for strategy in (CompactionStrategy.NONE, CompactionStrategy.FULL,
+                     CompactionStrategy.BINARY):
+        cfg3 = EngineConfig(block_size=2048, n_joins=4, lhs_size=host3.shape[0],
+                            rhs_size=50_000, strategy=strategy)
+        pipe = pipes3[strategy] = SortedPipeline(tables3, cfg3)
+        for preload in (True, False):
+            zero_counters(drain_wrappers)
+            r = pipe.run(host3, preload=preload)
+            lc = read_counters(drain_wrappers)
+            launches_c3[(strategy.value, preload)] = lc
+            if r["count"] != want3 or r["count"] != got3[0]:
+                raise AssertionError(f"sorted {strategy.value} preload={preload}: count "
+                                     f"{r['count']}, oracle {want3}, bulk_count {got3[0]}")
+            want_launches = 1 if preload else -(-n_chunks3 // cfg3.tuner_segment_chunks)
+            if lc["drain_segment"] != want_launches:
+                raise AssertionError(f"sorted {strategy.value} preload={preload}: #10 "
+                                     f"launched {lc['drain_segment']} times, expected "
+                                     f"{want_launches}")
+            idle = [k for k in rank_kernels if lc[k] == 0]
+            if idle:
+                raise AssertionError(f"rank-pass kernels not launched by the sorted "
+                                     f"executor: {idle}")
+        runs = {preload: [pipe.run(host3, preload=preload)["seconds"] * 1e3 for _ in range(5)]
+                for preload in (True, False)}
+        td = SortedPipeline(tables3, cfg3, use_kernel=False).run(host3, preload=True)
+        if td["count"] != want3:
+            raise AssertionError(f"torch drain {strategy.value}: count {td['count']}")
+        if int(timed_section(pipe, all_cols, all_counts)) != want3:
+            raise AssertionError("the timed section's count differs")
+        idle_c3, n_ev = idle_share(lambda p=pipe: timed_section(p, all_cols, all_counts))
+        c3_log.append(
+            f"  {strategy.value}: preloaded {spread(runs[True])}, streamed {spread(runs[False])}; "
+            f"device idle share {idle_c3:.4f} ({n_ev} device events in {PROFILED_CALLS} "
+            f"calls); torch drain (use_kernel=False) preloaded {td['seconds'] * 1e3:.4f} ms; "
+            f"launches preloaded {launches_c3[(strategy.value, True)]}, streamed "
+            f"{launches_c3[(strategy.value, False)]}")
+    log(f"phase config 3 sorted executor: ok ({time.perf_counter() - t0:.1f} s), 1M x 4 levels "
+        f"x 50K, block 2048: NONE, FULL and BINARY, preloaded and streamed, and the torch "
+        f"drain count {want3} (oracle and bulk_count agree)")
+    log(f"times on [{card}], host clock around run() (synced), medians of 5:")
+    for line in c3_log:
+        log(line)
+
+    # ---- 25. #10 at config-3 shapes -----------------------------------------
+    pipe = pipes3[CompactionStrategy.FULL]
+    mults3 = pipe._seg_mults(all_cols)
+    thr3 = torch.full((4,), 2048, dtype=torch.int32, device="cuda")
+    cache3 = torch.zeros((3, 4, 2048), dtype=torch.int32, device="cuda")
+    ccnt3 = torch.zeros(3, dtype=torch.int32, device="cuda")
+    d_args = (mults3, all_counts, thr3, cache3, ccnt3)
+    d_out = drain_same(d_args, tuple(pipe._fanout), "config 3 FULL")
+    torch.cuda.synchronize()
+    kernel_ms["drain_segment"] = (
+        med(cuda_ms(lambda: drain_segment(*d_args, block=2048, fanouts=(1,) * 4))),
+        med(cuda_ms(lambda: drain_segment_plain(*d_args, block=2048, fanouts=(1,) * 4),
+                    reps=3)),
+    )
+    S3 = mults3.shape[0]
+    # the mult planes and the counts read once, the caches read and written
+    # once; about four operations (compare, scan, move, add) per arriving
+    # row and drain rank
+    work["drain_segment"] = (4 * S3 * 4 * 2048 + 8 * 3 * 4 * 2048 + 4 * S3,
+                             4 * int(d_out[4].sum()))
+    bound_d = bound(*work["drain_segment"])
+    log(f"phase slice-7 kernel (config-3 shapes): ok, {S3} chunks x 4 levels x 2048, FULL, "
+        f"total {int(d_out[0])}, work {d_out[3].tolist()}, rows {d_out[4].tolist()}: kernel "
+        f"{kernel_ms['drain_segment'][0]:.4f} ms, plain {kernel_ms['drain_segment'][1]:.4f} "
+        f"ms, bound {bound_d[0]:.4f} ms ({bound_d[1]}) [{card}]")
+
+    # ---- 26. config 7 at full size: three static policies -------------------
+    t0 = time.perf_counter()
+    table7, host7, want7 = config7_data(2_000_000, 50_000, torch.device("cuda"))
+    tables7 = [table7] * 4
+    bulk7 = int(bulk_count(tables7, host7).count)
+    if bulk7 != want7:
+        raise AssertionError(f"config 7: bulk_count {bulk7}, oracle {want7}")
+    base7 = EngineConfig(block_size=2048, n_joins=4, lhs_size=host7.shape[0],
+                         rhs_size=50_000, strategy=CompactionStrategy.FULL)
+    cases7 = {
+        "no_compaction": EngineConfig(block_size=2048, n_joins=4, lhs_size=host7.shape[0],
+                                      rhs_size=50_000),
+        "full_compaction": base7,
+        "mixed_static": EngineConfig(block_size=2048, n_joins=4, lhs_size=host7.shape[0],
+                                     rhs_size=50_000, strategy=CompactionStrategy.FULL,
+                                     compact_threshold_per_level=(0, 2048, 0, 0)),
+    }
+    cols7, counts7 = chunked(host7)
+    pipes7 = {name: SortedPipeline(tables7, cfg) for name, cfg in cases7.items()}
+    c7 = {name: [] for name in pipes7}
+    for name, pipe in pipes7.items():
+        zero_counters(drain_wrappers)
+        r = pipe.run(host7, preload=True)
+        lc = read_counters(drain_wrappers)
+        if r["count"] != want7 or lc["drain_segment"] != 1:
+            raise AssertionError(f"config 7 {name}: count {r['count']} (oracle {want7}), #10 "
+                                 f"launches {lc['drain_segment']}")
+    for _ in range(5):  # interleaved rounds
+        for name, pipe in pipes7.items():
+            c7[name].append(pipe.run(host7, preload=True)["seconds"] * 1e3)
+    log(f"phase config 7: ok ({time.perf_counter() - t0:.1f} s), 2M x 4 levels x 50K (hit rates "
+        f"0.95, 0.03, 1, 1), block 2048: no_compaction, full_compaction and mixed_static "
+        f"count {want7} (oracle and bulk_count agree), one #10 launch a run")
+    log(f"times on [{card}], host clock around run(preload=True) (synced), medians of 5 "
+        "interleaved rounds:")
+    for name, pipe in pipes7.items():
+        idle7, n_ev = idle_share(lambda p=pipe: timed_section(p, cols7, counts7))
+        log(f"  {name}: {spread(c7[name])}; device idle share {idle7:.4f} ({n_ev} device "
+            f"events in {PROFILED_CALLS} calls)")
+
+    # ---- 27. the benchmark entry point and the CLI's pipeline command -------
+    result = config7_heterogeneous_levels(device="cuda")
+    log(f"phase config7_heterogeneous_levels: ok {json.dumps(result)}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ccve_tpu_torch.cli", "pipeline", "--join-num", "2",
+         "--chunk-factor", "2", "--lhs-size", "3000", "--rhs-size", "256", "--block-size",
+         "256", "--strategy", "full", "--table", "sorted", "--executor", "sorted"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    if proc.returncode != 0 or " [Result Rows] 2992" not in proc.stderr.splitlines():
+        raise AssertionError(f"the known-good pipeline command: rc {proc.returncode}\n"
+                             f"{proc.stderr}")
+    log("phase cli pipeline: ok, " + "; ".join(
+        line.strip() for line in proc.stderr.splitlines() if "[Result Rows]" in line
+        or "[Total Time]" in line))
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -1262,6 +1507,8 @@ def main() -> int:
                             "ccve_tpu/kernels/merge_scan.py:47"),
         "murmurhash64_i64": ("ccve_tpu_torch/kernels/csrc/murmur.cu",
                              "ccve_tpu/kernels/murmur.py:68"),
+        "drain_segment": ("ccve_tpu_torch/kernels/csrc/drain.cu",
+                          "ccve_tpu/kernels/drain.py:94"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per
@@ -1280,6 +1527,9 @@ def main() -> int:
     # compaction's on the LP drain add to its slice-2 launches
     launches["murmurhash64_i64"] = sum(lc["murmurhash64_i64"] for lc in launches_h.values())
     launches["compact_i32"] += launches_h["hash_lp"]["compact_i32"]
+    # slice 7: #10's launches in phase 24's counted runs (one a preloaded
+    # run, one a segment streamed)
+    launches["drain_segment"] = sum(lc["drain_segment"] for lc in launches_c3.values())
     entries = []
     for name in sources:
         bound_ms, bound_by = bound(*work[name])

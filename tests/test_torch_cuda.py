@@ -468,3 +468,141 @@ def test_hash_bulk_materialize_on_card_matches_cpu(cuda, kind):
     assert compact.compact_i32.launches > before
     want = bulk.bulk_materialize([build(keys, pays, device="cpu")] * 2, probe, PayloadMode.FULL)
     assert torch.equal(got.cpu(), want)  # the compaction keeps the grid's order
+
+
+# ---- the sorted-chunk executor (slice 7): kernel #10 ------------------------
+
+
+def _drain_inputs(rng, S, L, block, fanouts, thresholds, device):
+    """int32 inputs of `drain_segment`: mults in [0, fanout] (the last
+    level's up to 5), counts with empty, partial and full chunks, caches
+    with a random live prefix."""
+    highs = list(fanouts[:-1]) + [5]
+    mults = np.stack([rng.integers(0, h + 1, (S, block)) for h in highs], axis=1)
+    counts = rng.choice([0, block, int(rng.integers(1, block))], S)
+    CL = max(L - 1, 1)
+    cache_m = rng.integers(0, max(highs) + 1, (CL, L, block))
+    cache_cnt = rng.integers(0, block, CL) if L > 1 else np.zeros(1, np.int64)
+    return [_i32(a, device) for a in (mults, counts, thresholds, cache_m, cache_cnt)]
+
+
+def _same_drain(got, want, L):
+    total, cache, ccnt, work, rows = got
+    assert int(total) == int(want[0])
+    for g, w in zip((ccnt, work, rows), want[2:]):
+        assert torch.equal(g.cpu(), w.cpu())
+    for level in range(L - 1):
+        live = int(ccnt[level])
+        assert torch.equal(cache[level, level + 1 :, :live].cpu(),
+                           want[1][level, level + 1 :, :live].cpu()), level
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_drain_kernel(cuda, seed):
+    """#10 against its plain version on the card and on the CPU, at random
+    (L, block, fanouts, thresholds), S up to 40 chunks."""
+    from ccve_tpu_torch.kernels import drain
+
+    rng = np.random.default_rng(seed)
+    L = int(rng.integers(1, 6))
+    block = int(rng.choice([128, 384, 1024, 2048] + ([4096] if L <= 4 else [])))
+    fanouts = tuple(int(f) for f in rng.integers(1, 4, L))
+    while np.prod(fanouts[:-1]) > drain.MAX_PATHS:
+        fanouts = tuple(max(f - 1, 1) for f in fanouts)
+    thresholds = [int(rng.choice([0, block // 2, block, int(rng.integers(1, block))]))
+                  for _ in range(L)]
+    S = int(rng.integers(0, 41))
+    args = _drain_inputs(rng, S, L, block, fanouts, thresholds, cuda)
+    before = drain.drain_segment.launches
+    got = drain.drain_segment(*args, block=block, fanouts=fanouts)
+    assert drain.drain_segment.launches == before + 1
+    _same_drain(got, drain.drain_segment_plain(*args, block=block, fanouts=fanouts), L)
+    cpu = drain.drain_segment(*(a.cpu() for a in args), block=block, fanouts=fanouts)
+    _same_drain(got, cpu, L)
+
+
+def test_drain_kernel_refuses_what_does_not_fit(cuda):
+    from ccve_tpu_torch.kernels import drain
+
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=cuda)  # noqa: E731
+    before = drain.drain_segment.launches
+    with pytest.raises(ValueError, match=r"L=5, block=4096"):
+        drain.drain_segment(z(2, 5, 4096), z(2), z(5), z(4, 5, 4096), z(4),
+                            block=4096, fanouts=(1,) * 5)
+    assert drain.drain_segment.launches == before
+
+
+def _sorted_setup(device, strategy, n_joins=3, lhs=20_000, rhs=3000, chunk_factor=2,
+                  block=256, collect=False):
+    from ccve_tpu_torch.config import CompactionStrategy, EngineConfig
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_pipeline
+
+    keys, pays = gen_rhs_table(rhs, chunk_factor)
+    probe = gen_probe_table(lhs, n_joins, rhs + rhs // 3)
+    cfg = EngineConfig(block_size=block, n_joins=n_joins, lhs_size=lhs, rhs_size=rhs,
+                       chunk_factor=chunk_factor, strategy=CompactionStrategy(strategy),
+                       collect_tuples=collect)
+    want = oracle_pipeline(probe, [OracleBuildTable(keys, pays)] * n_joins).shape[0]
+    return cfg, probe, sm.build_sorted(keys, pays, device=device), want
+
+
+@pytest.mark.parametrize("strategy", ["no_compaction", "full_compaction", "binary_compaction"])
+@pytest.mark.parametrize("preload", [False, True])
+def test_sorted_pipeline_on_card_matches_cpu(cuda, strategy, preload):
+    """Count-only SortedPipeline on the card launches #10 (once a segment)
+    and the stats kernels, and counts what the CPU and the oracle count;
+    so does the torch drain route."""
+    from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
+    from ccve_tpu_torch.kernels import drain
+
+    cfg, probe, table, want = _sorted_setup(cuda, strategy)
+    pipe = SortedPipeline([table] * cfg.n_joins, cfg)
+    assert pipe._fused_drain_ok
+    before = (drain.drain_segment.launches, merge_scan.merge_stats_i32.launches)
+    got = pipe.run(probe, segment_chunks=None if preload else 16, preload=preload)
+    after = (drain.drain_segment.launches, merge_scan.merge_stats_i32.launches)
+    n_chunks = -(-probe.shape[0] // cfg.block_size)
+    assert after[0] - before[0] == (1 if preload else -(-n_chunks // 16))
+    assert after[1] > before[1]
+    cpu_table = sm.build_sorted(table.keys.cpu().numpy(), table.payloads.cpu().numpy(),
+                                device="cpu")
+    cpu = SortedPipeline([cpu_table] * cfg.n_joins, cfg).run(probe, preload=preload)
+    torch_drain = SortedPipeline([table] * cfg.n_joins, cfg, use_kernel=False).run(probe)
+    assert got["count"] == cpu["count"] == torch_drain["count"] == want > 0
+
+
+def test_sorted_pipeline_full_flush_on_card(cuda):
+    """FULL on the card: the caches the kernel leaves (mult planes written
+    back as rank columns) equal the CPU twin's on their live prefix, and
+    the flush through the torch drain counts what the oracle counts."""
+    from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
+
+    cfg, probe, table, want = _sorted_setup(cuda, "full_compaction", n_joins=4, lhs=9000)
+    cpu_table = sm.build_sorted(table.keys.cpu().numpy(), table.payloads.cpu().numpy(),
+                                device="cpu")
+    states = {}
+    for name, tbl in (("card", table), ("cpu", cpu_table)):
+        pipe = SortedPipeline([tbl] * cfg.n_joins, cfg)
+        n_chunks = -(-probe.shape[0] // cfg.block_size)
+        cols = np.zeros((n_chunks * cfg.block_size, cfg.n_joins), np.int64)
+        cols[: probe.shape[0]] = probe
+        chunk_cols = torch.from_numpy(np.ascontiguousarray(
+            cols.reshape(n_chunks, cfg.block_size, cfg.n_joins).transpose(0, 2, 1)))
+        counts = torch.full((n_chunks,), cfg.block_size, dtype=torch.int32)
+        counts[-1] -= n_chunks * cfg.block_size - probe.shape[0]
+        ps = pipe._process_chunks(pipe.fresh_state(), chunk_cols.to(tbl.device),
+                                  counts.to(tbl.device), pipe.static_thresholds())
+        states[name] = (ps, pipe)
+    card, cpu = states["card"][0], states["cpu"][0]
+    assert int(card.result_count) == int(cpu.result_count)
+    assert torch.equal(card.cache_count.cpu(), cpu.cache_count)
+    assert int(cpu.cache_count[:-1].sum()) > 0  # the flush has rows to move
+    c0 = states["card"][1]._rank_col0
+    for level in range(cfg.n_joins - 1):
+        live = int(cpu.cache_count[level])
+        got = card.cache_cols[level, c0 + level + 1 :, :live].cpu()
+        assert torch.equal(got, cpu.cache_cols[level, c0 + level + 1 :, :live])
+    pipe = states["card"][1]
+    flushed = pipe._flush_all(card, pipe.static_thresholds())
+    assert int(flushed.result_count) == want

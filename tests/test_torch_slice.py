@@ -1,6 +1,7 @@
 """The port's slices as a whole: the CLI against the JAX package's configs
-1 and 3 and its materializing config 1, no JAX anywhere in the port, and
-no CPU fallback in `chip_smoke.py`."""
+1, 3 and 7, its materializing config 1 and its known-good `pipeline`
+command, no JAX anywhere in the port, and no CPU fallback in
+`chip_smoke.py`."""
 
 import json
 import os
@@ -61,7 +62,70 @@ def test_cli_tiny_config3_matches_jax():
     rows = oracle_pipeline(probe, [OracleBuildTable(keys, payloads)] * 4, PayloadMode.FULL)
     assert got["count"] == got["expected"] == int(want.count) == rows.shape[0]
     assert got["payload_checksums"] == [int(c) for c in want.payload_checksums]
-    assert got["n_joins"] == 4 and got["device"] == "cpu"
+    assert got["n_joins"] == 4 and got["device"] == "cpu" and got["block"] == 256
+    for strategy in ("no_compaction", "full_compaction"):  # counts asserted inside
+        assert got[f"sorted_{strategy}"]["preloaded_seconds"] > 0
+
+
+def test_cli_tiny_config7_matches_jax_oracle():
+    """Config 7 at the JAX CLI's tiny size (16384 x 4 levels, 512 build
+    keys, block 256): its three static policies count what the JAX
+    package's oracle counts on the JAX generators."""
+    from ccve_tpu.core.datagen import gen_rhs_table
+    from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
+
+    proc = _run(["-m", "ccve_tpu_torch.cli", "baseline", "--config", "7", "--tiny",
+                 "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    rng = np.random.default_rng(2)
+    probe = np.stack([rng.integers(0, max(int(512 / h), 1), size=16384, dtype=np.int64)
+                      for h in (0.95, 0.03, 1.0, 1.0)], axis=1)
+    want = oracle_pipeline(probe, [OracleBuildTable(*gen_rhs_table(512, 1))] * 4).shape[0]
+    assert got["expected"] == got["bulk_count"] == want == 451
+    for case in ("no_compaction", "full_compaction", "mixed_static"):
+        assert got[case]["seconds"] > 0
+    assert "dynamic_compaction_device" not in got
+
+
+KNOWN_GOOD = ["pipeline", "--join-num", "2", "--chunk-factor", "2", "--lhs-size", "3000",
+              "--rhs-size", "256", "--block-size", "256", "--table", "sorted", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--executor", "sorted", "--strategy", "full"],
+    ["--executor", "sorted", "--strategy", "binary", "--preload"],
+    ["--executor", "bulk", "--strategy", "full"],
+])
+def test_cli_pipeline_known_good(extra):
+    """The JAX CLI's known-good pipeline command: [Result Rows] 2992, as
+    the JAX package's oracle counts on its generators."""
+    from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
+
+    proc = _run(["-m", "ccve_tpu_torch.cli", *KNOWN_GOOD, *extra])
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stderr.splitlines()
+    assert lines[0].startswith(" [Settings] #joins: 2")
+    assert any(line.startswith(" [Total Time] ") for line in lines)
+    assert any(line.startswith(" [Bee] [Generate Data]") for line in lines)
+    want = oracle_pipeline(gen_probe_table(3000, 2, 256),
+                           [OracleBuildTable(*gen_rhs_table(256, 2))] * 2).shape[0]
+    assert " [Result Rows] 2992" in lines and want == 2992
+
+
+@pytest.mark.parametrize("args, message", [
+    (["--table", "csr", "--executor", "pipeline"], "not ported yet"),
+    (["--table", "sorted", "--executor", "sorted", "--strategy", "dynamic"], "not ported yet"),
+    (["--table", "sorted", "--executor", "sorted", "--record-occupancy"], "not ported yet"),
+    (["--table", "sorted", "--executor", "sorted", "--zebra-profile"], "not ported yet"),
+    (["--table", "lp", "--executor", "sorted"], "requires --table sorted"),
+])
+def test_cli_pipeline_unported_exits_2(args, message):
+    proc = _run(["-m", "ccve_tpu_torch.cli", "pipeline", "--lhs-size", "1000", "--rhs-size",
+                 "100", "--device", "cpu", *args])
+    assert proc.returncode == 2
+    assert message in proc.stderr
 
 
 def test_cli_tiny_materialize_matches_jax():
@@ -121,10 +185,12 @@ def test_port_imports_no_jax():
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules, _, names = proc.stdout.partition(" [] ")
-    assert int(n_modules) >= 19
+    assert int(n_modules) >= 28
     for name in ("config", "exec.oracle", "exec.bulk", "kernels.pairsort",
                  "kernels.compact", "kernels.merge_scan", "ops.sort_merge",
-                 "ops.hashing", "ops.hash_table", "kernels.murmur"):
+                 "ops.hashing", "ops.hash_table", "kernels.murmur", "core.chunk",
+                 "ops.compactor", "ops.filter", "kernels.drain", "exec.pipeline",
+                 "exec.sorted_pipeline"):
         assert f"ccve_tpu_torch.{name}" in names.split()
 
 
