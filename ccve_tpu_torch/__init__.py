@@ -13,7 +13,7 @@ nor `ccve_tpu` (whose `__init__` imports JAX); the host code it needs from
 there is carried as numpy code.
 
 Ported so far (ROADMAP Queue 1, slices 1 to 4, slice 5's bulk path and
-slice 7's batched sorted executor):
+slices 7 and 7b, the sorted executor with its tuners):
 the count-side join (`exec.bulk.bulk_count` over one
 `ops.sort_merge.SortedTable`), per-probe stats and ranks
 (`sorted_match_stats`, `sorted_match_ranks`), N-level `bulk_count`, and
@@ -24,5 +24,7 @@ int64 keys (key spans from 2^30 to 2^62); and the hash engines
 `bulk_count` and `bulk_materialize`; and the chunk-at-a-time executor with
 chunk compaction over sorted tables (`core.chunk`, `ops.compactor`,
 `ops.filter`, `exec.pipeline`, `exec.sorted_pipeline.SortedPipeline`, the
-fused drain `kernels.drain`).
+fused drain `kernels.drain`), with DYNAMIC compaction on the host and
+device bandits (`control`), the Zebra occupancy histograms and profilers
+(`utils.profiler`) and the per-chunk rank mode (`kernels.chunk_probe`).
 """

@@ -399,16 +399,19 @@ def config7_heterogeneous_levels(lhs: int = 2_000_000, rhs: int = 50_000, block:
     0.95, 0.03, 1 and 1, so the per-level optimum would differ if the CPU
     cost model held: compaction should waste copies at level 0 (chunks
     arrive 95 % full) and pay at level 1 (3 % emissions feeding a
-    two-level subtree). Three static policies, preloaded, timed in
-    interleaved rounds after one warm-up each: `no_compaction`,
-    `full_compaction` and `mixed_static`, FULL at level 1 only
-    (thresholds (0, block, 0, 0)). Every count is asserted against the
+    two-level subtree). Three static policies and the device tuner,
+    preloaded, timed in interleaved rounds after one warm-up each:
+    `no_compaction`, `full_compaction`, `mixed_static`, FULL at level 1
+    only (thresholds (0, block, 0, 0)), and `dynamic_compaction_device`,
+    DYNAMIC with the device bandit over the arms (0, block), a segment of
+    `segment_chunks` chunks, which also reports its greedy thresholds,
+    commits and selection counts. `dynamic_vs_best_static` is the best of
+    no_compaction and full_compaction over DYNAMIC's seconds (above 1:
+    DYNAMIC is faster), as in JAX. Every count is asserted against the
     numpy oracle and `bulk_count` on the same data.
 
-    The JAX config's `dynamic_compaction_device` and
-    `dynamic_vs_best_static` need the device tuner: ROADMAP Queue 1, slice
-    7b. `segment_chunks` is the tuner's segment; the static cases carry it
-    in their configuration, as in JAX, and run preloaded as one segment."""
+    The static cases carry `segment_chunks` in their configuration, as in
+    JAX, and run preloaded as one segment."""
     import dataclasses
 
     from ccve_tpu_torch.config import CompactionStrategy, EngineConfig
@@ -431,6 +434,8 @@ def config7_heterogeneous_levels(lhs: int = 2_000_000, rhs: int = 50_000, block:
         "full_compaction": base,
         "mixed_static": dataclasses.replace(
             base, compact_threshold_per_level=(0, block, 0, 0)),
+        "dynamic_compaction_device": dataclasses.replace(
+            base, strategy=CompactionStrategy.DYNAMIC, device_tuner=True),
     }
     pipes = {name: SortedPipeline(tables, cfg) for name, cfg in cases.items()}
     best: dict = {}
@@ -439,8 +444,8 @@ def config7_heterogeneous_levels(lhs: int = 2_000_000, rhs: int = 50_000, block:
             r = pipe.run(probe, preload=True)
             if r["count"] != want:
                 raise AssertionError(f"config 7 {name}: count {r['count']} != oracle {want}")
-            if round_ and (name not in best or r["seconds"] < best[name]):
-                best[name] = r["seconds"]
+            if round_ and (name not in best or r["seconds"] < best[name]["seconds"]):
+                best[name] = r
     out = {
         "name": "config7_heterogeneous_levels",
         "device": _device_name(device),
@@ -453,8 +458,15 @@ def config7_heterogeneous_levels(lhs: int = 2_000_000, rhs: int = 50_000, block:
         "expected": want,
         "bulk_count": bulk,
     }
-    for name, seconds in best.items():
-        out[name] = {"seconds": seconds, "rows_per_s": lhs / seconds}
+    for name, r in best.items():
+        out[name] = {"seconds": r["seconds"], "rows_per_s": lhs / r["seconds"]}
+        if "greedy_thresholds" in r:
+            out[name]["greedy_thresholds"] = r["greedy_thresholds"].tolist()
+            out[name]["bandit_committed"] = r["bandit_committed"].tolist()
+            out[name]["bandit_commit_round"] = r["bandit_commit_t"].tolist()
+            out[name]["bandit_n_sel"] = r["bandit_n_sel"].tolist()
+    best_static = min(out["no_compaction"]["seconds"], out["full_compaction"]["seconds"])
+    out["dynamic_vs_best_static"] = best_static / out["dynamic_compaction_device"]["seconds"]
     return out
 
 

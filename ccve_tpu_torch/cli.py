@@ -4,20 +4,24 @@
    main.cpp:37-117), with the JAX CLI's flags and defaults plus `--device`:
    the N-way join of a generated probe table against `--join-num` build
    tables, on the sorted-chunk executor (`--table sorted --executor
-   sorted`, strategies none, full and binary) or the bulk engine
-   (`--executor bulk`, any table kind). Its stderr lines are the JAX CLI's:
+   sorted`, strategies none, full, binary and dynamic, the last with the
+   host bandit as in the JAX CLI) or the bulk engine (`--executor bulk`,
+   any table kind). `--record-occupancy` keeps the per-level Zebra
+   histograms of emitted-chunk occupancy; `--zebra-profile` (which implies
+   it) also times each segment and writes the histograms as CSV files to
+   `./zebra_log_0x<random>/`. Its stderr lines are the JAX CLI's:
    [Settings], the [Bee] timings on the host clock, [Total Time],
-   [Throughput] and [Result Rows]. The cursor executor (`--executor
-   pipeline`), `--strategy dynamic`, `--record-occupancy` and
-   `--zebra-profile` exit 2 with "not ported yet".
+   [Throughput], [Result Rows] and, with `--zebra-profile`, [Zebra]. The
+   cursor executor (`--executor pipeline`, ROADMAP Queue 1, slice 6) exits
+   2 with "not ported yet".
  - `baseline --config N` runs a benchmark configuration and prints one JSON
    line: config 1 (counting on the sort-merge engine or, with `--engine
    hash_lp|hash_csr`, on a hash table; on the sort-merge engine, with
    `--materialize`, emitting every matched triple, or with `--wide-span
    BITS` counting over int64 keys spread over 2^BITS), config 3 (the bulk
    engine and the sorted-chunk executor) and config 7 (the sorted-chunk
-   executor's static compaction policies). Other configurations exit
-   non-zero with "not ported yet".
+   executor's static compaction policies and its device tuner). Other
+   configurations exit non-zero with "not ported yet".
 
 The run goes to `--device` (default `cuda`); without a GPU it fails unless
 `--device cpu` asks for the plain CPU path.
@@ -71,31 +75,6 @@ def cmd_baseline(args) -> int:
     return 0
 
 
-class _Bee:
-    """Named host-clock timers printed as the JAX CLI's BeeProfiler prints
-    them (profiler.h:103-127)."""
-
-    def __init__(self):
-        self.stats: dict[str, list] = {}
-
-    def time(self, name: str, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        total, calls = self.stats.get(name, (0.0, 0))
-        self.stats[name] = (total + time.perf_counter() - t0, calls + 1)
-        return out
-
-    def end_profiling(self) -> None:
-        if not self.stats:
-            return
-        width = max(len(k) for k in self.stats)
-        for name in sorted(self.stats):
-            total, calls = self.stats[name]
-            print(f" [Bee] {name.ljust(width)}  total {total * 1e3:12.3f} ms"
-                  f"  calls {calls:10d}  avg {total / max(calls, 1) * 1e6:10.3f} us",
-                  file=sys.stderr)
-
-
 def _refusal(args) -> str | None:
     """Why this `pipeline` command cannot run, or None."""
     if args.table == "sorted" and args.executor == "pipeline":
@@ -104,11 +83,8 @@ def _refusal(args) -> str | None:
     if args.executor == "sorted" and args.table != "sorted":
         return "--executor sorted requires --table sorted"
     if args.executor == "pipeline":
-        return "--executor pipeline (the cursor executor): not ported yet"
-    if args.strategy == "dynamic":
-        return "--strategy dynamic (the bandit tuners): not ported yet"
-    if args.record_occupancy or args.zebra_profile:
-        return "--record-occupancy and --zebra-profile (the Zebra profiler): not ported yet"
+        return ("--executor pipeline (the cursor executor, ROADMAP Queue 1, slice 6): "
+                "not ported yet")
     return None
 
 
@@ -117,6 +93,7 @@ def cmd_pipeline(args) -> int:
     from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
     from ccve_tpu_torch.ops.hash_table import build_csr, build_lp
     from ccve_tpu_torch.ops.sort_merge import build_sorted, require_device
+    from ccve_tpu_torch.utils.profiler import BeeProfiler
 
     strategy = {
         "none": CompactionStrategy.NONE,
@@ -133,6 +110,7 @@ def cmd_pipeline(args) -> int:
         strategy=strategy,
         payload_mode=PayloadMode(args.payload),
         collect_tuples=args.collect_tuples,
+        record_occupancy=args.record_occupancy or args.zebra_profile,
         tuner_segment_chunks=args.segment_chunks,
     )
     print(
@@ -147,13 +125,13 @@ def cmd_pipeline(args) -> int:
         print(refusal, file=sys.stderr)
         return 2
     device = require_device(args.device)
-    bee = _Bee()
-    probe, (keys, payloads) = bee.time("[Generate Data]", lambda: (
-        gen_probe_table(cfg.lhs_size, cfg.n_joins, cfg.rhs_size),
-        gen_rhs_table(cfg.rhs_size, cfg.chunk_factor)))
+    bee = BeeProfiler.get()
+    with bee.time("[Generate Data]"):
+        probe = gen_probe_table(cfg.lhs_size, cfg.n_joins, cfg.rhs_size)
+        keys, payloads = gen_rhs_table(cfg.rhs_size, cfg.chunk_factor)
     builder = {"sorted": build_sorted, "lp": build_lp, "csr": build_csr}[args.table]
-    tables = bee.time("[Build Hash Tables]", lambda: [
-        builder(keys, payloads, device=device) for _ in range(cfg.n_joins)])
+    with bee.time("[Build Hash Tables]"):
+        tables = [builder(keys, payloads, device=device) for _ in range(cfg.n_joins)]
 
     if args.executor == "bulk":
         from ccve_tpu_torch.exec.bulk import bulk_count
@@ -165,8 +143,18 @@ def cmd_pipeline(args) -> int:
         from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
 
         out = SortedPipeline(tables, cfg).run(
-            probe, segment_chunks=args.segment_chunks, preload=args.preload)
+            probe, segment_chunks=args.segment_chunks, preload=args.preload,
+            zebra_profile=args.zebra_profile)
         count, elapsed = out["count"], out["seconds"]
+        if args.zebra_profile:
+            import random
+
+            from ccve_tpu_torch.utils.profiler import ZebraProfiler
+
+            log_dir = f"./zebra_log_0x{random.getrandbits(32):08x}"
+            ZebraProfiler.get().to_csv(log_dir)
+            print(f" [Zebra] {out['zebra_segments']} measured segments -> {log_dir}/",
+                  file=sys.stderr)
 
     print(f" [Total Time] {elapsed:.4f} s", file=sys.stderr)
     print(f" [Throughput] {cfg.lhs_size / elapsed / 1e6:.2f}M probe rows/s", file=sys.stderr)
@@ -182,21 +170,26 @@ def _add_pipeline(sub):
     p.add_argument("--lhs-size", type=int, default=20_000_000)
     p.add_argument("--rhs-size", type=int, default=2_000_000)
     p.add_argument("--block-size", type=int, default=2048)
-    p.add_argument("--strategy", choices=["none", "full", "binary", "dynamic"], default="none")
+    p.add_argument(
+        "--strategy", choices=["none", "full", "binary", "dynamic"], default="none",
+        help="compaction strategy; 'dynamic' tunes per-level thresholds with the "
+        "host bandit between segments",
+    )
     p.add_argument(
         "--table", choices=["lp", "csr", "sorted"], default="csr",
         help="build-table kind; 'sorted' pairs with --executor bulk or sorted",
     )
     p.add_argument(
         "--executor", choices=["pipeline", "bulk", "sorted"], default="pipeline",
-        help="'pipeline': the chunk-at-a-time cursor executor (not ported yet); "
-        "'bulk': operator-at-a-time; 'sorted': chunk-at-a-time over sorted tables "
-        "with the fused drain kernel (exec/sorted_pipeline.py)",
+        help="'pipeline': the chunk-at-a-time cursor executor (not ported yet, "
+        "ROADMAP Queue 1, slice 6); 'bulk': operator-at-a-time; 'sorted': "
+        "chunk-at-a-time over sorted tables with the fused drain kernel "
+        "(exec/sorted_pipeline.py)",
     )
     p.add_argument("--payload", choices=["reference", "full"], default="reference")
     p.add_argument("--collect-tuples", action="store_true")
     p.add_argument("--record-occupancy", action="store_true",
-                   help="per-level chunk-occupancy histograms (not ported yet)")
+                   help="per-level chunk-occupancy histograms (the Zebra profiler's data)")
     p.add_argument("--segment-chunks", type=int, default=64)
     p.add_argument(
         "--preload", action="store_true",
@@ -204,7 +197,8 @@ def _add_pipeline(sub):
         "instead of streaming host chunk batches per segment",
     )
     p.add_argument("--zebra-profile", action="store_true",
-                   help="measured Zebra latency per segment (not ported yet)")
+                   help="measured Zebra latency per segment (implies --record-occupancy); "
+                   "CSVs go to ./zebra_log_0x<random>/")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(func=cmd_pipeline)
 

@@ -3,9 +3,7 @@ strategy, the payload mode and `EngineConfig`, with every field and check.
 
 `EngineConfig` keeps the JAX package's `block_size % 128` check, so that one
 configuration is valid in both packages and the parity tests can hand the
-same one to each. Fields that only the unported parts read (the DYNAMIC
-tuner's knobs, `record_occupancy`) are carried so the two stay equal; the
-executors raise `NotImplementedError` where a configuration asks for them.
+same one to each.
 """
 
 from __future__ import annotations
@@ -80,7 +78,7 @@ class EngineConfig:
     collect_tuples: bool = False
 
     # Per-level emitted-chunk occupancy histograms (the Zebra profiler's
-    # data): the Zebra slice, not ported.
+    # data, profiler.h:170-260).
     record_occupancy: bool = False
 
     # Skip a level's deeper subtree when a drain step emits nothing.
@@ -94,7 +92,9 @@ class EngineConfig:
     # threshold 0 passes every chunk through.
     compact_threshold_per_level: tuple | None = None
 
-    # DYNAMIC tuner knobs (the tuner slice, not ported).
+    # DYNAMIC tuner knobs: the device bandit instead of the host one, the
+    # segment each arm choice holds for, the device bandit's warm start
+    # and early commit (control/device_bandit.py).
     device_tuner: bool = False
     tuner_segment_chunks: int = 64
     bandit_start_sampling: int = 2

@@ -67,14 +67,18 @@ _ENTRY_POINTS = {
 _ENTRY_POINTS["ccve_compact_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P]
 # (x, y, n, stream)
 _ENTRY_POINTS["ccve_murmurhash64_i64"] = [_P, _P, _L, _P]
-# (mults, counts, thresholds, cache_in, ccnt_in, S, L, block, fanouts,
-#  total, cache_out, ccnt_out, work, rows, stream)
-_ENTRY_POINTS["ccve_drain_segment_i32"] = [_P] * 5 + [_L, _I, _I, _P] + [_P] * 5 + [_P]
+# (mults, counts, thresholds, fanouts, cache_in, ccnt_in, S, L, block,
+#  occupancy, branchy, scratch, total, cache_out, ccnt_out, work, rows, occ,
+#  stream)
+_ENTRY_POINTS["ccve_drain_segment_i32"] = [_P] * 6 + [_L, _I, _I, _I, _I] + [_P] * 8
+# (table, m, keys, valid, n, mult, start, stream)
+_ENTRY_POINTS["ccve_chunk_rank_i64"] = [_P, _L, _P, _P, _L, _P, _P, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {
     "ccve_merge_stats_scratch_bytes": [_L],
     "ccve_compact_scratch_bytes": [_L],
+    "ccve_drain_scratch_bytes": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -15,48 +15,45 @@ Inputs, all int32 and on one device:
     counts     [S]             live rows of each chunk (in [0, block])
     thresholds [L]             per-level compaction thresholds
     cache_m    [CL, L, block]  level l's cache holds planes l2 > l
-    cache_cnt  [CL]            rows in each cache (CL = max(L - 1, 1))
+    cache_cnt  [CC]            rows in each cache (CL = max(L - 1, 1);
+                               CC = L with `record_occupancy`, else CL)
 
-Returns (total int64 scalar, cache_m out, cache counts int32[CL], work
-int32[L], rows int32[L]). Only each cache's live prefix of its planes
-l2 > l is defined. `work[l]` counts the chunks that entered level l (level
-0) or arrived non-empty, plus the compactions at l; `rows[l]` the rows
-that arrived; as in the JAX kernel, a compaction of an empty emission
-below an absorbed one counts too.
+Returns (total int64 scalar, cache_m out, cache counts int32[CC], work
+int32[L], rows int32[L]), and with `record_occupancy` also occ
+int32[L, block + 1]. Only each cache's live prefix of its planes l2 > l is
+defined. `work[l]` counts the chunks that entered level l (level 0) or
+arrived non-empty, plus the compactions at l; `rows[l]` the rows that
+arrived; as in the JAX kernel, a compaction of an empty emission below an
+absorbed one counts too.
+
+`record_occupancy` is the Zebra variant: every emission after a compaction
+decision at level l adds one to occ[l, c], c its live-row count (c = block
+in the last column). The last level then runs the compactor's count algebra
+on a count-only cache (cache_cnt[L-1], no planes) instead of the collapse;
+the total over stream and flush is the same. `branchy` (the executor's
+`branchy_descend`) records nothing under an empty emission; without it the
+empty subtree records its zero-count emissions.
 
 The JAX kernel pads planes to max(block / 128, 8) x 128 lanes and sums in
 int32 (Mosaic has no 64-bit types); here planes are `block` wide and the
-total is int64. `record_occupancy` (the Zebra histograms) is the tuner
-slice's (ROADMAP Queue 1, slice 7b), and with it the JAX kernel's
-`branchy`, which changes only those histograms.
-
-Limits, the same on every device: L <= 8, block <= 4096, at most 64 drain
-paths (Π fanouts[:-1]) and L·(L-1) planes of shared memory within 226 KB;
-a configuration past them raises with its (L, block).
+total is int64. Any number of levels and any block run, with the caches in
+shared memory where they fit and in device memory otherwise; the one limit
+is the JAX gate's, at most 64 drain paths (Π fanouts[:-1]).
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 
 from ccve_tpu_torch.kernels import _build
 
-MAX_LEVELS = 8
-MAX_BLOCK = 4096
 MAX_PATHS = 64  # the JAX package's gate on the fused route
-SMEM_LIMIT = 232448 - 1024  # a block's dynamic shared memory, less the static scratch
 
 
-def smem_bytes(n_levels: int, block: int) -> int:
-    """Shared memory of the kernel: level l's cache and the depth-l
-    emission buffer hold planes l2 > l each, L·(L-1) planes in all."""
-    return n_levels * (n_levels - 1) * block * 4
-
-
-def _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts):
+def _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts, record_occupancy):
     for name, t in (("mults", mults), ("counts", counts), ("thresholds", thresholds),
                     ("cache_m", cache_m), ("cache_cnt", cache_cnt)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
@@ -70,32 +67,31 @@ def _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts):
     if mults.dim() != 3:
         raise ValueError(f"mults: expected [S, L, block], got {tuple(mults.shape)}")
     S, L, B = mults.shape
-    if B != block:
+    if B != block or block < 1:
         raise ValueError(f"mults planes are {B} wide, block {block}")
-    if not 1 <= L <= MAX_LEVELS or not 1 <= block <= MAX_BLOCK:
-        raise ValueError(f"(L={L}, block={block}): the drain takes L <= {MAX_LEVELS} "
-                         f"and block <= {MAX_BLOCK}")
-    if smem_bytes(L, block) > SMEM_LIMIT:
-        raise ValueError(f"(L={L}, block={block}) needs {smem_bytes(L, block)} bytes of "
-                         f"shared memory for its caches and emissions, over {SMEM_LIMIT}")
+    if L < 1:
+        raise ValueError("mults: expected at least one level")
     fanouts = tuple(int(f) for f in fanouts)
     if len(fanouts) != L or min(fanouts) < 1:
         raise ValueError(f"fanouts {fanouts}: expected {L} values >= 1")
     if math.prod(fanouts[:-1]) > MAX_PATHS:
         raise ValueError(f"fanouts {fanouts}: more than {MAX_PATHS} drain paths")
     CL = max(L - 1, 1)
+    CC = L if record_occupancy else CL
     for name, t, shape in (("counts", counts, (S,)), ("thresholds", thresholds, (L,)),
-                           ("cache_m", cache_m, (CL, L, block)), ("cache_cnt", cache_cnt, (CL,))):
+                           ("cache_m", cache_m, (CL, L, block)), ("cache_cnt", cache_cnt, (CC,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
     return fanouts
 
 
-def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts):
+def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts,
+                        record_occupancy=False, branchy=True):
     """`drain_segment` in torch ops on [block] planes, with the compactor's
-    scalars as host ints, on any device (it reads each step's count back,
-    so on the card it syncs per step)."""
-    fanouts = _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts)
+    scalars and the histograms as host ints, on any device (it reads each
+    step's count back, so on the card it syncs per step)."""
+    fanouts = _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts,
+                     record_occupancy)
     S, L, B = mults.shape
     dev = mults.device
     lane = torch.arange(B, device=dev)
@@ -103,6 +99,7 @@ def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block,
     ccnt = cache_cnt.tolist()
     thr = thresholds.tolist()
     work, rows = [0] * L, [0] * L
+    occ = [[0] * (B + 1) for _ in range(L)]
     total = torch.zeros((), dtype=torch.int64, device=dev)
 
     def compacted(plane, at):
@@ -110,10 +107,11 @@ def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block,
         out[at] = plane
         return out[:B]
 
-    def gen(level, planes, c):
-        """One chunk (its planes, or None when it is empty) at `level`."""
+    def gen(level, planes, c, live):
+        """One chunk (its planes, or None when it is empty) at `level`;
+        `live` says whether its emissions are recorded."""
         nonlocal total
-        if level == L - 1:
+        if level == L - 1 and not record_occupancy:
             if c:
                 total = total + torch.where(lane < c, planes[level], 0).sum(dtype=torch.int64)
             return
@@ -140,42 +138,67 @@ def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block,
                     cache[level, l2, cc:new_count] = e[:ecnt]
                 ccnt[level], out, out_count = new_count, None, 0
             work[level] += 0 if passthrough else 1
+            if record_occupancy and live:
+                occ[level][out_count] += 1
+            if level == L - 1:  # the variant's last level: a counting collector
+                total = total + out_count
+                continue
             work[level + 1] += 1 if out_count else 0
             rows[level + 1] += out_count
-            gen(level + 1, out if out_count else None, out_count)
+            gen(level + 1, out if out_count else None, out_count,
+                live and (out_count > 0 or not branchy))
 
     for i, c in enumerate(counts.tolist()):
         work[0] += 1
         rows[0] += c
-        gen(0, {l: mults[i, l] for l in range(L)} if c else None, c)
+        gen(0, {l: mults[i, l] for l in range(L)} if c else None, c, True)
     as_i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
-    return total, cache, as_i32(ccnt), as_i32(work), as_i32(rows)
+    out = (total, cache, as_i32(ccnt), as_i32(work), as_i32(rows))
+    return out + (as_i32(occ),) if record_occupancy else out
 
 
-def drain_segment(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts):
+def drain_segment(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts,
+                  record_occupancy=False, branchy=True):
     """The fused drain of one segment (see the module docstring): kernel
     csrc/drain.cu on a CUDA device, `drain_segment_plain` on the CPU."""
-    fanouts = _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts)
+    fanouts = _check(mults, counts, thresholds, cache_m, cache_cnt, block, fanouts,
+                     record_occupancy)
     if mults.device.type == "cpu":
-        return drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt,
-                                   block=block, fanouts=fanouts)
+        return drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, block=block,
+                                   fanouts=fanouts, record_occupancy=record_occupancy,
+                                   branchy=branchy)
     S, L, _ = mults.shape
     dev = mults.device
+    lib = _build.load()
     total = torch.zeros(1, dtype=torch.int64, device=dev)
     cache_out = cache_m.clone()
     ccnt_out = torch.empty_like(cache_cnt)
     work = torch.empty(L, dtype=torch.int32, device=dev)
     rows = torch.empty(L, dtype=torch.int32, device=dev)
-    fan = (ctypes.c_int * MAX_LEVELS)(*fanouts)
-    code = _build.load().ccve_drain_segment_i32(
-        mults.data_ptr(), counts.data_ptr(), thresholds.data_ptr(), cache_m.data_ptr(),
-        cache_cnt.data_ptr(), S, L, block, ctypes.cast(fan, ctypes.c_void_p),
-        total.data_ptr(), cache_out.data_ptr(), ccnt_out.data_ptr(), work.data_ptr(),
-        rows.data_ptr(), _build.stream(mults),
+    occ = (torch.zeros((L, block + 1), dtype=torch.int32, device=dev)
+           if record_occupancy else None)
+    # the fanouts go to the device through pinned memory: no wait for the card
+    fan = torch.tensor(fanouts, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    n_scratch = lib.ccve_drain_scratch_bytes(L, block)
+    scratch = (torch.empty(n_scratch // 4, dtype=torch.int32, device=dev)
+               if n_scratch else None)
+    code = lib.ccve_drain_segment_i32(
+        mults.data_ptr(), counts.data_ptr(), thresholds.data_ptr(),
+        fan.data_ptr(), cache_m.data_ptr(), cache_cnt.data_ptr(), S, L,
+        block, int(record_occupancy), int(branchy),
+        None if scratch is None else scratch.data_ptr(), total.data_ptr(),
+        cache_out.data_ptr(), ccnt_out.data_ptr(), work.data_ptr(), rows.data_ptr(),
+        None if occ is None else occ.data_ptr(), _build.stream(mults),
     )
     _build.check(code, "drain_segment")
+    out = (total[0], cache_out, ccnt_out, work, rows)
+    if record_occupancy:
+        occupancy_variant.launches += 1
+        return out + (occ,)
     drain_segment.launches += 1
-    return total[0], cache_out, ccnt_out, work, rows
+    return out
 
 
+# the count path's launches; the occupancy variant's are counted apart
 drain_segment.launches = 0
+occupancy_variant = SimpleNamespace(launches=0)

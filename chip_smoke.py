@@ -71,8 +71,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 23. Slice 7's kernel, the fused drain (#10), against its plain version at
     small shapes, exactly (total, cache counts, work, rows, live cache
     prefixes): the JAX-parity cases of tests/test_torch_drain.py and 24
-    random (L, block, fanouts, thresholds); a (L, block) that does not fit
-    shared memory must raise.
+    random (L, block, fanouts, thresholds); more than 64 drain paths must
+    raise.
 24. Config 3 on the sorted-chunk executor at full size (phase 8's data,
     block 2048) under NONE, FULL and BINARY, preloaded and streamed,
     counters zeroed just before each: count 62,667, equal to the oracle
@@ -91,8 +91,40 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 27. Runs `config7_heterogeneous_levels` as the CLI would (phase 11's
     `config3_four_way` already ran the sorted executor's entries), and the
     CLI's known-good `pipeline` command (`[Result Rows] 2992`).
+28. The fused drain's repair: #10 against its plain version at (L, block)
+    = (6, 2048), (5, 4096), (9, 2048, fanouts 1) and (2, 8192), which its
+    first version refused; then the CLI's `pipeline --join-num 6` over 1M
+    probe rows and 50K build rows (sorted executor, FULL, preloaded), its
+    count equal to `bulk_count` on the same data.
+29. #10's occupancy variant against its plain version at small shapes,
+    exactly (histograms, total, cache counts, work, rows, caches), branchy
+    on and off.
+30. #11, the per-chunk rank, against its plain version at small shapes
+    (the cases of tests/test_torch_chunk_probe.py and random (m, block) up
+    to block 4096): mult everywhere, start where mult > 0.
+31. Config 3 in the chunk rank mode at full size (phase 8's data, block
+    2048), NONE and FULL, preloaded, counters zeroed just before each: count
+    62,667 with #11 launched; run() seconds beside the batched mode's; #11
+    at config-3 shapes against its plain version, the two-searchsorted
+    library call and its bound, with CUDA events.
+32. Zebra at config 3: FULL and BINARY with `record_occupancy` on the fused
+    route (#10's variant launched, counters zeroed just before) and on the
+    torch drain, histograms equal bin for bin and count 62,667; a
+    `zebra_profile` run (segments, totals equal to the histogram); the fused
+    route's run() seconds with and without the histograms; the variant at
+    config-3 shapes against its plain version, timed.
+33. DYNAMIC at config 7's full size: the device tuner preloaded and
+    streamed and the host tuner streamed, each counting 57,189 (the
+    oracle's), counters zeroed just before (#10 and the rank pass
+    launched); greedy thresholds, commits and selection counts; the host
+    syncs a device-tuner segment makes (`torch.cuda.set_sync_debug_mode`);
+    run() seconds beside phase 26's statics and phase 27's
+    `dynamic_vs_best_static`; the device tuner's idle share and the ops
+    with the most host time in one run (torch.profiler).
+34. The CLI's known-good `pipeline` command with `--strategy dynamic`,
+    `--record-occupancy` and `--zebra-profile` (`[Result Rows] 2992` each).
 
-Prints the per-kernel JSON line (each kernel's launches on its main path,
+Prints the per-kernel JSON line (17 kernels: each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
 library call's), then the card line, then, only when every phase passed,
 the last line `{"ok": true, "device": {...}}`. Any failure raises and
@@ -101,6 +133,7 @@ exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -141,7 +174,14 @@ from ccve_tpu_torch.exec.bulk import (  # noqa: E402
 from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_join, oracle_pipeline  # noqa: E402
 from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline  # noqa: E402
 from ccve_tpu_torch.kernels import _build, bigsort, compact, merge_scan, murmur, pairsort  # noqa: E402
-from ccve_tpu_torch.kernels.drain import MAX_PATHS, drain_segment, drain_segment_plain  # noqa: E402
+from ccve_tpu_torch.kernels.chunk_probe import chunk_rank, chunk_rank_plain  # noqa: E402
+from ccve_tpu_torch.kernels.drain import (  # noqa: E402
+    MAX_PATHS,
+    drain_segment,
+    drain_segment_plain,
+    occupancy_variant,
+)
+from ccve_tpu_torch.utils.profiler import ZebraProfiler  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
 from ccve_tpu_torch.ops.hash_table import build_csr, build_lp  # noqa: E402
 from ccve_tpu_torch.ops.hashing import murmurhash64_np  # noqa: E402
@@ -293,7 +333,7 @@ def main() -> int:
         "merge_counts_i32": merge_scan.merge_counts_i32,
     }
     max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS,
-                             "drain_segment"], 0)
+                             "drain_segment", "drain_segment_occ", "chunk_rank"], 0)
 
     def same(name: str, got, want, what: str):
         """Exact equality of a kernel's output with its plain version's:
@@ -1265,31 +1305,36 @@ def main() -> int:
     # ---- 23. slice 7's kernel, the fused drain (#10), at small shapes ------
     t0 = time.perf_counter()
 
-    def drain_same(args, fanouts, what):
-        """#10 against its plain version on the same card tensors: total,
-        cache counts, work, rows and every cache's live prefix."""
+    def drain_same(args, fanouts, what, **occ):
+        """#10 (or, with record_occupancy, its variant) against its plain
+        version on the same card tensors: total, cache counts, work, rows,
+        the histograms and every cache's live prefix."""
         block = args[0].shape[2]
-        got = drain_segment(*args, block=block, fanouts=fanouts)
-        want = drain_segment_plain(*args, block=block, fanouts=fanouts)
-        same("drain_segment", [got[0], got[2], got[3], got[4]],
-             [want[0], want[2], want[3], want[4]], what)
+        name = "drain_segment_occ" if occ.get("record_occupancy") else "drain_segment"
+        got = drain_segment(*args, block=block, fanouts=fanouts, **occ)
+        want = drain_segment_plain(*args, block=block, fanouts=fanouts, **occ)
+        same(name, [got[0], *got[2:]], [want[0], *want[2:]], what)
         for level in range(len(fanouts) - 1):
             live = int(want[2][level])
-            same("drain_segment", got[1][level, level + 1 :, :live],
+            same(name, got[1][level, level + 1 :, :live],
                  want[1][level, level + 1 :, :live], f"{what} cache {level}")
         return got
 
-    def drain_inputs(S, block, fanouts, thresholds, counts=None):
+    def drain_inputs(S, block, fanouts, thresholds, counts=None, occupancy=False):
         """int32 card inputs of #10: mults in [0, fanout] (the last level's
         up to 5), counts (empty, partial and full chunks unless given),
-        caches with a random live prefix."""
+        caches with a random live prefix (with `occupancy`, L cache counts:
+        the last level's count-only cache)."""
         L = len(fanouts)
         highs = list(fanouts[:-1]) + [5]
         mults = np.stack([rng.integers(0, h + 1, (S, block)) for h in highs], axis=1)
         if counts is None:
             counts = rng.choice([0, block, int(rng.integers(1, block))], S)
         CL = max(L - 1, 1)
-        cache_cnt = rng.integers(0, block, CL) if L > 1 else np.zeros(1, np.int64)
+        if occupancy:
+            cache_cnt = rng.integers(0, block, L)
+        else:
+            cache_cnt = rng.integers(0, block, CL) if L > 1 else np.zeros(1, np.int64)
         return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
                 for a in (mults, counts, thresholds,
                           rng.integers(0, max(highs) + 1, (CL, L, block)), cache_cnt)]
@@ -1314,12 +1359,11 @@ def main() -> int:
         drain_same(drain_inputs(int(rng.integers(0, 41)), block, fanouts, thresholds), fanouts,
                    f"random case {case}: L={L} block={block} fanouts {fanouts}")
     try:
-        drain_segment(*drain_inputs(2, 4096, (1,) * 5, [0] * 5), block=4096,
-                            fanouts=(1,) * 5)
+        drain_segment(*drain_inputs(2, 128, (8, 9, 1), [0] * 3), block=128, fanouts=(8, 9, 1))
     except ValueError as err:
         refused = str(err)
     else:
-        raise AssertionError("#10 ran (L=5, block=4096), which does not fit shared memory")
+        raise AssertionError("#10 ran fanouts (8, 9, 1): 72 drain paths, over the JAX gate's 64")
     torch.cuda.synchronize()
     log(f"phase slice-7 kernel (small shapes): ok ({time.perf_counter() - t0:.1f} s), max "
         f"|kernel - plain| {max_err['drain_segment']}; refused: {refused}")
@@ -1461,22 +1505,309 @@ def main() -> int:
         log(f"  {name}: {spread(c7[name])}; device idle share {idle7:.4f} ({n_ev} device "
             f"events in {PROFILED_CALLS} calls)")
 
+    repo_root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli_pipeline(*args, cwd=repo_root):
+        """The CLI's `pipeline` command in a process of its own: its stderr
+        lines; it must exit 0."""
+        env = dict(os.environ, PYTHONPATH=repo_root)
+        proc = subprocess.run([sys.executable, "-m", "ccve_tpu_torch.cli", "pipeline", *args],
+                              capture_output=True, text=True, timeout=600, cwd=cwd, env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli pipeline {args}: rc {proc.returncode}\n{proc.stderr}")
+        return proc.stderr.splitlines()
+
     # ---- 27. the benchmark entry point and the CLI's pipeline command -------
-    result = config7_heterogeneous_levels(device="cuda")
-    log(f"phase config7_heterogeneous_levels: ok {json.dumps(result)}")
-    proc = subprocess.run(
-        [sys.executable, "-m", "ccve_tpu_torch.cli", "pipeline", "--join-num", "2",
-         "--chunk-factor", "2", "--lhs-size", "3000", "--rhs-size", "256", "--block-size",
-         "256", "--strategy", "full", "--table", "sorted", "--executor", "sorted"],
-        capture_output=True, text=True, timeout=300,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-    )
-    if proc.returncode != 0 or " [Result Rows] 2992" not in proc.stderr.splitlines():
-        raise AssertionError(f"the known-good pipeline command: rc {proc.returncode}\n"
-                             f"{proc.stderr}")
+    config7 = config7_heterogeneous_levels(device="cuda")
+    log(f"phase config7_heterogeneous_levels: ok {json.dumps(config7)}")
+    known_good = ("--join-num", "2", "--chunk-factor", "2", "--lhs-size", "3000", "--rhs-size",
+                  "256", "--block-size", "256", "--table", "sorted", "--executor", "sorted")
+    lines = cli_pipeline(*known_good, "--strategy", "full")
+    if " [Result Rows] 2992" not in lines:
+        raise AssertionError("the known-good pipeline command:\n" + "\n".join(lines))
     log("phase cli pipeline: ok, " + "; ".join(
-        line.strip() for line in proc.stderr.splitlines() if "[Result Rows]" in line
-        or "[Total Time]" in line))
+        line.strip() for line in lines if "[Result Rows]" in line or "[Total Time]" in line))
+
+    # ---- 28. the fused drain's repair: the shapes it refused ------------------
+    t0 = time.perf_counter()
+    for L, block, fanouts in ((6, 2048, (1, 2, 1, 1, 2, 1)), (5, 4096, (1,) * 5),
+                              (9, 2048, (1,) * 9), (2, 8192, (2, 1))):
+        thresholds = [int(rng.choice([0, block // 2, block])) for _ in range(L)]
+        drain_same(drain_inputs(8, block, fanouts, thresholds), fanouts,
+                   f"repaired L={L} block={block}")
+        drain_same(drain_inputs(8, block, fanouts, thresholds, occupancy=True), fanouts,
+                   f"repaired L={L} block={block}, occupancy", record_occupancy=True)
+    keys6, pays6 = gen_rhs_table(50_000, 1)
+    probe6 = gen_probe_table(1_000_000, 6, 50_000)
+    want6 = int(bulk_count([sm.build_sorted(keys6, pays6, device="cuda")] * 6, probe6).count)
+    lines = cli_pipeline("--join-num", "6", "--lhs-size", "1000000", "--rhs-size", "50000",
+                         "--table", "sorted", "--executor", "sorted", "--strategy", "full",
+                         "--preload")
+    if f" [Result Rows] {want6}" not in lines:
+        raise AssertionError(f"cli pipeline --join-num 6: bulk_count counts {want6}\n" +
+                             "\n".join(lines))
+    log(f"phase drain repair: ok ({time.perf_counter() - t0:.1f} s), #10 and its variant equal "
+        f"their plain version at (6, 2048), (5, 4096), (9, 2048), (2, 8192); cli pipeline "
+        f"--join-num 6 (1M x 50K, block 2048, FULL, preloaded) counts {want6} as bulk_count; " +
+        "; ".join(x.strip() for x in lines if "[Total Time]" in x or "[Throughput]" in x))
+
+    # ---- 29. #10's occupancy variant at small shapes ---------------------------
+    t0 = time.perf_counter()
+    for fanouts, thresholds, counts, branchy in (
+        ((2, 3), (0, 0), [128, 0, 77, 128], True),
+        ((2, 2, 2), (128, 128, 128), [128, 0, 77, 128, 13], False),
+        ((3, 1, 2), (64, 128, 0), [128, 100, 0, 3, 128], True),
+    ):
+        drain_same(drain_inputs(len(counts), 128, fanouts, thresholds, counts, occupancy=True),
+                   fanouts, f"occupancy fanouts {fanouts}", record_occupancy=True,
+                   branchy=branchy)
+    for case in range(16):
+        L = int(rng.integers(1, 6))
+        block = int(rng.choice([128, 384, 1024, 2048, 4096]))
+        fanouts = tuple(int(f) for f in rng.integers(1, 4, L))
+        while np.prod(fanouts[:-1]) > MAX_PATHS:
+            fanouts = tuple(max(f - 1, 1) for f in fanouts)
+        thresholds = [int(rng.choice([0, block // 2, block, int(rng.integers(1, block))]))
+                      for _ in range(L)]
+        drain_same(drain_inputs(int(rng.integers(0, 41)), block, fanouts, thresholds,
+                                occupancy=True), fanouts,
+                   f"occupancy random case {case}: L={L} block={block} fanouts {fanouts}",
+                   record_occupancy=True, branchy=bool(case % 2))
+    torch.cuda.synchronize()
+    log(f"phase occupancy variant (small shapes): ok ({time.perf_counter() - t0:.1f} s), max "
+        f"|kernel - plain| {max_err['drain_segment_occ']}")
+
+    # ---- 30. #11 at small shapes ------------------------------------------------
+    t0 = time.perf_counter()
+
+    def rank_same(table, keys, valid, what):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (table, keys, valid)]
+        got = chunk_rank(*args)
+        want = chunk_rank_plain(*args)
+        same("chunk_rank", got[0], want[0], what)
+        live = want[0] > 0
+        same("chunk_rank", got[1][live], want[1][live], f"{what} start")
+        return got
+
+    for m, dom, count, block in ((500, 400, 256, 256), (30, 400, 170, 256), (256, 256, 0, 256),
+                                 (700, 10, 256, 256), (128, 1000, 77, 128),
+                                 (4000, 100, 2048, 2048), (0, 50, 128, 128)):
+        table = np.sort(rng.integers(0, dom, m, dtype=np.int64))
+        keys = rng.integers(-5, dom + 5, block, dtype=np.int64)
+        rank_same(table, keys, np.arange(block) < count, f"m={m} dom={dom} count={count}")
+    ext = np.array([-I64_MAX - 1, -I64_MAX - 1, -(1 << 62), -1, 0, 0, 0, 1 << 40, I64_MAX - 1,
+                    I64_MAX], np.int64)
+    rank_same(ext, np.resize(ext[::-1], 128), np.arange(128) % 7 != 3, "int64 extremes")
+    for case in range(24):
+        m = int(rng.integers(0, 200_000))
+        block = int(rng.choice([128, 256, 1024, 2048, 4096]))
+        dom = int(rng.choice([3, 1000, 1 << 20, 1 << 50]))
+        table = np.sort(rng.integers(-dom, dom, m, dtype=np.int64))
+        keys = rng.integers(-dom - 2, dom + 2, block, dtype=np.int64)
+        if m:
+            keys[: block // 2] = table[rng.integers(0, m, block // 2)]
+        rank_same(table, keys, rng.random(block) < 0.9, f"random case {case}: m={m}")
+    torch.cuda.synchronize()
+    log(f"phase slice-7b kernel #11 (small shapes): ok ({time.perf_counter() - t0:.1f} s), max "
+        f"|kernel - plain| {max_err['chunk_rank']}")
+
+    # ---- 31. config 3 in the chunk rank mode at full size -------------------------
+    t0 = time.perf_counter()
+    rank_wrappers = {"chunk_rank": (chunk_rank,)}
+    launches_cr, c31_log = {}, []
+    for strategy in (CompactionStrategy.NONE, CompactionStrategy.FULL):
+        cfg3 = EngineConfig(block_size=2048, n_joins=4, lhs_size=host3.shape[0],
+                            rhs_size=50_000, strategy=strategy)
+        pipe = SortedPipeline(tables3, cfg3, rank_mode="chunk")
+        zero_counters(rank_wrappers)
+        r = pipe.run(host3, preload=True)
+        launches_cr[strategy.value] = read_counters(rank_wrappers)["chunk_rank"]
+        if r["count"] != want3 or launches_cr[strategy.value] == 0:
+            raise AssertionError(f"chunk mode {strategy.value}: count {r['count']} (oracle "
+                                 f"{want3}), #11 launches {launches_cr[strategy.value]}")
+        chunk_s = [pipe.run(host3, preload=True)["seconds"] * 1e3 for _ in range(5)]
+        batched_s = [pipes3[strategy].run(host3, preload=True)["seconds"] * 1e3
+                     for _ in range(5)]
+        c31_log.append(f"  {strategy.value}: chunk mode {spread(chunk_s)}, batched mode "
+                       f"{spread(batched_s)}; #11 launches a run {launches_cr[strategy.value]}")
+    log(f"phase config 3 chunk rank mode: ok ({time.perf_counter() - t0:.1f} s), NONE and FULL "
+        f"preloaded count {want3} with #11 launched")
+    log(f"times on [{card}], host clock around run(preload=True) (synced), medians of 5:")
+    for line in c31_log:
+        log(line)
+    # #11 at config 3's shapes: one chunk (2048 lanes) against the 50K table
+    table3_keys = tables3[0].keys
+    keys_cr = all_cols[len(all_cols) // 2, 0].contiguous()
+    valid_cr = torch.ones(2048, dtype=torch.bool, device="cuda")
+    rank_same(table3_keys.cpu().numpy(), keys_cr.cpu().numpy(), valid_cr.cpu().numpy(),
+              "config-3 shapes")
+    kernel_ms["chunk_rank"] = (
+        med(cuda_ms(lambda: chunk_rank(table3_keys, keys_cr, valid_cr))),
+        med(cuda_ms(lambda: chunk_rank_plain(table3_keys, keys_cr, valid_cr))),
+        med(cuda_ms(lambda: (torch.searchsorted(table3_keys, keys_cr, side="left"),
+                             torch.searchsorted(table3_keys, keys_cr, side="right")))),
+    )
+    m3 = table3_keys.numel()
+    # keys, valid flags and both outputs once, the table read once a launch;
+    # two binary searches a lane
+    work["chunk_rank"] = (8 * 2048 + 2048 + 8 * 2048 + 8 * m3, 2 * 2048 * log2_ceil(m3))
+    bound_cr = bound(*work["chunk_rank"])
+    log(f"  #11 at config-3 shapes (2048 lanes, m = {m3}), CUDA events, medians of {REPS}: "
+        f"kernel {kernel_ms['chunk_rank'][0]:.4f} ms, plain {kernel_ms['chunk_rank'][1]:.4f} "
+        f"ms, two torch.searchsorted {kernel_ms['chunk_rank'][2]:.4f} ms, bound "
+        f"{bound_cr[0]:.6f} ms ({bound_cr[1]}, the table counted once a launch) [{card}]")
+
+    # ---- 32. Zebra at config 3 ---------------------------------------------------
+    t0 = time.perf_counter()
+    occ_wrappers = {"drain_segment_occ": (occupancy_variant,)}
+    launches_occ, c32_log = {}, []
+    for strategy in (CompactionStrategy.FULL, CompactionStrategy.BINARY):
+        cfg3 = EngineConfig(block_size=2048, n_joins=4, lhs_size=host3.shape[0],
+                            rhs_size=50_000, strategy=strategy, record_occupancy=True)
+        fused = SortedPipeline(tables3, cfg3)
+        zero_counters(occ_wrappers)
+        r = fused.run(host3, preload=True)
+        launches_occ[strategy.value] = read_counters(occ_wrappers)["drain_segment_occ"]
+        td = SortedPipeline(tables3, cfg3, use_kernel=False).run(host3, preload=True)
+        if (r["count"], td["count"]) != (want3, want3) or launches_occ[strategy.value] != 1:
+            raise AssertionError(f"zebra {strategy.value}: counts {r['count']}, {td['count']} "
+                                 f"(oracle {want3}), variant launches "
+                                 f"{launches_occ[strategy.value]}")
+        if not np.array_equal(r["occupancy"], td["occupancy"]):
+            raise AssertionError(f"zebra {strategy.value}: the fused route's histograms differ "
+                                 "from the torch drain's")
+        with_occ = [fused.run(host3, preload=True)["seconds"] * 1e3 for _ in range(5)]
+        without = [pipes3[strategy].run(host3, preload=True)["seconds"] * 1e3
+                   for _ in range(5)]
+        c32_log.append(f"  {strategy.value}: fused with record_occupancy {spread(with_occ)}, "
+                       f"without {spread(without)}; {int(r['occupancy'].sum())} emissions "
+                       f"recorded, level totals {r['occupancy'].sum(1).tolist()}")
+    zebra = ZebraProfiler.get()
+    zebra.clear()
+    zp = fused.run(host3, zebra_profile=True)
+    calls = sum(c for lv in range(4)
+                for _, c in zebra.histogram(f"level{lv}_{fused.config.strategy.value}").values())
+    if zp["count"] != want3 or calls != int(zp["occupancy"].sum()) or zp["zebra_segments"] < 2:
+        raise AssertionError(f"zebra_profile: count {zp['count']}, {zp['zebra_segments']} "
+                             f"segments, {calls} calls for {int(zp['occupancy'].sum())} "
+                             "recorded emissions")
+    zebra.clear()
+    log(f"phase config 3 zebra: ok ({time.perf_counter() - t0:.1f} s), FULL and BINARY "
+        f"histograms equal on the fused route and the torch drain, count {want3}; "
+        f"zebra_profile {zp['zebra_segments']} segments, {calls} calls")
+    log(f"times on [{card}], host clock around run(preload=True) (synced), medians of 5:")
+    for line in c32_log:
+        log(line)
+    d_occ = (mults3, all_counts, thr3, cache3, torch.zeros(4, dtype=torch.int32, device="cuda"))
+    o_out = drain_same(d_occ, tuple(pipe._fanout), "config 3 FULL, occupancy",
+                       record_occupancy=True)
+    kernel_ms["drain_segment_occ"] = (
+        med(cuda_ms(lambda: drain_segment(*d_occ, block=2048, fanouts=(1,) * 4,
+                                          record_occupancy=True))),
+        med(cuda_ms(lambda: drain_segment_plain(*d_occ, block=2048, fanouts=(1,) * 4,
+                                                record_occupancy=True), reps=3)),
+    )
+    # the count path's bytes and operations, plus the histograms written once
+    work["drain_segment_occ"] = (work["drain_segment"][0] + 4 * 4 * 2049,
+                                 4 * int(o_out[4].sum()))
+    bound_o = bound(*work["drain_segment_occ"])
+    log(f"  the occupancy variant at config-3 shapes (FULL, zero caches): kernel "
+        f"{kernel_ms['drain_segment_occ'][0]:.4f} ms, plain "
+        f"{kernel_ms['drain_segment_occ'][1]:.4f} ms, bound {bound_o[0]:.4f} ms "
+        f"({bound_o[1]}) [{card}]")
+
+    # ---- 33. DYNAMIC at config 7's full size ---------------------------------------
+    t0 = time.perf_counter()
+    dyn_cfg = EngineConfig(block_size=2048, n_joins=4, lhs_size=host7.shape[0],
+                           rhs_size=50_000, strategy=CompactionStrategy.DYNAMIC,
+                           threshold_arms=(0, 2048), tuner_segment_chunks=16)
+    dyn_cases = {
+        "device tuner, preloaded": (dataclasses.replace(dyn_cfg, device_tuner=True), True),
+        "device tuner, streamed": (dataclasses.replace(dyn_cfg, device_tuner=True), False),
+        "host tuner, streamed": (dyn_cfg, False),
+    }
+    dyn_wrappers = {"drain_segment": (drain_segment,), **NEW_WRAPPERS}
+    c33_log = []
+    for name, (cfg, preload) in dyn_cases.items():
+        pipe = SortedPipeline(tables7, cfg)
+        zero_counters(dyn_wrappers)
+        r = pipe.run(host7, preload=preload)
+        lc = read_counters(dyn_wrappers)
+        idle = [k for k in ("drain_segment", *rank_kernels) if lc[k] == 0]
+        if r["count"] != want7 or idle:
+            raise AssertionError(f"config 7 DYNAMIC {name}: count {r['count']} (oracle {want7}), "
+                                 f"kernels not launched {idle}")
+        times = [pipe.run(host7, preload=preload)["seconds"] * 1e3 for _ in range(3)]
+        line = f"  {name}: {spread(times)}; #10 launches {lc['drain_segment']}"
+        if cfg.device_tuner:
+            line += (f"; greedy thresholds {r['greedy_thresholds'].tolist()}, committed "
+                     f"{r['bandit_committed'].tolist()} at round {r['bandit_commit_t'].tolist()}"
+                     f", selections {r['bandit_n_sel'].tolist()}")
+        c33_log.append(line)
+    # the host syncs of one device-tuner segment, by torch's sync debug mode
+    import warnings
+
+    pipe = SortedPipeline(tables7, dataclasses.replace(dyn_cfg, device_tuner=True))
+    seg_syncs = []
+    segment_fn = pipe._process_seg_device_dynamic
+
+    def counted_segment(*args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = segment_fn(*args)
+        seg_syncs.append([f"{os.path.relpath(w.filename, repo_root)}:{w.lineno}"
+                          for w in caught if "synchroniz" in str(w.message)])
+        return out
+
+    pipe._process_seg_device_dynamic = counted_segment
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        r = pipe.run(host7, preload=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if r["count"] != want7:
+        raise AssertionError(f"config 7 DYNAMIC under sync debug: count {r['count']}")
+    where = sorted({site for segment in seg_syncs for site in segment})
+    log(f"phase config 7 DYNAMIC: ok ({time.perf_counter() - t0:.1f} s), 2M x 4 levels, block "
+        f"2048, arms (0, 2048), 16 chunks a segment: device tuner preloaded and streamed, host "
+        f"tuner streamed, count {want7} each (the oracle's); host syncs a device-tuner segment: "
+        f"{sum(map(len, seg_syncs)) / len(seg_syncs):.2f} over {len(seg_syncs)} segments, at "
+        f"{where}")
+    log(f"times on [{card}], host clock around run() (synced), medians of 3 (phase 26's statics, "
+        f"preloaded: " + ", ".join(f"{k} {med(v):.4f} ms" for k, v in c7.items()) + "):")
+    for line in c33_log:
+        log(line)
+    # where a device-tuner run's time goes: the device's idle share and the
+    # ops that take the most host time
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = SortedPipeline(tables7, dataclasses.replace(dyn_cfg, device_tuner=True))
+    idle_dyn, n_ev = idle_share(lambda: pipe.run(host7, preload=True)["count"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.run(host7, preload=True)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    log(f"  device tuner, preloaded: device idle share {idle_dyn:.4f} ({n_ev} device events in "
+        f"{PROFILED_CALLS} calls); most host time in one run: " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms ({e.count} calls)" for e in top))
+    log(f"  phase 27's config7_heterogeneous_levels: dynamic_vs_best_static "
+        f"{config7['dynamic_vs_best_static']:.4f}, dynamic_compaction_device "
+        f"{json.dumps(config7['dynamic_compaction_device'])}")
+
+    # ---- 34. the CLI's pipeline command with the tuner and the Zebra profile -----
+    t0 = time.perf_counter()
+    zebra_dir = os.path.join(repo_root, "chiprun_out", "zebra_cli")
+    os.makedirs(zebra_dir, exist_ok=True)
+    cli_log = []
+    for extra, cwd in ((("--strategy", "dynamic"), repo_root),
+                       (("--strategy", "full", "--record-occupancy"), repo_root),
+                       (("--strategy", "full", "--zebra-profile"), zebra_dir)):
+        lines = cli_pipeline(*known_good, *extra, cwd=cwd)
+        if " [Result Rows] 2992" not in lines:
+            raise AssertionError(f"cli pipeline {extra}:\n" + "\n".join(lines))
+        cli_log.append(" ".join(extra) + ": " + "; ".join(
+            x.strip() for x in lines if "[Result Rows]" in x or "[Zebra]" in x))
+    log(f"phase cli tuner and zebra: ok ({time.perf_counter() - t0:.1f} s), " + " | ".join(cli_log))
 
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
@@ -1509,6 +1840,10 @@ def main() -> int:
                              "ccve_tpu/kernels/murmur.py:68"),
         "drain_segment": ("ccve_tpu_torch/kernels/csrc/drain.cu",
                           "ccve_tpu/kernels/drain.py:94"),
+        "drain_segment_occ": ("ccve_tpu_torch/kernels/csrc/drain.cu",
+                              "ccve_tpu/kernels/drain.py:95"),
+        "chunk_rank": ("ccve_tpu_torch/kernels/csrc/chunk_rank.cu",
+                       "ccve_tpu/kernels/chunk_probe.py:85"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per
@@ -1530,6 +1865,10 @@ def main() -> int:
     # slice 7: #10's launches in phase 24's counted runs (one a preloaded
     # run, one a segment streamed)
     launches["drain_segment"] = sum(lc["drain_segment"] for lc in launches_c3.values())
+    # slice 7b: #11's launches in phase 31's counted chunk-mode runs, the
+    # occupancy variant's in phase 32's counted fused runs
+    launches["chunk_rank"] = sum(launches_cr.values())
+    launches["drain_segment_occ"] = sum(launches_occ.values())
     entries = []
     for name in sources:
         bound_ms, bound_by = bound(*work[name])
@@ -1544,7 +1883,8 @@ def main() -> int:
             "plain_ms": kernel_ms[name][1],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": kernel_ms[name][1] if name in LIBRARY_IS_PLAIN else None,
+            "library_ms": (kernel_ms[name][1] if name in LIBRARY_IS_PLAIN
+                           else kernel_ms[name][2] if len(kernel_ms[name]) > 2 else None),
         })
     print(json.dumps({"kernels": entries}))
     print(card)

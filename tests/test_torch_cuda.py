@@ -473,23 +473,27 @@ def test_hash_bulk_materialize_on_card_matches_cpu(cuda, kind):
 # ---- the sorted-chunk executor (slice 7): kernel #10 ------------------------
 
 
-def _drain_inputs(rng, S, L, block, fanouts, thresholds, device):
+def _drain_inputs(rng, S, L, block, fanouts, thresholds, device, occupancy=False):
     """int32 inputs of `drain_segment`: mults in [0, fanout] (the last
     level's up to 5), counts with empty, partial and full chunks, caches
-    with a random live prefix."""
+    with a random live prefix (with `occupancy`, L cache counts: the last
+    level's count-only cache)."""
     highs = list(fanouts[:-1]) + [5]
     mults = np.stack([rng.integers(0, h + 1, (S, block)) for h in highs], axis=1)
     counts = rng.choice([0, block, int(rng.integers(1, block))], S)
     CL = max(L - 1, 1)
     cache_m = rng.integers(0, max(highs) + 1, (CL, L, block))
-    cache_cnt = rng.integers(0, block, CL) if L > 1 else np.zeros(1, np.int64)
+    if occupancy:
+        cache_cnt = rng.integers(0, block, L)
+    else:
+        cache_cnt = rng.integers(0, block, CL) if L > 1 else np.zeros(1, np.int64)
     return [_i32(a, device) for a in (mults, counts, thresholds, cache_m, cache_cnt)]
 
 
 def _same_drain(got, want, L):
-    total, cache, ccnt, work, rows = got
+    total, cache, ccnt, work, rows = got[:5]
     assert int(total) == int(want[0])
-    for g, w in zip((ccnt, work, rows), want[2:]):
+    for g, w in zip((ccnt, work, rows) + tuple(got[5:]), tuple(want[2:])):
         assert torch.equal(g.cpu(), w.cpu())
     for level in range(L - 1):
         live = int(ccnt[level])
@@ -521,15 +525,75 @@ def test_drain_kernel(cuda, seed):
     _same_drain(got, cpu, L)
 
 
-def test_drain_kernel_refuses_what_does_not_fit(cuda):
+@pytest.mark.parametrize("seed", range(12))
+def test_drain_occupancy_kernel(cuda, seed):
+    """#10's occupancy variant against its plain version: histograms,
+    total, cache counts, work, rows and caches, branchy on and off."""
     from ccve_tpu_torch.kernels import drain
 
+    rng = np.random.default_rng(100 + seed)
+    L = int(rng.integers(1, 6))
+    block = int(rng.choice([128, 384, 1024, 2048]))
+    fanouts = tuple(int(f) for f in rng.integers(1, 4, L))
+    while np.prod(fanouts[:-1]) > drain.MAX_PATHS:
+        fanouts = tuple(max(f - 1, 1) for f in fanouts)
+    thresholds = [int(rng.choice([0, block // 2, block, int(rng.integers(1, block))]))
+                  for _ in range(L)]
+    args = _drain_inputs(rng, int(rng.integers(0, 41)), L, block, fanouts, thresholds, cuda,
+                         occupancy=True)
+    kw = dict(block=block, fanouts=fanouts, record_occupancy=True, branchy=bool(seed % 2))
+    before = (drain.drain_segment.launches, drain.occupancy_variant.launches)
+    got = drain.drain_segment(*args, **kw)
+    assert (drain.drain_segment.launches, drain.occupancy_variant.launches) == \
+        (before[0], before[1] + 1)
+    _same_drain(got, drain.drain_segment_plain(*args, **kw), L)
+
+
+def test_drain_kernel_refuses_what_does_not_fit(cuda):
+    """The shapes the kernel refused before its repair (more than 8
+    levels, blocks over 4096, caches past shared memory) run, with and
+    without the histograms, and equal the plain version; more than 64 drain
+    paths still raise, before any launch."""
+    from ccve_tpu_torch.kernels import drain
+
+    rng = np.random.default_rng(7)
+    for L, block, fanouts in ((6, 2048, (1, 2, 1, 1, 2, 1)), (5, 4096, (1,) * 5),
+                              (9, 2048, (1,) * 9), (2, 8192, (2, 1))):
+        thresholds = [int(rng.choice([0, block // 2, block])) for _ in range(L)]
+        for occupancy in (False, True):
+            args = _drain_inputs(rng, 12, L, block, fanouts, thresholds, cuda,
+                                 occupancy=occupancy)
+            kw = dict(block=block, fanouts=fanouts, record_occupancy=occupancy)
+            _same_drain(drain.drain_segment(*args, **kw), drain.drain_segment_plain(*args, **kw),
+                        L)
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=cuda)  # noqa: E731
     before = drain.drain_segment.launches
-    with pytest.raises(ValueError, match=r"L=5, block=4096"):
-        drain.drain_segment(z(2, 5, 4096), z(2), z(5), z(4, 5, 4096), z(4),
-                            block=4096, fanouts=(1,) * 5)
+    with pytest.raises(ValueError, match="drain paths"):
+        drain.drain_segment(z(2, 3, 128), z(2), z(3), z(2, 3, 128), z(2), block=128,
+                            fanouts=(8, 9, 1))
     assert drain.drain_segment.launches == before
+
+
+@pytest.mark.parametrize("m, dom, n", [(0, 50, 128), (1, 3, 2048), (500, 400, 256),
+                                       (50_000, 100_000, 2048), (4000, 100, 4096),
+                                       (1 << 20, 1 << 40, 2048)])
+def test_chunk_rank_kernel(cuda, m, dom, n):
+    """#11 against its plain version: mult everywhere, start where mult > 0
+    (and, as the kernel defines it, the lower bound everywhere)."""
+    from ccve_tpu_torch.kernels import chunk_probe
+
+    rng = np.random.default_rng(m + n)
+    table = np.sort(rng.integers(-dom, dom, m, dtype=np.int64))
+    keys = rng.integers(-dom - 3, dom + 3, n, dtype=np.int64)
+    if m:
+        keys[: n // 2] = table[rng.integers(0, m, n // 2)]
+    valid = rng.random(n) < 0.9
+    args = [torch.from_numpy(a).to(cuda) for a in (table, keys, valid)]
+    before = chunk_probe.chunk_rank.launches
+    mult, start = chunk_probe.chunk_rank(*args)
+    assert chunk_probe.chunk_rank.launches == before + 1
+    want_mult, want_start = chunk_probe.chunk_rank_plain(*args)
+    assert torch.equal(mult, want_mult) and torch.equal(start, want_start)
 
 
 def _sorted_setup(device, strategy, n_joins=3, lhs=20_000, rhs=3000, chunk_factor=2,
@@ -606,3 +670,36 @@ def test_sorted_pipeline_full_flush_on_card(cuda):
     pipe = states["card"][1]
     flushed = pipe._flush_all(card, pipe.static_thresholds())
     assert int(flushed.result_count) == want
+
+
+def test_device_tuner_on_card_matches_cpu(cuda):
+    """A device-tuner run (DYNAMIC, preloaded and streamed, with the
+    histograms) on the card equals the same run on the CPU: count, bandit
+    state, greedy thresholds and occupancy; the chunk rank mode launches
+    #11 and counts the same."""
+    import dataclasses
+
+    from ccve_tpu_torch.config import CompactionStrategy
+    from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
+    from ccve_tpu_torch.kernels import chunk_probe, drain
+
+    cfg, probe, table, want = _sorted_setup(cuda, "full_compaction", n_joins=3, lhs=30_000)
+    cfg = dataclasses.replace(cfg, strategy=CompactionStrategy.DYNAMIC, device_tuner=True,
+                              record_occupancy=True, tuner_segment_chunks=4,
+                              threshold_arms=(0, cfg.block_size // 2, cfg.block_size))
+    cpu_table = sm.build_sorted(table.keys.cpu().numpy(), table.payloads.cpu().numpy(),
+                                device="cpu")
+    for preload in (True, False):
+        before = drain.occupancy_variant.launches
+        got = SortedPipeline([table] * 3, cfg).run(probe, preload=preload)
+        assert drain.occupancy_variant.launches > before
+        ref = SortedPipeline([cpu_table] * 3, cfg).run(probe, preload=preload)
+        assert got["count"] == ref["count"] == want
+        np.testing.assert_allclose(got["bandit_est"], ref["bandit_est"], rtol=1e-6)
+        for key in ("bandit_n_sel", "bandit_committed", "bandit_commit_t",
+                    "greedy_thresholds", "occupancy"):
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    static = dataclasses.replace(cfg, strategy=CompactionStrategy.FULL, device_tuner=False)
+    before = chunk_probe.chunk_rank.launches
+    chunk = SortedPipeline([table] * 3, static, rank_mode="chunk").run(probe)
+    assert chunk_probe.chunk_rank.launches > before and chunk["count"] == want

@@ -16,9 +16,11 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _run(args, cwd=ROOT, timeout=300):
+def _run(args, cwd=ROOT, timeout=300, repo_on_path=False):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    if repo_on_path:  # for a run in another directory
+        env["PYTHONPATH"] = str(ROOT)
     return subprocess.run(
         [sys.executable, *args], cwd=cwd, env=env,
         capture_output=True, text=True, timeout=timeout,
@@ -69,8 +71,9 @@ def test_cli_tiny_config3_matches_jax():
 
 def test_cli_tiny_config7_matches_jax_oracle():
     """Config 7 at the JAX CLI's tiny size (16384 x 4 levels, 512 build
-    keys, block 256): its three static policies count what the JAX
-    package's oracle counts on the JAX generators."""
+    keys, block 256): its three static policies and the device tuner count
+    what the JAX package's oracle counts on the JAX generators (each count
+    is asserted inside)."""
     from ccve_tpu.core.datagen import gen_rhs_table
     from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
 
@@ -83,9 +86,13 @@ def test_cli_tiny_config7_matches_jax_oracle():
                       for h in (0.95, 0.03, 1.0, 1.0)], axis=1)
     want = oracle_pipeline(probe, [OracleBuildTable(*gen_rhs_table(512, 1))] * 4).shape[0]
     assert got["expected"] == got["bulk_count"] == want == 451
-    for case in ("no_compaction", "full_compaction", "mixed_static"):
+    for case in ("no_compaction", "full_compaction", "mixed_static",
+                 "dynamic_compaction_device"):
         assert got[case]["seconds"] > 0
-    assert "dynamic_compaction_device" not in got
+    dynamic = got["dynamic_compaction_device"]
+    assert set(dynamic["greedy_thresholds"]) <= {0, 256} and len(dynamic["bandit_committed"]) == 4
+    assert sum(map(sum, dynamic["bandit_n_sel"])) == 4 * 16  # 64 chunks, 4 a segment
+    assert got["dynamic_vs_best_static"] > 0
 
 
 KNOWN_GOOD = ["pipeline", "--join-num", "2", "--chunk-factor", "2", "--lhs-size", "3000",
@@ -96,14 +103,22 @@ KNOWN_GOOD = ["pipeline", "--join-num", "2", "--chunk-factor", "2", "--lhs-size"
     ["--executor", "sorted", "--strategy", "full"],
     ["--executor", "sorted", "--strategy", "binary", "--preload"],
     ["--executor", "bulk", "--strategy", "full"],
+    ["--executor", "sorted", "--strategy", "dynamic"],
+    ["--executor", "sorted", "--strategy", "full", "--record-occupancy"],
+    ["--executor", "sorted", "--strategy", "full", "--zebra-profile"],
 ])
-def test_cli_pipeline_known_good(extra):
+def test_cli_pipeline_known_good(extra, tmp_path):
     """The JAX CLI's known-good pipeline command: [Result Rows] 2992, as
-    the JAX package's oracle counts on its generators."""
+    the JAX package's oracle counts on its generators, also with the host
+    tuner, the occupancy histograms and the Zebra profile (run in
+    `tmp_path`, where it writes its CSVs, as the JAX CLI reports: two
+    measured segments)."""
     from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
     from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
 
-    proc = _run(["-m", "ccve_tpu_torch.cli", *KNOWN_GOOD, *extra])
+    zebra = "--zebra-profile" in extra
+    proc = _run(["-m", "ccve_tpu_torch.cli", *KNOWN_GOOD, *extra],
+                cwd=tmp_path if zebra else ROOT, repo_on_path=zebra)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stderr.splitlines()
     assert lines[0].startswith(" [Settings] #joins: 2")
@@ -112,13 +127,16 @@ def test_cli_pipeline_known_good(extra):
     want = oracle_pipeline(gen_probe_table(3000, 2, 256),
                            [OracleBuildTable(*gen_rhs_table(256, 2))] * 2).shape[0]
     assert " [Result Rows] 2992" in lines and want == 2992
+    if zebra:
+        (log_dir,) = tmp_path.iterdir()
+        assert log_dir.name.startswith("zebra_log_0x")
+        assert f" [Zebra] 2 measured segments -> ./{log_dir.name}/" in lines
+        assert sorted(p.name for p in log_dir.iterdir()) == [
+            "level0_full_compaction.csv", "level1_full_compaction.csv"]
 
 
 @pytest.mark.parametrize("args, message", [
     (["--table", "csr", "--executor", "pipeline"], "not ported yet"),
-    (["--table", "sorted", "--executor", "sorted", "--strategy", "dynamic"], "not ported yet"),
-    (["--table", "sorted", "--executor", "sorted", "--record-occupancy"], "not ported yet"),
-    (["--table", "sorted", "--executor", "sorted", "--zebra-profile"], "not ported yet"),
     (["--table", "lp", "--executor", "sorted"], "requires --table sorted"),
 ])
 def test_cli_pipeline_unported_exits_2(args, message):
@@ -185,12 +203,13 @@ def test_port_imports_no_jax():
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules, _, names = proc.stdout.partition(" [] ")
-    assert int(n_modules) >= 28
+    assert int(n_modules) >= 34
     for name in ("config", "exec.oracle", "exec.bulk", "kernels.pairsort",
                  "kernels.compact", "kernels.merge_scan", "ops.sort_merge",
                  "ops.hashing", "ops.hash_table", "kernels.murmur", "core.chunk",
                  "ops.compactor", "ops.filter", "kernels.drain", "exec.pipeline",
-                 "exec.sorted_pipeline"):
+                 "exec.sorted_pipeline", "control.bandit", "control.device_bandit",
+                 "utils.profiler", "kernels.chunk_probe"):
         assert f"ccve_tpu_torch.{name}" in names.split()
 
 

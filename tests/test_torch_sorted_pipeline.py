@@ -196,22 +196,49 @@ def test_wide_keys(collect):
 
 
 def test_unported_parts_raise():
-    cfg, probe, tables, _, (keys, payloads) = _setup(2, 300, 64, 1, CompactionStrategy.FULL,
-                                                     collect=False)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        SortedPipeline(tables, dataclasses.replace(cfg, strategy=CompactionStrategy.DYNAMIC))
-    with pytest.raises(NotImplementedError, match="Zebra"):
-        SortedPipeline(tables, dataclasses.replace(cfg, record_occupancy=True))
-    with pytest.raises(NotImplementedError, match="kernel #11"):
-        SortedPipeline(tables, cfg, rank_mode="chunk")
-    with pytest.raises(NotImplementedError, match="Zebra"):
-        SortedPipeline(tables, cfg).run(probe, zebra_profile=True)
+    """Only the cursor executor (slice 6) still raises. DYNAMIC, the
+    occupancy histograms, the chunk rank mode and zebra_profile, which
+    raised before the tuner slice, now run to the oracle's count."""
+    cfg, probe, tables, expected, (keys, payloads) = _setup(2, 300, 64, 1,
+                                                            CompactionStrategy.FULL,
+                                                            collect=False)
+    want = expected.shape[0]
+    assert SortedPipeline(tables, dataclasses.replace(
+        cfg, strategy=CompactionStrategy.DYNAMIC)).run(probe)["count"] == want
+    occ = SortedPipeline(tables, dataclasses.replace(cfg, record_occupancy=True)).run(probe)
+    assert occ["count"] == want and occ["occupancy"].sum() > 0
+    assert SortedPipeline(tables, cfg, rank_mode="chunk").run(probe)["count"] == want
+    zebra = SortedPipeline(tables, dataclasses.replace(cfg, record_occupancy=True)).run(
+        probe, zebra_profile=True)
+    assert zebra["count"] == want and zebra["zebra_segments"] >= 1
     from ccve_tpu_torch.ops.hash_table import build_csr
 
     with pytest.raises(NotImplementedError, match="cursor"):
         JoinPipeline([build_csr(keys, payloads, device="cpu")] * 2, cfg).run(probe)
     with pytest.raises(TypeError):
         SortedPipeline([build_csr(keys, payloads, device="cpu")] * 2, cfg)
+
+
+@pytest.mark.parametrize("n_joins, block, lhs", [(6, 2048, 5000), (2, 8192, 20000)])
+def test_fused_drain_repaired_shapes_match_jax(n_joins, block, lhs):
+    """Shapes the fused drain refused before its repair (ROADMAP Queue 3
+    #1): a count-only FULL run counts what the oracle and JAX's fused route
+    (Pallas interpret mode) count, on the fused route and the torch
+    drain."""
+    cfg = EngineConfig(block_size=block, n_joins=n_joins, lhs_size=lhs, rhs_size=256,
+                       strategy=CompactionStrategy.FULL)
+    probe = gen_probe_table(lhs, n_joins, 256)
+    keys, payloads = gen_rhs_table(256, 1)
+    tables = [build_sorted(keys, payloads, device="cpu")] * n_joins
+    want = oracle_pipeline(probe, [OracleBuildTable(keys, payloads)] * n_joins).shape[0]
+    jcfg = JConfig(block_size=block, n_joins=n_joins, lhs_size=lhs, rhs_size=256,
+                   strategy=JStrategy.FULL)
+    jax_count = JSortedPipeline([jax_build_sorted(keys, payloads)] * n_joins, jcfg,
+                                interpret=True).run(probe)["count"]
+    fused = SortedPipeline(tables, cfg)
+    assert fused._fused_drain_ok
+    assert fused.run(probe)["count"] == jax_count == want > 0
+    assert SortedPipeline(tables, cfg, use_kernel=False).run(probe)["count"] == want
 
 
 def test_engine_config_matches_jax():
