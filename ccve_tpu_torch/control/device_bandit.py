@@ -32,6 +32,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ccve_tpu_torch.ops.sort_merge import require_device
+
 EPSILON = 0.1
 START_SAMPLING = 2  # default; the reference's value is 4
 COMMIT_AFTER = 8
@@ -55,7 +57,9 @@ class DeviceBanditState(NamedTuple):
     commit_t: torch.Tensor  # int32[L] sel_times at commit (-1 = never)
 
 
-def init_state(n_levels: int, n_arms: int, device="cpu") -> DeviceBanditState:
+def init_state(n_levels: int, n_arms: int, device="cuda") -> DeviceBanditState:
+    device = require_device(device)
+
     def f32(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ccve_tpu_torch.ops.sort_merge import require_device
+
 SEL_DTYPE = torch.int32
 COL_DTYPE = torch.int64
 
@@ -42,8 +44,8 @@ class Chunk(NamedTuple):
         return self.cols.shape[1]
 
 
-def iota_sel(block_size: int, device="cpu") -> torch.Tensor:
-    return torch.arange(block_size, dtype=SEL_DTYPE, device=device)
+def iota_sel(block_size: int, device="cuda") -> torch.Tensor:
+    return torch.arange(block_size, dtype=SEL_DTYPE, device=require_device(device))
 
 
 def make_dense(cols: torch.Tensor, count=None) -> Chunk:
@@ -57,7 +59,8 @@ def make_dense(cols: torch.Tensor, count=None) -> Chunk:
     )
 
 
-def empty(n_cols: int, block_size: int, device="cpu") -> Chunk:
+def empty(n_cols: int, block_size: int, device="cuda") -> Chunk:
+    device = require_device(device)
     return Chunk(
         cols=torch.zeros((n_cols, block_size), dtype=COL_DTYPE, device=device),
         sel=iota_sel(block_size, device),
@@ -164,7 +167,7 @@ def to_rows(chunk: Chunk) -> np.ndarray:
     return cols[:, sel[: chunk.count]].T.copy()
 
 
-def from_rows(rows: np.ndarray, block_size: int, device="cpu") -> Chunk:
+def from_rows(rows: np.ndarray, block_size: int, device="cuda") -> Chunk:
     """A dense chunk from int64[count, n_cols] host rows (count <=
     block_size); storage above count is zero."""
     rows = np.asarray(rows, dtype=np.int64)
@@ -173,4 +176,4 @@ def from_rows(rows: np.ndarray, block_size: int, device="cpu") -> Chunk:
         raise ValueError(f"{count} rows > block_size {block_size}")
     cols = np.zeros((n_cols, block_size), dtype=np.int64)
     cols[:, :count] = rows.T
-    return make_dense(torch.from_numpy(cols).to(device), count)
+    return make_dense(torch.from_numpy(cols).to(require_device(device)), count)

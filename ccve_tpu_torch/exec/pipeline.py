@@ -44,6 +44,7 @@ import torch
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig
 from ccve_tpu_torch.control.bandit import CompactTuner
 from ccve_tpu_torch.core.chunk import Chunk, gather_rows
+from ccve_tpu_torch.ops.sort_merge import require_device
 from ccve_tpu_torch.utils.profiler import ZebraProfiler
 
 CURSOR_SLICE = "ROADMAP Queue 1, slice 6 (the cursor executor)"
@@ -69,13 +70,14 @@ class PipelineState(NamedTuple):
 
 def init_pipeline_state(
     n_levels: int, width: int, block: int, capacity: int,
-    result_width: int | None = None, device="cpu",
+    result_width: int | None = None, device="cuda",
 ) -> PipelineState:
     """`result_width` < `width` lets an executor carry auxiliary columns
     (SortedPipeline's rank columns) through the chunk stream and the
     compactor caches without storing them as results. The executors write
     the histogram and the counters in place, as the result store: the
     state owns them."""
+    device = require_device(device)
     z64 = torch.zeros((), dtype=torch.int64, device=device)
     return PipelineState(
         cache_cols=torch.zeros((n_levels, width, block), dtype=torch.int64, device=device),

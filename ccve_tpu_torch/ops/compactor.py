@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ccve_tpu_torch.core.chunk import Chunk, append_into, iota_sel
+from ccve_tpu_torch.ops.sort_merge import require_device
 
 
 class CompactorState(NamedTuple):
@@ -38,7 +39,8 @@ class CompactorState(NamedTuple):
         return self.cache_cols.shape[1]
 
 
-def init_state(n_cols: int, block_size: int, device="cpu") -> CompactorState:
+def init_state(n_cols: int, block_size: int, device="cuda") -> CompactorState:
+    device = require_device(device)
     return CompactorState(
         cache_cols=torch.zeros((n_cols, block_size), dtype=torch.int64, device=device),
         cache_count=0,

@@ -101,7 +101,7 @@ def test_device_bandit_matches_jax(n_levels, n_arms, start_sampling, commit_afte
     rounds = 600
     rng = np.random.default_rng(10 * n_levels + n_arms)
     tables = [_rewards(rng, n_arms, rounds, jump_at=300) for _ in range(n_levels)]
-    ours = db.init_state(n_levels, n_arms)
+    ours = db.init_state(n_levels, n_arms, device="cpu")
     theirs = jax_db.init_state(n_levels, n_arms)
     _same_state(ours, theirs, "init")
     committed = detected = 0
@@ -125,7 +125,7 @@ def test_device_bandit_matches_jax(n_levels, n_arms, start_sampling, commit_afte
 def test_device_bandit_stays_on_device_types():
     """Every field keeps its dtype and device through a round, and ties at
     the start go to the first arm, as jnp.argmax breaks them."""
-    st = db.init_state(3, 4)
+    st = db.init_state(3, 4, device="cpu")
     arm, st = db.select_arms(st, start_sampling=1)
     assert arm.tolist() == [0, 0, 0] and arm.dtype == torch.int32
     st = db.update_arms(st, arm, torch.ones(3), start_sampling=1)

@@ -21,7 +21,7 @@ BLOCK = 128
 
 def _pair(rows, block, count=None):
     """The same chunk in both packages, from host rows."""
-    j, t = JC.from_rows(rows, block), C.from_rows(rows, block)
+    j, t = JC.from_rows(rows, block), C.from_rows(rows, block, device="cpu")
     if count is not None:
         j = JC.Chunk(j.cols, j.sel, jnp.asarray(count, jnp.int32))
         t = C.Chunk(t.cols, t.sel, count)
@@ -41,7 +41,7 @@ def test_from_rows_roundtrip_and_reset():
     np.testing.assert_array_equal(t.cols.numpy(), np.asarray(j.cols))
     r = C.reset(t)
     assert r.count == 0 and torch.equal(r.sel, torch.arange(8, dtype=torch.int32))
-    e = C.empty(3, 8)
+    e = C.empty(3, 8, device="cpu")
     assert e.count == 0 and e.cols.shape == (3, 8) and not e.cols.any()
     d = C.make_dense(torch.ones((2, 8), dtype=torch.int32))
     assert d.count == 8 and d.cols.dtype == torch.int64
@@ -124,7 +124,7 @@ COMPACTOR_CASES = {
 @pytest.mark.parametrize("case", sorted(COMPACTOR_CASES))
 def test_compactor_matches_jax(case):
     threshold, sizes = COMPACTOR_CASES[case]
-    states = (JComp.init_state(2, BLOCK), comp.init_state(2, BLOCK))
+    states = (JComp.init_state(2, BLOCK), comp.init_state(2, BLOCK, device="cpu"))
     emitted, base = [], 0
     for size in sizes:
         rows = np.stack([np.arange(base, base + size), -np.arange(base, base + size)], axis=1)
@@ -141,18 +141,18 @@ def test_compactor_matches_jax(case):
 
 def test_compactor_does_not_alias_emitted_chunks():
     """An emitted chunk keeps its rows while the compactor goes on."""
-    state = comp.init_state(1, BLOCK)
-    e1, state = comp.compact(state, C.from_rows(np.arange(100).reshape(-1, 1), BLOCK), BLOCK)
-    e2, state = comp.compact(state, C.from_rows(np.arange(100, 200).reshape(-1, 1), BLOCK), BLOCK)
+    state = comp.init_state(1, BLOCK, device="cpu")
+    e1, state = comp.compact(state, C.from_rows(np.arange(100).reshape(-1, 1), BLOCK, device="cpu"), BLOCK)
+    e2, state = comp.compact(state, C.from_rows(np.arange(100, 200).reshape(-1, 1), BLOCK, device="cpu"), BLOCK)
     kept = C.to_rows(e2).copy()
-    e3, state = comp.compact(state, C.from_rows(np.arange(200, 300).reshape(-1, 1), BLOCK), BLOCK)
+    e3, state = comp.compact(state, C.from_rows(np.arange(200, 300).reshape(-1, 1), BLOCK, device="cpu"), BLOCK)
     np.testing.assert_array_equal(C.to_rows(e2), kept)
     assert (e1.count, e2.count, e3.count, state.cache_count) == (0, BLOCK, BLOCK, 44)
 
 
 def test_compactor_reads_through_selection_vector():
-    state = comp.init_state(1, BLOCK)
-    base = C.from_rows(np.arange(BLOCK).reshape(-1, 1), BLOCK)
+    state = comp.init_state(1, BLOCK, device="cpu")
+    base = C.from_rows(np.arange(BLOCK).reshape(-1, 1), BLOCK, device="cpu")
     sel = torch.zeros(BLOCK, dtype=torch.int32)
     sel[:3] = torch.tensor([5, 9, 33])
     e, state = comp.compact(state, C.Chunk(base.cols, sel, 3), BLOCK)
@@ -180,3 +180,26 @@ def test_filter_matches_jax(name, args):
     np.testing.assert_array_equal(
         F.filter_mask(torch.from_numpy(values), getattr(F, name)(*args)).numpy(),
         np.asarray(JF.filter_mask(jnp.asarray(values), getattr(JF, name)(*args))))
+
+
+def _constructors():
+    from ccve_tpu_torch.control import device_bandit as db
+    from ccve_tpu_torch.exec.pipeline import init_pipeline_state
+
+    return {
+        "init_pipeline_state": lambda: init_pipeline_state(2, 2, 8, 16),
+        "compactor.init_state": lambda: comp.init_state(2, 8),
+        "device_bandit.init_state": lambda: db.init_state(2, 3),
+        "iota_sel": lambda: C.iota_sel(8),
+        "empty": lambda: C.empty(2, 8),
+        "from_rows": lambda: C.from_rows(np.zeros((3, 2), np.int64), 8),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_constructors()))
+def test_constructors_default_to_the_gpu(monkeypatch, name):
+    """Without a device argument a constructor asks for the card, and
+    raises without one, as build_sorted does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _constructors()[name]()

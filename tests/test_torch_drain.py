@@ -114,7 +114,7 @@ def _replay(arrays, fanouts, block=BLOCK, record_occupancy=False, branchy=True):
             return
         for t in range(fanouts[level]):
             dense, cnt = compact_rows(cols, (lane < count) & (cols[level] > t))
-            chunk = Chunk(dense, iota_sel(B), cnt)
+            chunk = Chunk(dense, iota_sel(B, "cpu"), cnt)
             thr = int(thresholds[level])
             passthrough = cnt >= thr or cnt >= B
             emitted, caches[level] = comp.compact(caches[level], chunk, thr, chunk_dense=True)
