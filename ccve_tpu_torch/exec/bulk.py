@@ -14,15 +14,14 @@ single level over a sorted table takes the count-side engine
 table takes `match_stats` at one level too. `bulk_materialize` expands
 level by level through `sorted_expand` or a hash table's candidate grid.
 Tables of int64 keys (a key span above 2^30) take the int64 builds of the
-sort-merge kernels on both sides.
+sort-merge kernels on both sides. A single-level count answers every key
+span: one of 2^62 or more (64-bit fingerprints, hashed ids) takes the
+generic totals of `sorted_match_totals`.
 
 The hash drains loop to bounds known at build time (an LP chain meets an
 empty slot within `max_run` slots, a CSR bucket holds at most `max_len`
 entries), so no step reads a flag back to the host; the LP ladder reads
 one overflow flag a call, which keeps its answer exact.
-
-Not ported yet: a single-level count over a sorted table whose key span
-reaches 2^62 (ROADMAP Queue 1, slice 3b); it raises `NotImplementedError`.
 """
 
 from __future__ import annotations

@@ -39,8 +39,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argtypes of every C entry point; each returns a cudaError_t as
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
-# same arguments, except the compaction and the drain (int32 planes only)
-# and the hash (int64 keys only).
+# same arguments, except those of one key type: the compaction, the drain,
+# the dense build counts and the key-only merge (int32), and the hash, the
+# chunk ranks and the generic and packed stats scans (int64).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
     "ccve_sort_tiles": [_P, _P, _L, _I, _P],
@@ -73,10 +74,19 @@ _ENTRY_POINTS["ccve_murmurhash64_i64"] = [_P, _P, _L, _P]
 _ENTRY_POINTS["ccve_drain_segment_i32"] = [_P] * 6 + [_L, _I, _I, _I, _I] + [_P] * 8
 # (table, m, keys, valid, n, mult, start, stream)
 _ENTRY_POINTS["ccve_chunk_rank_i64"] = [_P, _L, _P, _P, _L, _P, _P, _P]
+# (sk, st, L, scratch, mult, psum, stream)
+_ENTRY_POINTS["ccve_merge_scan_stats_i64"] = [_P, _P, _L, _P, _P, _P, _P]
+# (s, L, pay_bits, scratch, mult, psum, stream)
+_ENTRY_POINTS["ccve_merge_scan_stats_packed_i64"] = [_P, _L, _I, _P, _P, _P, _P]
+# (s, L, m, scratch, bc, stream)
+_ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _P, _P, _P]
+# (a, na, b, nb, y, stream)
+_ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {
     "ccve_merge_stats_scratch_bytes": [_L],
+    "ccve_merge_build_counts_scratch_bytes": [_L],
     "ccve_compact_scratch_bytes": [_L],
     "ccve_drain_scratch_bytes": [_I, _I],
 }

@@ -7,7 +7,10 @@ for int64 keys: the padded stream is sorted tile by tile (`sort_tiles_i32`,
 `sort_tiles_i64`, kernel csrc/sort_tiles.cu), then merge levels double the
 run length (`merge_level_i32`, `merge_level_i64`, kernel
 csrc/merge_level.cu) until runs reach 2^run_log or cover the stream.
-`sort_runs` drives the two for either key type.
+`sort_runs` drives the two for either key type. `merge_sorted_i32`
+(kernel csrc/merge_multi.cu, the key-only merge) is the counterpart of
+`ccve_tpu.kernels.bigsort.merge_sorted_i32`: two ascending int32 streams
+into one.
 
 The port's tile is 2^TILE_LOG = 8192 keys, one block's shared memory on
 the card (the TPU's 2^17 tile was sized for VMEM), for both key types. Every
@@ -149,3 +152,34 @@ def sort_runs_plain(
     if x.numel() % (1 << tile_log):
         raise ValueError(f"length {x.numel()} is not a multiple of 2^{tile_log}")
     return _ladder(x, run_log, tile_log, sort_tiles_plain, merge_level_plain)
+
+
+def merge_sorted_i32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`merge_sorted_i32` as torch.cat plus a stable sort, on any device."""
+    return torch.cat([a, b]).sort(stable=True).values
+
+
+def merge_sorted_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The ascending merge of two ascending int32 streams (either may be
+    empty; values may be any int32): int32[len(a) + len(b)], ties with A's
+    elements first. Every length takes the kernel: the JAX entry's
+    `lax.sort` below its 2^17 tile was a TPU tile-size workaround."""
+    _build.check_i32(a, "a")
+    _build.check_i32(b, "b")
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    if a.numel() + b.numel() >= 2**31:
+        raise ValueError(f"{a.numel()} + {b.numel()} values, the kernel takes < 2^31")
+    if a.device.type == "cpu":
+        return merge_sorted_i32_plain(a, b)
+    y = torch.empty(a.numel() + b.numel(), dtype=torch.int32, device=a.device)
+    if y.numel():
+        code = _build.load().ccve_merge_two_i32(
+            a.data_ptr(), a.numel(), b.data_ptr(), b.numel(), y.data_ptr(), _build.stream(a),
+        )
+        _build.check(code, "merge_sorted_i32")
+        merge_sorted_i32.launches += 1
+    return y
+
+
+merge_sorted_i32.launches = 0

@@ -1,5 +1,12 @@
-// Merge counts: bc[j] = the number of real probes p, over all sorted probe
-// runs, with p == b[j] - 1. One build for int32 streams, one for int64.
+// Build counts of the count side, two kernels.
+//
+//  - ccve_merge_counts_i32 / _i64, the merge counts: bc[j] = the number of
+//    real probes p, over all sorted probe runs, with p == b[j] - 1. One
+//    build for int32 streams, one for int64.
+//  - ccve_merge_build_counts_i32, the dense counts of one merged stream
+//    (below the merge counts' notes).
+//
+// The merge counts.
 //
 // Input: a buffer of probe runs, each of run_len keys (the last one may be
 // shorter) sorted ascending, whose first n_real keys are the real probes
@@ -34,7 +41,33 @@
 // no merge with the build stream either, so JAX's per-run limb merge has
 // no counterpart.
 
+// The dense counts. Input: one merged, ascending int32 stream s[0, L) of
+// `key' << 1 | tag`, builds odd (tag 1) and probes even, so a key's probes
+// precede its builds; INT32_MAX entries are phantom builds, which sort
+// last. Output: bc int32[m], bc[j] = the probes in the run of the j-th
+// build entry of the stream (table row j, for a pre-sorted table); build
+// entries past the m-th, the phantoms among them, are dropped.
+//
+// Replaces: ccve_tpu/kernels/merge_scan.py `_make_counts32_dense_kernel`
+// (entry `merge_scan_build_counts` :491), which scans [256, 128] tiles in
+// order, carrying the probe count and the run base in SMEM, and compacts
+// each tile's build counts through an in-register butterfly and a VMEM
+// ring flushed R rows at a time.
+//
+// What bounds it on an H100: device memory. Each of the two scan passes
+// reads the stream once (4 bytes an element) and the second writes bc
+// (4 bytes a build); a few operations an element.
+//
+// Design: seg_scan.cuh's two-pass block scan of (run start, probes since
+// the run start, builds since the stream start): the first is segmented,
+// the second is not and gives each build its rank. Pass 2 writes
+// bc[rank] directly, so the ring buffer, the butterfly compaction and the
+// carried cursor have no job: blocks run in any order and each output has
+// one writer.
+
 #include <cuda_runtime.h>
+
+#include "seg_scan.cuh"
 
 namespace {
 
@@ -88,6 +121,52 @@ int launch(const void* runs, long long run_len, long long n_real,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A segment of the dense counts' stream: whether it holds a run start, the
+// probes since its last run start (or over all of it), and all its builds.
+struct CountSeg {
+  int start;
+  int probes;
+  int builds;
+
+  static __device__ __forceinline__ CountSeg identity() {
+    return CountSeg{0, 0, 0};
+  }
+  static __device__ __forceinline__ CountSeg combine(const CountSeg& a,
+                                                     const CountSeg& b) {
+    return CountSeg{a.start | b.start, b.start ? b.probes : a.probes + b.probes,
+                    a.builds + b.builds};
+  }
+};
+
+struct DenseCounts {
+  using Seg = CountSeg;
+  struct Shared {
+    int s[seg_scan::kChunk];
+    int prev;
+  };
+  const int* s;
+  long long m;
+  int* bc;
+
+  __device__ int load(Shared& sh, long long base, long long L) const {
+    const long long left = L - base;
+    const int cnt = static_cast<int>(left < seg_scan::kChunk ? left : seg_scan::kChunk);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) sh.s[i] = s[base + i];
+    if (threadIdx.x == 0) sh.prev = base > 0 ? s[base - 1] : 0;
+    return cnt;
+  }
+  __device__ Seg element(const Shared& sh, int j, bool first) const {
+    const int x = sh.s[j];
+    const int prev = j ? sh.s[j - 1] : sh.prev;
+    const int build = x & 1;
+    return Seg{first || (x >> 1) != (prev >> 1), 1 - build, build};
+  }
+  __device__ void emit(const Shared& sh, int j, long long, const Seg& run) const {
+    const long long rank = static_cast<long long>(run.builds) - 1;
+    if ((sh.s[j] & 1) && rank < m) bc[rank] = run.probes;
+  }
+};
+
 }  // namespace
 
 extern "C" int ccve_merge_counts_i32(const void* runs, long long run_len,
@@ -100,4 +179,19 @@ extern "C" int ccve_merge_counts_i64(const void* runs, long long run_len,
                                      long long n_real, const void* b64,
                                      long long m, void* bc, void* stream) {
   return launch<long long>(runs, run_len, n_real, b64, m, bc, stream);
+}
+
+// Bytes of scratch the dense counts need for a stream of L elements.
+extern "C" long long ccve_merge_build_counts_scratch_bytes(long long L) {
+  return seg_scan::scratch_bytes<CountSeg>(L);
+}
+
+// s: int32[L]; bc: int32[m], zeroed by the caller (ranks the stream does
+// not reach stay 0).
+extern "C" int ccve_merge_build_counts_i32(const void* s, long long L,
+                                           long long m, void* scratch,
+                                           void* bc, void* stream) {
+  if (m < 0 || m > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const DenseCounts p{static_cast<const int*>(s), m, static_cast<int*>(bc)};
+  return seg_scan::run(p, L, scratch, static_cast<cudaStream_t>(stream));
 }

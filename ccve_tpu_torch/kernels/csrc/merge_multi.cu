@@ -7,6 +7,7 @@
 //    second run, or none.
 //  - ccve_merge_two_multi_i32: the unequal merge of two ascending streams
 //    A[0, na) and B[0, nb) into one of na + nb (either may be empty).
+//  - ccve_merge_two_i32: the same merge of int32 keys with no planes.
 //
 // Both are stable: at equal keys A's elements come first, and each
 // stream keeps its own order, so a ladder over stably sorted tiles is a
@@ -38,6 +39,17 @@
 // reversed, and empty streams and the ragged last pair fall out of the
 // split arithmetic. The int64 key is native (no limbs); the shared staging
 // grows from 16 KB to 24 KB and stays static, under the 48 KB limit.
+//
+// The key-only merge, ccve_merge_two_i32, replaces ccve_tpu/kernels/
+// bigsort.py `_make_bitonic_merge_kernel` as `merge_sorted_i32` (:664)
+// launches it through `_merge_two_padded` (:607): one bitonic lower-half
+// merge-path level over A and B, with B stored descending, the output's
+// orientation complemented by `out_m`, the tile splits from the XLA
+// bisection `_merge_splits_two` (:550), and `lax.sort` in its place below
+// 2^17 elements or when a side is empty. Here it is merge_two_multi with
+// zero planes: each launch reads both inputs and writes the output once,
+// 8 bytes an element, so device memory bounds it. Any length takes the
+// kernel, and values may be any int32: nothing is a sentinel.
 
 #include <cuda_runtime.h>
 
@@ -132,7 +144,7 @@ __device__ void merge_chunk(const K* a, const InPlanes& av, long long la,
   __syncthreads();
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
     y[out0 + i] = sh.key[i];
-    const int e = sh.src[i];
+    const int e = sh.src[i];  // unread when P == 0
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       yv.p[p][out0 + i] = e >= 0 ? av.p[p][a0 + e] : bv.p[p][b0 + ~e];
@@ -293,6 +305,19 @@ extern "C" int ccve_merge_two_multi_i32(const void* ak, const void* av0,
                                         void* stream) {
   return two_planes<int>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk,
                          yv0, yv1, yv2, n_planes, stream);
+}
+
+// a: int32[na], b: int32[nb] (either may be empty); y: int32[na + nb].
+extern "C" int ccve_merge_two_i32(const void* a, long long na, const void* b,
+                                  long long nb, void* y, void* stream) {
+  if (na < 0 || nb < 0 || na + nb > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (na + nb == 0) return 0;
+  return launch_two<int, 0>(static_cast<const int*>(a), InPlanes{}, na,
+                            static_cast<const int*>(b), InPlanes{}, nb,
+                            static_cast<int*>(y), OutPlanes{},
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ccve_merge_two_multi_i64(const void* ak, const void* av0,

@@ -1,13 +1,26 @@
-// Merge stats: per-probe match count and matched-payload sum over the
-// merged sort-merge stream, written straight into probe-row order.
+// Merge stats: per-probe match count and matched-payload sum over a
+// sorted sort-merge stream, three stream forms on one segmented scan
+// (seg_scan.cuh).
 //
-// Input: the merged, ascending stream s[0, L) of `key' << 1 | tag` (int32,
-// or int64 in a second build), builds even (tag 0, so they precede the
-// probes of their key) and probes odd, with an int32 cargo plane v: a
-// build's payload (any sign) or a probe's row id in [0, n). The key type's
-// maximum is sort padding, never counted as a probe.
-// Output: mult int32[n] and psum int64[n]: for probe row r, the number of
-// builds with its key and the sum of their payloads.
+//  - ccve_merge_stats_i32 / _i64: the merged stream s[0, L) of
+//    `key' << 1 | tag` (int32, or int64), builds even (tag 0, so they
+//    precede the probes of their key) and probes odd, with an int32 cargo
+//    plane v: a build's payload (any sign) or a probe's row id in [0, n).
+//    The key type's maximum is sort padding, never counted as a probe.
+//    Output mult int32[n] and psum int64[n], written straight into probe
+//    row order: for probe row r, the number of builds with its key and the
+//    sum of their payloads.
+//  - ccve_merge_scan_stats_i64: the generic form, a sorted stream of
+//    untagged int64 keys sk[0, L) (any value, INT64_MIN and INT64_MAX
+//    included) with the tagged int64 payload st: a build's payload as
+//    pay * 2 + 1, a probe 0. A probe counts the builds of its key that
+//    precede it, so the sort puts builds first at equal keys. Output per
+//    element, in stream order: mult int32[L] and psum int64[L], zero at
+//    builds.
+//  - ccve_merge_scan_stats_packed_i64: the packed form, one sorted int64
+//    stream s[0, L) of `key' << pay_bits | field` (2 <= pay_bits <= 31):
+//    a build's field is even, pay * 2, a probe's the all-ones tag, so a
+//    key's builds sort before its probes. Output per element as above.
 //
 // Replaces: ccve_tpu/kernels/merge_scan.py `_make_stats32_kernel` (entry
 // `merge_scan_stats32`), which scans the stream tile by tile in order,
@@ -15,38 +28,43 @@
 // limbs and the run bases (a cummax, so payloads must be non-negative)
 // from one grid step to the next, and emits per-position planes plus an
 // unsort key that a second multi-plane sort turns into row order. The
-// int64 build replaces `_kernel` (merge_scan.py:47, through `_call` and
-// `merge_scan_stats`) on the wide stats path (ops/sort_merge.py:504): the
-// same scan over (hi, lo) int32 limbs of the untagged key and of a tagged
-// int64 payload (pay * 2 + 1 for builds), with the same cummax base.
+// int64 builds replace `_kernel` (merge_scan.py:47, through `_call`): on
+// the wide stats path (ops/sort_merge.py:504) as the row-order form, and
+// through its generic entry `merge_scan_stats(sk, st)` (merge_scan.py:166,
+// the totals of a key span of 2^62 or more) as the generic form: the same
+// scan over (hi, lo) int32 limbs of the untagged key and of the tagged
+// payload, with the same cummax base. The packed form replaces
+// `_make_packed_kernel` (merge_scan.py:62, entry `merge_scan_stats_packed`
+// :736), which decodes key' and field from (hi, lo) limbs in-kernel.
 //
 // What bounds it on an H100: device memory. Each of the two scan passes
-// reads the stream (8 bytes per element for int32 keys, 12 for int64) and
-// the last one scatters 12 bytes per probe; the scans themselves are a few
-// operations per element.
+// reads the stream (8 bytes an element for int32 keys with their plane,
+// 12 for int64 keys, 16 for the generic form, 8 for the packed one); the
+// last pass scatters 12 bytes a probe (row form) or writes 12 bytes an
+// element (the per-element forms). The scans are a few operations an
+// element.
 //
 // Design: a segmented sum, (count, payload sum) restarting at each key
-// run, taken with a two-pass block scan, because CUDA blocks run in no
-// order and nothing carries from one block to the next. Pass 1 reduces
-// each block's chunk to its segment aggregate; a single block then scans
-// the aggregates in place into each block's exclusive prefix; pass 2
-// rescans each chunk from its prefix. A segmented scan is exact for
-// payloads of any sign, so the cummax trick and its non-negative
-// restriction are gone. Every probe's row id is unique, so pass 2
-// scatters mult and psum to out[row id] without atomics, and the TPU's
-// unsort sort, its unsort-key plane, the packed psum << mult_bits | mult
-// plane and the 64-bit limbs have no job (psum is native int64). The
-// int64 build widens the staged keys: 24 KB of static shared memory for
-// the chunk plus 8 KB for the scan buffer, under the 48 KB limit.
+// run, by seg_scan.cuh's two-pass block scan. A segmented scan is exact
+// for payloads of any sign, so the cummax trick and its non-negative
+// restriction are gone, and psum is native int64: the (hi, lo) limbs have
+// no job. The row form scatters to out[row id] without atomics (each probe
+// row id is unique), so the TPU's unsort sort, its unsort-key plane and
+// the packed psum << mult_bits | mult plane have no job either. The
+// generic form takes any length and no padding: INT64_MAX is a real key
+// there, and a probe on it counts. The packed form's pay_bits is a kernel
+// argument. Static shared memory: the staged chunk (16 KB for int32 keys
+// with their plane, 24 KB for int64 ones, 32 KB for the generic form's
+// two int64 planes, 16 KB for the packed form) plus 8 KB for the scan
+// buffer, under the 48 KB limit.
 
 #include <cuda_runtime.h>
 
+#include "seg_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kChunk = kThreads * kItems;  // stream elements per block
-constexpr int kScanThreads = 1024;
+using seg_scan::kChunk;
 
 // Sort padding: the key type's maximum.
 template <typename K>
@@ -62,176 +80,146 @@ struct Pad<long long> {
 
 // A segment of the stream: whether it holds a run start, and the build
 // count and payload sum since its last run start (or over all of it).
-struct Seg {
+struct StatSeg {
   int start;
   int count;
   long long sum;
+
+  static __device__ __forceinline__ StatSeg identity() {
+    return StatSeg{0, 0, 0};
+  }
+  static __device__ __forceinline__ StatSeg combine(const StatSeg& a,
+                                                    const StatSeg& b) {
+    return StatSeg{a.start | b.start, b.start ? b.count : a.count + b.count,
+                   b.start ? b.sum : a.sum + b.sum};
+  }
 };
 
-__device__ __forceinline__ Seg combine(const Seg& a, const Seg& b) {
-  Seg r;
-  r.start = a.start | b.start;
-  r.count = b.start ? b.count : a.count + b.count;
-  r.sum = b.start ? b.sum : a.sum + b.sum;
-  return r;
-}
+// The row form: `key' << 1 | tag` keys with an int32 cargo plane.
+template <typename K>
+struct RowStats {
+  using Seg = StatSeg;
+  struct Shared {
+    K key[kChunk];
+    int val[kChunk];
+    K prev;  // the key just before the chunk (unused for chunk 0)
+  };
+  const K* s;
+  const int* v;
+  long long n;
+  int* mult;
+  long long* psum;
 
-__device__ __forceinline__ Seg identity() { return Seg{0, 0, 0}; }
-
-// Inclusive and exclusive scans of one Seg per thread across the block.
-// `buf` holds 2 * blockDim.x entries; the scan ends with a barrier, so the
-// caller may reuse it.
-__device__ void block_scan(Seg x, Seg* buf, Seg& incl, Seg& excl) {
-  const int t = threadIdx.x;
-  const int n = blockDim.x;
-  int in = 0;
-  buf[t] = x;
-  __syncthreads();
-  for (int off = 1; off < n; off <<= 1) {
-    Seg v = buf[in * n + t];
-    if (t >= off) v = combine(buf[in * n + t - off], v);
-    buf[(in ^ 1) * n + t] = v;
-    __syncthreads();
-    in ^= 1;
+  __device__ int load(Shared& sh, long long base, long long L) const {
+    const int cnt = static_cast<int>(L - base < kChunk ? L - base : kChunk);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      sh.key[i] = s[base + i];
+      sh.val[i] = v[base + i];
+    }
+    if (threadIdx.x == 0) sh.prev = base > 0 ? s[base - 1] : 0;
+    return cnt;
   }
-  incl = buf[in * n + t];
-  excl = t ? buf[in * n + t - 1] : identity();
-  __syncthreads();
-}
-
-template <typename K>
-struct Chunk {
-  K key[kChunk];
-  int val[kChunk];
-  K prev;  // packed value just before the chunk (unused for chunk 0)
-};
-
-// Stage the block's chunk of (s, v) in shared memory; returns its length.
-template <typename K>
-__device__ int load_chunk(const K* s, const int* v, long long L, Chunk<K>& c) {
-  const long long base = static_cast<long long>(blockIdx.x) * kChunk;
-  const int cnt = static_cast<int>(L - base < kChunk ? L - base : kChunk);
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    c.key[i] = s[base + i];
-    c.val[i] = v[base + i];
+  __device__ Seg element(const Shared& sh, int j, bool first) const {
+    const K key = sh.key[j];
+    const K prev = j ? sh.key[j - 1] : sh.prev;
+    const bool build = (key & 1) == 0;
+    return Seg{first || (key >> 1) != (prev >> 1), build ? 1 : 0,
+               build ? static_cast<long long>(sh.val[j]) : 0LL};
   }
-  if (threadIdx.x == 0) c.prev = base > 0 ? s[base - 1] : 0;
-  __syncthreads();
-  return cnt;
-}
-
-// Element j of the chunk as a one-element segment.
-template <typename K>
-__device__ __forceinline__ Seg element(const Chunk<K>& c, int j) {
-  const K s = c.key[j];
-  const K prev = j ? c.key[j - 1] : c.prev;
-  const bool first = j == 0 && blockIdx.x == 0;
-  const bool build = (s & 1) == 0;
-  return Seg{first || (s >> 1) != (prev >> 1), build ? 1 : 0,
-             build ? static_cast<long long>(c.val[j]) : 0LL};
-}
-
-// The segment of this thread's kItems elements.
-template <typename K>
-__device__ Seg thread_segment(const Chunk<K>& c, int cnt) {
-  Seg a = identity();
-  const int j0 = static_cast<int>(threadIdx.x) * kItems;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (j0 + k < cnt) a = combine(a, element(c, j0 + k));
-  }
-  return a;
-}
-
-template <typename K>
-__global__ void stats_reduce_kernel(const K* __restrict__ s,
-                                    const int* __restrict__ v, long long L,
-                                    Seg* __restrict__ agg) {
-  __shared__ Chunk<K> c;
-  __shared__ Seg buf[2 * kThreads];
-  const int cnt = load_chunk(s, v, L, c);
-  Seg incl, excl;
-  block_scan(thread_segment(c, cnt), buf, incl, excl);
-  if (threadIdx.x == blockDim.x - 1) agg[blockIdx.x] = incl;
-}
-
-// One block: agg[b] becomes the exclusive prefix of blocks [0, b).
-__global__ void stats_scan_blocks_kernel(Seg* __restrict__ agg,
-                                         long long n_blocks) {
-  __shared__ Seg buf[2 * kScanThreads];
-  __shared__ Seg tile_total;
-  Seg carry = identity();
-  for (long long off = 0; off < n_blocks; off += blockDim.x) {
-    const long long i = off + threadIdx.x;
-    const Seg x = i < n_blocks ? agg[i] : identity();
-    Seg incl, excl;
-    block_scan(x, buf, incl, excl);
-    if (i < n_blocks) agg[i] = combine(carry, excl);
-    if (threadIdx.x == blockDim.x - 1) tile_total = incl;
-    __syncthreads();
-    carry = combine(carry, tile_total);
-    __syncthreads();
-  }
-}
-
-template <typename K>
-__global__ void stats_apply_kernel(const K* __restrict__ s,
-                                   const int* __restrict__ v, long long L,
-                                   const Seg* __restrict__ prefix,
-                                   int* __restrict__ mult,
-                                   long long* __restrict__ psum, long long n) {
-  __shared__ Chunk<K> c;
-  __shared__ Seg buf[2 * kThreads];
-  const int cnt = load_chunk(s, v, L, c);
-  Seg incl, excl;
-  block_scan(thread_segment(c, cnt), buf, incl, excl);
-  Seg run = combine(prefix[blockIdx.x], excl);
-  const int j0 = static_cast<int>(threadIdx.x) * kItems;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = j0 + k;
-    if (j < cnt) {
-      run = combine(run, element(c, j));
-      const K key = c.key[j];
-      const int row = c.val[j];
-      if ((key & 1) && key != Pad<K>::value && row >= 0 && row < n) {
-        mult[row] = run.count;
-        psum[row] = run.sum;
-      }
+  __device__ void emit(const Shared& sh, int j, long long, const Seg& run) const {
+    const K key = sh.key[j];
+    const int row = sh.val[j];
+    if ((key & 1) && key != Pad<K>::value && row >= 0 && row < n) {
+      mult[row] = run.count;
+      psum[row] = run.sum;
     }
   }
-}
+};
+
+// The generic form: untagged int64 keys, tagged int64 payloads.
+struct GenericStats {
+  using Seg = StatSeg;
+  struct Shared {
+    long long key[kChunk];
+    long long tag[kChunk];
+    long long prev;
+  };
+  const long long* sk;
+  const long long* st;
+  int* mult;
+  long long* psum;
+
+  __device__ int load(Shared& sh, long long base, long long L) const {
+    const int cnt = static_cast<int>(L - base < kChunk ? L - base : kChunk);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      sh.key[i] = sk[base + i];
+      sh.tag[i] = st[base + i];
+    }
+    if (threadIdx.x == 0) sh.prev = base > 0 ? sk[base - 1] : 0;
+    return cnt;
+  }
+  __device__ Seg element(const Shared& sh, int j, bool first) const {
+    const long long prev = j ? sh.key[j - 1] : sh.prev;
+    const long long tag = sh.tag[j];
+    const bool build = (tag & 1) != 0;
+    return Seg{first || sh.key[j] != prev, build ? 1 : 0,
+               build ? (tag >> 1) : 0LL};  // arithmetic: payloads of any sign
+  }
+  __device__ void emit(const Shared& sh, int j, long long i, const Seg& run) const {
+    const bool build = (sh.tag[j] & 1) != 0;
+    mult[i] = build ? 0 : run.count;
+    psum[i] = build ? 0 : run.sum;
+  }
+};
+
+// The packed form: key' << pay_bits | field in one int64.
+struct PackedStats {
+  using Seg = StatSeg;
+  struct Shared {
+    long long s[kChunk];
+    long long prev;
+  };
+  const long long* s;
+  int pay_bits;
+  int* mult;
+  long long* psum;
+
+  __device__ int load(Shared& sh, long long base, long long L) const {
+    const int cnt = static_cast<int>(L - base < kChunk ? L - base : kChunk);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) sh.s[i] = s[base + i];
+    if (threadIdx.x == 0) sh.prev = base > 0 ? s[base - 1] : 0;
+    return cnt;
+  }
+  __device__ Seg element(const Shared& sh, int j, bool first) const {
+    const long long x = sh.s[j];
+    const long long prev = j ? sh.s[j - 1] : sh.prev;
+    const long long field = x & ((1LL << pay_bits) - 1);
+    const bool build = (field & 1) == 0;
+    return Seg{first || (x >> pay_bits) != (prev >> pay_bits), build ? 1 : 0,
+               build ? (field >> 1) : 0LL};
+  }
+  __device__ void emit(const Shared& sh, int j, long long i, const Seg& run) const {
+    const bool build = (sh.s[j] & 1) == 0;  // the field's low bit
+    mult[i] = build ? 0 : run.count;
+    psum[i] = build ? 0 : run.sum;
+  }
+};
 
 template <typename K>
-int launch(const void* s, const void* v, long long L, long long n,
-           void* scratch, void* mult, void* psum, void* stream) {
-  if (L < 0 || L > 0x7FFFFFFFLL || n < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (L == 0) return 0;
-  const long long blocks = (L + kChunk - 1) / kChunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const K* sp = static_cast<const K*>(s);
-  const int* vp = static_cast<const int*>(v);
-  Seg* agg = static_cast<Seg*>(scratch);
-  stats_reduce_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      sp, vp, L, agg);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_scan_blocks_kernel<<<1, kScanThreads, 0, st>>>(agg, blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_apply_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      sp, vp, L, agg, static_cast<int*>(mult), static_cast<long long*>(psum),
-      n);
-  return static_cast<int>(cudaGetLastError());
+int row_stats(const void* s, const void* v, long long L, long long n,
+              void* scratch, void* mult, void* psum, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const RowStats<K> p{static_cast<const K*>(s), static_cast<const int*>(v), n,
+                      static_cast<int*>(mult), static_cast<long long*>(psum)};
+  return seg_scan::run(p, L, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// Bytes of scratch the wrapper allocates for a stream of L elements.
+// Bytes of scratch the wrapper allocates for a stream of L elements (every
+// form of this file).
 extern "C" long long ccve_merge_stats_scratch_bytes(long long L) {
-  return ((L + kChunk - 1) / kChunk) * static_cast<long long>(sizeof(Seg));
+  return seg_scan::scratch_bytes<StatSeg>(L);
 }
 
 // s: int32[L] or int64[L]; v: int32[L]; mult: int32[n], psum: int64[n]
@@ -240,11 +228,35 @@ extern "C" long long ccve_merge_stats_scratch_bytes(long long L) {
 extern "C" int ccve_merge_stats_i32(const void* s, const void* v, long long L,
                                     long long n, void* scratch, void* mult,
                                     void* psum, void* stream) {
-  return launch<int>(s, v, L, n, scratch, mult, psum, stream);
+  return row_stats<int>(s, v, L, n, scratch, mult, psum, stream);
 }
 
 extern "C" int ccve_merge_stats_i64(const void* s, const void* v, long long L,
                                     long long n, void* scratch, void* mult,
                                     void* psum, void* stream) {
-  return launch<long long>(s, v, L, n, scratch, mult, psum, stream);
+  return row_stats<long long>(s, v, L, n, scratch, mult, psum, stream);
+}
+
+// sk, st: int64[L]; mult: int32[L], psum: int64[L], every element written.
+extern "C" int ccve_merge_scan_stats_i64(const void* sk, const void* st,
+                                         long long L, void* scratch,
+                                         void* mult, void* psum,
+                                         void* stream) {
+  const GenericStats p{static_cast<const long long*>(sk),
+                       static_cast<const long long*>(st),
+                       static_cast<int*>(mult), static_cast<long long*>(psum)};
+  return seg_scan::run(p, L, scratch, static_cast<cudaStream_t>(stream));
+}
+
+// s: int64[L]; 2 <= pay_bits <= 31; mult: int32[L], psum: int64[L].
+extern "C" int ccve_merge_scan_stats_packed_i64(const void* s, long long L,
+                                                int pay_bits, void* scratch,
+                                                void* mult, void* psum,
+                                                void* stream) {
+  if (pay_bits < 2 || pay_bits > 31) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PackedStats p{static_cast<const long long*>(s), pay_bits,
+                      static_cast<int*>(mult), static_cast<long long*>(psum)};
+  return seg_scan::run(p, L, scratch, static_cast<cudaStream_t>(stream));
 }

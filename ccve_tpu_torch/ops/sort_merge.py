@@ -20,14 +20,23 @@ to the host. Every kernel on these paths has an int32 and an int64 build.
    or every matched (row, key, payload) triple, compacted
    (kernels.compact).
 
+A table whose key span reaches 2^62 (64-bit fingerprints, hashed ids) has
+no packed form: its totals sort build ∪ probe keys with the tagged payloads
+(one stable int64 torch.sort) and scan them per element
+(kernels.merge_scan.merge_scan_stats), and its build counts take torch
+scans, as the JAX package's generic branches do. A probe stream of at most
+2^SMALL_PROBE_LOG int32 keys skips the tile sort's plan: it is sorted
+whole, merged with the build stream (kernels.bigsort.merge_sorted_i32) and
+counted in one scan (kernels.merge_scan.merge_scan_build_counts).
+
 The stats side's kernel route needs `pay32` (payloads ride an int32
 plane) and runs on int32 keys when key_bits <= 29 (the packed probe stays
 under the INT32_MAX padding), else on int64 keys when `span62`; other
 tables take the generic route, one stable int64 torch.sort of build ∪
-probe plus scans. Every route is exact for payloads of any sign.
-`sorted_expand`'s kernel route is int32 only, as the JAX package's. Not
-ported yet: the count side of tables whose key span reaches 2^62 (ROADMAP
-Queue 1, slice 3b); it raises `NotImplementedError`.
+probe plus scans. Every route is exact for payloads of any sign, except
+that the full-range totals tag payloads as pay * 2 + 1 in an int64, which
+holds payloads in [-2^62, 2^62), as the JAX package's generic branch does.
+`sorted_expand`'s kernel route is int32 only, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -170,6 +179,10 @@ I64_MAX = 2**63 - 1
 # Tuning hook: force the count-side ladder's skipped-level count (the
 # 0.8 * n_pad / m rule otherwise).
 SKIP_LEVELS_OVERRIDE: int | None = None
+# int32 probe streams of at most 2^SMALL_PROBE_LOG keys take the
+# small-probe route of `_count_side_bc` (the JAX package's CHUNK_LOG); read
+# per call, so a test can move it
+SMALL_PROBE_LOG = 13
 
 
 def count_side_plan(n: int, m: int, tile_log: int):
@@ -198,15 +211,21 @@ def _count_side_bc(p: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
     one key type, int32 or int64 (p = key' << 1 probes, b = key' << 1 | 1
     builds, b ascending).
 
-    Every n and both key types take the same route: pad to a tile
-    multiple with the key type's maximum, tile sort, the merge levels the
-    plan keeps, then the counts over all runs, restricted to the n real
-    probes (so padding is never counted). The JAX package's small-n branch
-    (n <= 2^13) has no job with the port's tile; nor have its int64
-    routes' limb planes, per-run limb merges, split-plane ladders and tie
-    fixup, which exist because the TPU has no 64-bit lanes."""
-    tile_log = bigsort.TILE_LOG  # read per call, so a test can shrink it
+    An int32 probe stream of at most 2^SMALL_PROBE_LOG keys (a point or
+    IN-list lookup) is sorted whole, merged with the build stream and
+    counted in one scan over the merged stream, as the JAX package's
+    small-n branch does. Every other stream, of either key type, is padded
+    to a tile multiple with the key type's maximum, tile sorted, merged
+    for the levels the plan keeps, then counted over all runs, restricted
+    to the n real probes (so padding is never counted). The JAX package's
+    int64 routes' limb planes, per-run limb merges, split-plane ladders
+    and tie fixup have no job: they exist because the TPU has no 64-bit
+    lanes."""
     n = p.numel()
+    if p.dtype == torch.int32 and n <= 1 << SMALL_PROBE_LOG:
+        s = bigsort.merge_sorted_i32(p.sort().values, b)
+        return merge_scan.merge_scan_build_counts(s, m)
+    tile_log = bigsort.TILE_LOG  # read per call, so a test can shrink it
     n_pad, run_log = count_side_plan(n, m, tile_log)
     padded = torch.cat([p, p.new_full((n_pad - n,), bigsort.PAD[p.dtype])])
     runs = bigsort.sort_runs(padded, run_log, tile_log)
@@ -283,19 +302,40 @@ def stats_pack64_streams(table: SortedTable, probe_keys: torch.Tensor):
     return b.contiguous(), (p | 1).contiguous()
 
 
-def _count_streams(table: SortedTable, probe_keys: torch.Tensor, what: str):
+def _count_streams(table: SortedTable, probe_keys: torch.Tensor):
     """(p, b) of the count side: int32 streams when the table has
-    `pack32`, else int64 streams when its key span is below 2^62."""
+    `pack32`, else int64 streams (the table's key span is below 2^62)."""
     if table.pack32 is not None:
         return pack32_streams(table, probe_keys)
-    if table.span62:
-        return pack64_streams(table, probe_keys)
-    raise NotImplementedError(
-        f"{what}: the table's key span reaches 2^62, so `key' << 1` does "
-        "not fit an int64; the generic totals (the JAX package's int64 "
-        "sort plus merge_scan_stats) are ROADMAP Queue 1, slice 3b, not "
-        "ported yet"
-    )
+    return pack64_streams(table, probe_keys)
+
+
+def _full_range_build_counts(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
+    """`sorted_build_counts` of a table whose key span reaches 2^62: one
+    stable sort of probe ∪ build keys (probes first at equal keys), then
+    each build's run's probes by torch scans; the j-th build of the sorted
+    stream is table row j. The JAX package's general path, with no kernel,
+    as there."""
+    m, n = table.keys.numel(), probe.numel()
+    keys = torch.cat([probe.to(torch.int64), table.keys])
+    is_build = torch.arange(n + m, device=table.device) >= n
+    sk, order = keys.sort(stable=True)
+    return merge_scan.dense_build_counts(sk, is_build[order], m)
+
+
+def _full_range_totals(table: SortedTable, probe: torch.Tensor):
+    """`sorted_match_totals` of a table whose key span reaches 2^62: one
+    stable sort of build ∪ probe keys carrying the tagged payloads
+    (pay * 2 + 1 builds, 0 probes; builds first at equal keys), then
+    #15's generic scan per element and the two sums."""
+    n = probe.numel()
+    keys = torch.cat([table.keys, probe.to(torch.int64)])
+    tagged = torch.cat([
+        table.payloads * 2 + 1, torch.zeros(n, dtype=torch.int64, device=table.device)
+    ])
+    sk, order = keys.sort(stable=True)
+    mult, psum = merge_scan.merge_scan_stats(sk, tagged[order])
+    return mult.to(torch.int64).sum(), psum.sum()
 
 
 def _probe_on(table: SortedTable, probe_keys) -> torch.Tensor:
@@ -313,21 +353,26 @@ def sorted_build_counts(table: SortedTable, probe_keys) -> torch.Tensor:
     probe = _probe_on(table, probe_keys)
     if not table.keys.numel():
         return torch.zeros(0, dtype=torch.int32, device=table.device)
-    p, b = _count_streams(table, probe, "sorted_build_counts")
+    if table.pack32 is None and not table.span62:
+        return _full_range_build_counts(table, probe)
+    p, b = _count_streams(table, probe)
     return _count_side_bc(p, b, table.keys.numel())
 
 
 def sorted_match_totals(table: SortedTable, probe_keys):
     """(match count, matched-payload sum) of a single-level join, both
     int64 scalars on the table's device: the count side on int32 streams
-    (`pack32`) or int64 streams (key span below 2^62). Exact for negative
-    payloads: they never enter the sort, and the dot carries the sign. An
-    empty table gives (0, 0)."""
+    (`pack32`) or int64 streams (key span below 2^62), exact for negative
+    payloads (they never enter the sort, and the dot carries the sign);
+    for a key span of 2^62 or more, the generic totals, exact for payloads
+    in [-2^62, 2^62). An empty table gives (0, 0)."""
     probe = _probe_on(table, probe_keys)
     if not table.keys.numel():
         zero = torch.zeros((), dtype=torch.int64, device=table.device)
         return zero, zero.clone()
-    p, b = _count_streams(table, probe, "sorted_match_totals")
+    if table.pack32 is None and not table.span62:
+        return _full_range_totals(table, probe)
+    p, b = _count_streams(table, probe)
     bc = _count_side_bc(p, b, table.keys.numel()).to(torch.int64)
     return bc.sum(), (bc * table.payloads).sum()
 
@@ -382,27 +427,6 @@ def stats_key_type(table: SortedTable) -> torch.dtype | None:
     return torch.int64 if table.span62 else None
 
 
-def _run_starts(keys: torch.Tensor) -> torch.Tensor:
-    starts = torch.ones(keys.numel(), dtype=torch.bool, device=keys.device)
-    starts[1:] = keys[1:] != keys[:-1]
-    return starts
-
-
-def _segment_base(flags: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """`values` at each position's latest flagged position (0 before the
-    first): the copy-last scan. A cumsum numbers the flags, a scatter
-    records where each one sits, and a gather reads it back; no step
-    synchronises with the host. (The cummax of where(flags, position, -1)
-    gives the same positions, but torch.cummax takes 51 ms for 17M int64
-    on an H100 against 1.5 ms for this form.)"""
-    n = flags.numel()
-    seg = flags.cumsum(0) - 1  # the number of flags up to here, less one
-    where_flag = torch.zeros(n + 1, dtype=torch.int64, device=flags.device)
-    # unflagged positions all write the spare slot n, which is never read
-    where_flag.scatter_(0, torch.where(flags, seg, n), torch.arange(n, device=flags.device))
-    return torch.where(seg >= 0, values[where_flag[seg.clamp(min=0)]], 0)
-
-
 def merged_stream(table: SortedTable, probe_keys, tile_log=None, route: Route = KERNELS):
     """The kernel route's merged stream (s int32 or int64[n + m], v
     int32[n + m]): the packed probes sorted with their row ids, merged with
@@ -446,9 +470,9 @@ def _merged_stats(table: SortedTable, probe: torch.Tensor):
     count = ib.cumsum(0)
     bpay = torch.where(is_build, spay, 0)
     total = bpay.cumsum(0)
-    starts = _run_starts(sk)
-    mult = torch.where(is_build, 0, count - _segment_base(starts, count - ib))
-    psum = torch.where(is_build, 0, total - _segment_base(starts, total - bpay))
+    starts = merge_scan.run_starts(sk)
+    mult = torch.where(is_build, 0, count - merge_scan.segment_base(starts, count - ib))
+    psum = torch.where(is_build, 0, total - merge_scan.segment_base(starts, total - bpay))
     return mult, psum, srow, is_build, sk, spay
 
 
@@ -499,7 +523,7 @@ def rank_table(table: SortedTable) -> SortedTable:
     the static fields are recomputed for the index payloads."""
     m = table.keys.numel()
     idx = torch.arange(m, dtype=torch.int64, device=table.device)
-    payloads = torch.where(_run_starts(table.keys), idx, 0)
+    payloads = torch.where(merge_scan.run_starts(table.keys), idx, 0)
     pack = None
     if table.pack32 is not None and m > 0:
         kmin, key_bits = table.pack32
@@ -554,12 +578,12 @@ def _candidates(is_build, starts, cargo, fan_out: int):
     which a copy-last scan from the f-th build carries forward."""
     ib = is_build.to(torch.int64)
     count = ib.cumsum(0)
-    ordinal = count - _segment_base(starts, count - ib)  # build: its 1-based
+    ordinal = count - merge_scan.segment_base(starts, count - ib)  # build: its 1-based
     #                                  place in the run; probe: the run's builds
     total = torch.where(is_build, 0, ordinal).sum()
     pays, valid = [], []
     for f in range(1, fan_out + 1):
-        pays.append(_segment_base(is_build & (ordinal == f), cargo))
+        pays.append(merge_scan.segment_base(is_build & (ordinal == f), cargo))
         valid.append(~is_build & (ordinal >= f))
     return total, pays, valid
 
@@ -576,7 +600,7 @@ def expand_candidates(
     is_build = (s & 1) == 0
     key = s >> 1
     fan_out = max(int(table.max_mult), 1)
-    total, pays, valid = _candidates(is_build, _run_starts(key), v, fan_out)
+    total, pays, valid = _candidates(is_build, merge_scan.run_starts(key), v, fan_out)
     planes = torch.stack([v.repeat(fan_out), key.repeat(fan_out), torch.cat(pays)])
     return planes, torch.cat(valid), total
 
@@ -615,7 +639,7 @@ def sorted_expand(
         )
     fan_out = max(int(table.max_mult), 1)
     _, _, srow, is_build, sk, spay = _merged_stats(table, probe)
-    total, pays, valid = _candidates(is_build, _run_starts(sk), spay, fan_out)
+    total, pays, valid = _candidates(is_build, merge_scan.run_starts(sk), spay, fan_out)
     mask = torch.cat(valid)
     return _fit(
         srow.repeat(fan_out)[mask], sk.repeat(fan_out)[mask], torch.cat(pays)[mask],

@@ -74,6 +74,7 @@ def test_shrunken_tile_many_runs(monkeypatch):
 @pytest.mark.parametrize("skip", [0, 1, 100])
 def test_skip_levels_override(monkeypatch, skip):
     monkeypatch.setattr(bigsort, "TILE_LOG", 6)
+    monkeypatch.setattr(sm, "SMALL_PROBE_LOG", 6)  # 3000 probes: the tile route
     monkeypatch.setattr(sm, "SKIP_LEVELS_OVERRIDE", skip)
     keys, payloads = gen_rhs_table(500, 1)
     probe = np.random.default_rng(skip).integers(0, 520, 3000)
@@ -126,10 +127,9 @@ def test_build_sorted_static_fields_match_jax(keys, payloads):
 
 
 def test_unported_branches_raise():
-    """The count side of a key span of 2^62 or more (slice 3b) raises, and
-    so does a table of no known type. Wide tables (span past 2^30, below
-    2^62), an empty table, N-level joins and the hash tables are ported:
-    they answer."""
+    """A table of no known type raises. Wide tables (span past 2^30, below
+    2^62), full-range tables (span of 2^62 or more), an empty table,
+    N-level joins and the hash tables are ported: they answer."""
     wide = sm.build_sorted(np.array([0, 2**40]), np.array([1, 2]), device="cpu")
     assert wide.pack32 is None and wide.span62
     probe = np.array([0, 1, 2**40, 2**40, -(2**63), 2**63 - 1])
@@ -140,12 +140,12 @@ def test_unported_branches_raise():
     assert int(res.count) == 3 and res.payload_checksums.tolist() == [5]
     huge = sm.build_sorted(np.array([-(2**62), 2**62]), device="cpu")
     assert not huge.span62
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        sm.sorted_match_totals(huge, probe)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        sm.sorted_build_counts(huge, probe)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        bulk_count([huge], probe[:, None])
+    huge_probe = np.array([2**62, 0, -(2**62), 2**62, 2**63 - 1])
+    count, checksum = sm.sorted_match_totals(huge, huge_probe)
+    assert (int(count), int(checksum)) == (3, 10_000_000 + 2 * 10_000_001)
+    assert sm.sorted_build_counts(huge, huge_probe).tolist() == [1, 2]
+    res = bulk_count([huge], huge_probe[:, None])
+    assert int(res.count) == 3 and res.payload_checksums.tolist() == [30_000_002]
     count, checksum = sm.sorted_match_totals(sm.build_sorted(np.zeros(0, np.int64), device="cpu"), probe)
     assert (int(count), int(checksum)) == (0, 0)
     narrow = sm.build_sorted(np.arange(10), device="cpu")
