@@ -149,6 +149,27 @@ def config1_wide_host(n_build: int = 1_000_000, n_probe: int = 1 << 24,
     return keys, payloads, probe
 
 
+def config1_full_range_host(n_build: int = 1_000_000, n_probe: int = 1 << 24):
+    """Config 1 on full-range int64 keys (64-bit fingerprints, hashed ids),
+    with `config1_wide_host`'s shape (`np.random.default_rng(1)`): build
+    keys uniform over the whole int64 range, INT64_MIN and INT64_MAX among
+    them, half the probes drawn from the build keys and half uniform over
+    the range, shuffled; payloads uniform in [0, 2^30). The key span
+    reaches 2^62, so the table has no packed form and its totals take the
+    generic route. Returns (keys, payloads, probe)."""
+    rng = np.random.default_rng(1)
+    info = np.iinfo(np.int64)
+    keys = rng.integers(info.min, info.max, n_build, dtype=np.int64, endpoint=True)
+    keys[:2] = [info.min, info.max]
+    probe = np.concatenate([
+        rng.choice(keys, n_probe // 2),
+        rng.integers(info.min, info.max, n_probe - n_probe // 2, dtype=np.int64, endpoint=True),
+    ])
+    rng.shuffle(probe)
+    payloads = rng.integers(0, 2**30, n_build, dtype=np.int64)
+    return keys, payloads, probe
+
+
 def config1_wide(
     n_build: int = 1_000_000, n_probe: int = 1 << 24, span_bits: int = 40, device="cuda"
 ) -> dict:

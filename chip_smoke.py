@@ -123,8 +123,29 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     with the most host time in one run (torch.profiler).
 34. The CLI's known-good `pipeline` command with `--strategy dynamic`,
     `--record-occupancy` and `--zebra-profile` (`[Result Rows] 2992` each).
+35. Slice 3b's kernels against their plain versions at small shapes,
+    exactly: #15's generic entry (`merge_scan_stats`: INT64_MIN and
+    INT64_MAX keys, runs across block boundaries, negative payloads, an
+    all-probe and an all-build stream), #16 (`merge_scan_stats_packed` at
+    pay_bits 2, 25 and 31), #4 (`merge_scan_build_counts`: duplicate
+    builds, phantoms, `extra`) and #5 (`merge_sorted_i32`: ties, lengths 1
+    to 10^5 a side, an empty side).
+36. The full-range join (`config1_full_range_host`: 1M build rows x 2^24
+    probes, keys over the whole int64 range) through `bulk_count`, counter
+    zeroed just before: count and checksum against numpy and the all-plain
+    route, #15's generic entry launched once; times (median of 20 with min
+    and max), the device's idle share, the sort/scan split and the peak
+    extra memory.
+37. The small-probe route: config 1's table against 1, 100 and 8192
+    probes through `sorted_match_totals` (numpy's counts; #5 and #4 once a
+    call), 8193 on the tile route; both routes timed at 8192.
+38. #5 then #4 on config 1's own streams (the sorted 16M probe stream and
+    the 1M build stream), and #16 on config 1's table packed as the JAX
+    package's `table.pack` does: Σ bc / dot(bc, payloads) and Σ mult /
+    Σ psum give config 1's count and checksum; timed beside `torch.sort`
+    of the concatenation and two `torch.searchsorted`.
 
-Prints the per-kernel JSON line (17 kernels: each kernel's launches on its main path,
+Prints the per-kernel JSON line (21 kernels: each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
 library call's), then the card line, then, only when every phase passed,
 the last line `{"ok": true, "device": {...}}`. Any failure raises and
@@ -152,6 +173,7 @@ import torch  # noqa: E402
 from ccve_tpu_torch.bench.configs import (  # noqa: E402
     check_sampled_triples,
     config1_materialize,
+    config1_full_range_host,
     config1_single_join,
     config1_wide_host,
     config3_data,
@@ -248,6 +270,14 @@ HASH_WRAPPERS = {
     "murmurhash64_i64": (murmur.murmurhash64_i64,),
     "compact_i32": (compact.compact_i32,),
 }
+# slice 3b's wrappers: #15's generic entry, #16, #4 and #5
+SLICE_3B_WRAPPERS = {
+    "merge_scan_stats_i64": (merge_scan.merge_scan_stats,),
+    "merge_scan_stats_packed_i64": (merge_scan.merge_scan_stats_packed,),
+    "merge_scan_build_counts_i32": (merge_scan.merge_scan_build_counts,),
+    "merge_two_i32": (bigsort.merge_sorted_i32,),
+}
+SMALL_PROBE_NS = (1, 100, 8192)  # phase 37's probe counts on the small-probe route
 HASH_OPS_PER_KEY = 10  # three shifts and xors, two 64-bit multiplies
 PROFILED_CALLS = 5  # back-to-back calls in each idle-share trace
 LADDER_HIT_PCTS = (5, 25, 50)  # hit rates of phase 22's probes, in percent
@@ -333,7 +363,8 @@ def main() -> int:
         "merge_counts_i32": merge_scan.merge_counts_i32,
     }
     max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS,
-                             "drain_segment", "drain_segment_occ", "chunk_rank"], 0)
+                             "drain_segment", "drain_segment_occ", "chunk_rank",
+                             *SLICE_3B_WRAPPERS], 0)
 
     def same(name: str, got, want, what: str):
         """Exact equality of a kernel's output with its plain version's:
@@ -1809,6 +1840,261 @@ def main() -> int:
             x.strip() for x in lines if "[Result Rows]" in x or "[Zebra]" in x))
     log(f"phase cli tuner and zebra: ok ({time.perf_counter() - t0:.1f} s), " + " | ".join(cli_log))
 
+    # ---- 35. slice 3b's kernels against plain versions, small shapes ---------
+    t0 = time.perf_counter()
+    rng35 = np.random.default_rng(35)
+    i64 = np.iinfo(np.int64)
+
+    def i64_dev(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).cuda()
+
+    def i32_dev(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).cuda()
+
+    def generic_stream(m_g, n_g, pay_lo, pay_hi, dom=None):
+        """(sk, st) of the generic totals: build and probe keys (over the
+        whole int64 range, or in [-dom, dom]) stably sorted, builds first at
+        equal keys, with the payloads tagged pay * 2 + 1 and probes 0."""
+        if dom is None:
+            bk = rng35.integers(i64.min, i64.max, m_g, dtype=np.int64, endpoint=True)
+            bk[: min(m_g, 2)] = [i64.min, i64.max][: min(m_g, 2)]
+            pk = rng35.integers(i64.min, i64.max, n_g, dtype=np.int64, endpoint=True)
+            if m_g:
+                pk[: n_g // 2] = rng35.choice(bk, n_g // 2)
+        else:
+            bk, pk = rng35.integers(-dom, dom + 1, m_g), rng35.integers(-dom, dom + 2, n_g)
+        keys_g = np.concatenate([bk, pk])
+        st_g = np.concatenate([rng35.integers(pay_lo, pay_hi, m_g) * 2 + 1, np.zeros(n_g, np.int64)])
+        o = np.argsort(keys_g, kind="stable")
+        return i64_dev(keys_g[o]), i64_dev(st_g[o])
+
+    for m_g, n_g, pay_lo, pay_hi, dom in (
+        (30_000, 90_000, 0, 2**30, None),
+        (50_000, 20_000, -(2**40), 2**40, None),  # negative payloads
+        (0, 7_000, 0, 1, None),  # all probes
+        (7_000, 0, 0, 9, None),  # all builds
+        (1, 1, 0, 9, None),
+        (20_000, 60_000, -5, 5, 1),  # three keys: runs across many blocks
+    ):
+        sk_g, st_g = generic_stream(m_g, n_g, pay_lo, pay_hi, dom)
+        same("merge_scan_stats_i64", merge_scan.merge_scan_stats(sk_g, st_g),
+             merge_scan.merge_scan_stats_plain(sk_g, st_g), f"m={m_g} n={n_g} dom={dom}")
+    # runs of INT64_MIN, 0 and INT64_MAX straddling the 2048-element blocks
+    sk_g = i64_dev(np.repeat([i64.min, 0, i64.max], [3000, 5000, 4000]))
+    st_g = i64_dev(np.where(np.arange(12_000) % 7 == 0, 11, 0))
+    same("merge_scan_stats_i64", merge_scan.merge_scan_stats(sk_g, st_g),
+         merge_scan.merge_scan_stats_plain(sk_g, st_g), "extreme runs")
+    for pay_bits in (2, 25, 31):
+        bk, pk = rng35.integers(0, 50_000, 40_000), rng35.integers(0, 50_100, 200_000)
+        pays = rng35.integers(0, 2 ** (pay_bits - 1), bk.size)
+        s_p = i64_dev(np.sort(np.concatenate([(bk << pay_bits) | (pays << 1),
+                                              (pk << pay_bits) | ((1 << pay_bits) - 1)])))
+        same("merge_scan_stats_packed_i64", merge_scan.merge_scan_stats_packed(s_p, pay_bits),
+             merge_scan.merge_scan_stats_packed_plain(s_p, pay_bits), f"pay_bits={pay_bits}")
+    for m_c, n_c, dom, phantoms in ((30_000, 100_000, 20_000, 0), (200_000, 50_000, 2**29, 5000),
+                                    (5, 300_000, 2, 10), (10, 0, 5, 3), (0, 10, 5, 0)):
+        s_c = i32_dev(np.sort(np.concatenate([np.sort(rng35.integers(0, dom, m_c)) * 2 + 1,
+                                              rng35.integers(0, dom + 4, n_c) * 2,
+                                              np.full(phantoms, I32_MAX)])))
+        for mm in (m_c, m_c + phantoms // 2):
+            same("merge_scan_build_counts_i32",
+                 merge_scan.merge_scan_build_counts(s_c, mm, extra=phantoms),
+                 merge_scan.merge_scan_build_counts_plain(s_c, mm, phantoms),
+                 f"m={mm} n={n_c} phantoms={phantoms}")
+    for na, nb in ((1, 1), (0, 9), (9, 0), (1, 100_000), (100_000, 1), (100_000, 100_000),
+                   (4097, 77_777)):
+        for lo, hi in ((-(2**31), 2**31), (0, 5)):  # the whole range; ties
+            a = i32_dev(np.sort(rng35.integers(lo, hi, na)))
+            b = i32_dev(np.sort(rng35.integers(lo, hi, nb)))
+            same("merge_two_i32", bigsort.merge_sorted_i32(a, b),
+                 bigsort.merge_sorted_i32_plain(a, b), f"na={na} nb={nb} range [{lo}, {hi})")
+    torch.cuda.synchronize()
+    log(f"phase slice-3b kernels (small shapes): ok ({time.perf_counter() - t0:.1f} s), max "
+        f"|kernel - plain| { {k: max_err[k] for k in SLICE_3B_WRAPPERS} }")
+
+    # ---- 36. the full-range join: 1M x 2^24 over the whole int64 range -------
+    t0 = time.perf_counter()
+    keys_f, pays_f, probe_f = config1_full_range_host(N_BUILD, N_PROBE_WIDE)
+    want_f = numpy_totals(keys_f, pays_f, probe_f)
+    table_f = sm.build_sorted(keys_f, pays_f)
+    if table_f.pack32 is not None or table_f.span62:
+        raise AssertionError("the full-range table has a packed form")
+    col_f = torch.from_numpy(probe_f).cuda()
+    torch.cuda.synchronize()
+    log(f"phase full-range data: ok ({time.perf_counter() - t0:.1f} s), numpy count "
+        f"{want_f[0]}, checksum {want_f[1]}")
+    zero_counters(SLICE_3B_WRAPPERS)
+    res_f = bulk_count([table_f], col_f.view(-1, 1))
+    torch.cuda.synchronize()
+    launches_3b = {"merge_scan_stats_i64": read_counters(SLICE_3B_WRAPPERS)["merge_scan_stats_i64"]}
+    got_f = (int(res_f.count), int(res_f.payload_checksums[0]))
+    if got_f != want_f:
+        raise AssertionError(f"full-range bulk_count gave {got_f}, numpy {want_f}")
+    if launches_3b["merge_scan_stats_i64"] != 1:
+        raise AssertionError(f"#15's generic entry launched {launches_3b} by the full-range "
+                             "bulk_count, expected once")
+
+    def sort_f():
+        """The generic totals' sort: build ∪ probe keys with tagged payloads."""
+        keys_all = torch.cat([table_f.keys, col_f])
+        tagged = torch.cat([table_f.payloads * 2 + 1, torch.zeros_like(col_f)])
+        sk, order_f = keys_all.sort(stable=True)
+        return sk, tagged[order_f]
+
+    def plain_totals_f():
+        mult_f, psum_f = merge_scan.merge_scan_stats_plain(*sort_f())
+        return mult_f.to(torch.int64).sum(), psum_f.sum()
+
+    pc_f, ps_f = plain_totals_f()
+    if (int(pc_f), int(ps_f)) != want_f:
+        raise AssertionError(f"full-range all-plain route gave ({int(pc_f)}, {int(ps_f)})")
+    sk_f, st_f = sort_f()
+    same("merge_scan_stats_i64", merge_scan.merge_scan_stats(sk_f, st_f),
+         merge_scan.merge_scan_stats_plain(sk_f, st_f), "full range")
+    len_f = sk_f.numel()
+    log(f"phase full-range join: ok, bulk_count count {got_f[0]} checksum {got_f[1]} (numpy and "
+        f"the all-plain route agree); #15's generic entry launched once; {len_f} stream elements")
+    e_f = in_turns(lambda: bulk_count([table_f], col_f.view(-1, 1)), plain_totals_f)
+    idle_f, n_ev_f = idle_share(lambda: bulk_count([table_f], col_f.view(-1, 1)))
+    sort_ms_f = cuda_ms(sort_f)
+    kernel_ms["merge_scan_stats_i64"] = (
+        med(cuda_ms(lambda: merge_scan.merge_scan_stats(sk_f, st_f))),
+        med(cuda_ms(lambda: merge_scan.merge_scan_stats_plain(sk_f, st_f))),
+    )
+    # sk and st read once, mult and psum written once; run start, tag,
+    # two adds and two selects an element
+    work["merge_scan_stats_i64"] = (28 * len_f, 6 * len_f)
+    del sk_f, st_f
+    torch.cuda.reset_peak_memory_stats()
+    base_f = torch.cuda.memory_allocated()
+    bulk_count([table_f], col_f.view(-1, 1))
+    torch.cuda.synchronize()
+    peak_f = (torch.cuda.max_memory_allocated() - base_f) / 2**20
+    k_f = med(e_f["kernel"])
+    log(f"times on [{card}], CUDA events, medians of {2 * REPS}:")
+    log(f"  bulk_count full range (1M build x 2^24 probe, keys over the whole int64 range), "
+        f"kernel path: {spread(e_f['kernel'])} = {N_PROBE_WIDE / k_f / 1e3:.1f}M probe rows/s; "
+        f"peak extra device memory {peak_f:.1f} MiB; device idle share {idle_f:.4f} ({n_ev_f} "
+        f"device events in {PROFILED_CALLS} calls)")
+    log(f"  all-plain torch path: {spread(e_f['plain'])}")
+    log(f"  split: the stable sort with its gather {spread(sort_ms_f)}, #15's generic scan "
+        f"{kernel_ms['merge_scan_stats_i64'][0]:.4f} ms (plain "
+        f"{kernel_ms['merge_scan_stats_i64'][1]:.4f} ms), the rest (concatenations, sums) "
+        f"{k_f - med(sort_ms_f) - kernel_ms['merge_scan_stats_i64'][0]:.4f} ms")
+
+    # ---- 37. the small-probe route on config 1's table --------------------------
+    t0 = time.perf_counter()
+    counted_37 = {**SLICE_3B_WRAPPERS, "merge_counts_i32": (merge_scan.merge_counts_i32,)}
+    launches_3b["merge_two_i32"] = launches_3b["merge_scan_build_counts_i32"] = 0
+    small_log = []
+    for n_s in (*SMALL_PROBE_NS, SMALL_PROBE_NS[-1] + 1):
+        col_s = col[:n_s].contiguous()  # config 1's first probe rows
+        want_s = numpy_totals(keys, payloads, probe[:n_s, 0])
+        zero_counters(counted_37)
+        got_s = sm.sorted_match_totals(table, col_s)
+        torch.cuda.synchronize()
+        lc = read_counters(counted_37)
+        if (int(got_s[0]), int(got_s[1])) != want_s:
+            raise AssertionError(f"sorted_match_totals at n={n_s} gave {got_s}, numpy {want_s}")
+        small = n_s in SMALL_PROBE_NS
+        seen = (lc["merge_two_i32"], lc["merge_scan_build_counts_i32"], lc["merge_counts_i32"])
+        if seen != ((1, 1, 0) if small else (0, 0, 1)):
+            raise AssertionError(f"n={n_s}: launches (#5, #4, #3) {seen}")
+        if small:
+            launches_3b["merge_two_i32"] += lc["merge_two_i32"]
+            launches_3b["merge_scan_build_counts_i32"] += lc["merge_scan_build_counts_i32"]
+        small_log.append(f"n={n_s} count {want_s[0]} checksum {want_s[1]} "
+                         f"({'small-probe' if small else 'tile'} route)")
+    n_8k = SMALL_PROBE_NS[-1]
+    col_8k = col[:n_8k].contiguous()
+    want_8k = numpy_totals(keys, payloads, probe[:n_8k, 0])
+
+    def tile_route_8k():
+        """The tile route's steps at 8192 probes, called directly."""
+        p8, b8 = sm.pack32_streams(table, col_8k)
+        n_pad8, run_log8 = sm.count_side_plan(n_8k, b8.numel(), bigsort.TILE_LOG)
+        runs8 = bigsort.sort_runs(torch.cat([p8, p8.new_full((n_pad8 - n_8k,), I32_MAX)]), run_log8)
+        bc8 = merge_scan.MERGE_COUNTS[torch.int32](runs8, 1 << run_log8, n_8k, b8, b8.numel())
+        bc8 = bc8.long()
+        return bc8.sum(), (bc8 * table.payloads).sum()
+
+    if tuple(int(x) for x in tile_route_8k()) != want_8k:
+        raise AssertionError("the tile route's steps at 8192 probes disagree with numpy")
+    e_37 = {"small-probe": [], "tile": []}
+    for which in ("tile", "small-probe", "small-probe", "tile"):
+        e_37[which] += cuda_ms(tile_route_8k if which == "tile"
+                               else lambda: sm.sorted_match_totals(table, col_8k))
+    log(f"phase small-probe route: ok ({time.perf_counter() - t0:.1f} s), config 1's table: "
+        + "; ".join(small_log) + "; #5 and #4 once a small-probe call, #3 on the tile route")
+    log(f"times on [{card}], CUDA events, medians of {2 * REPS}, 8192 probes against config 1's "
+        f"1M rows: sorted_match_totals (small-probe route) {spread(e_37['small-probe'])}; the "
+        f"tile route's steps (pack, tile sort, merge counts, sums) {spread(e_37['tile'])}")
+
+    # ---- 38. #5, #4 and #16 at full width on config 1's own data ----------------
+    t0 = time.perf_counter()
+    n1, m1 = p32.numel(), b32.numel()
+    ps32 = p32.sort().values  # config 1's sorted 16M probe stream
+    s38 = bigsort.merge_sorted_i32(ps32, b32)
+    same("merge_two_i32", s38, bigsort.merge_sorted_i32_plain(ps32, b32), "config 1")
+    bc38 = merge_scan.merge_scan_build_counts(s38, m1)
+    same("merge_scan_build_counts_i32", bc38, merge_scan.merge_scan_build_counts_plain(s38, m1),
+         "config 1")
+    bc38 = bc38.long()
+    got38 = (int(bc38.sum()), int((bc38 * table.payloads).sum()))
+    if got38 != (want_count, want_checksum):
+        raise AssertionError(f"#5 then #4 on config 1 gave {got38}")
+    # config 1's table packed as the JAX package's `table.pack` packs it
+    kmin, key_bits, pay_bits = table.pack
+    key_lo, tag = kmin - 1, (1 << pay_bits) - 1
+    bpacked = ((table.keys - key_lo) << pay_bits) | (table.payloads << 1)
+    ppacked = ((col.long() - key_lo).clamp(0, (1 << key_bits) - 1) << pay_bits) | tag
+    s_pk = torch.cat([bpacked, ppacked]).sort().values
+    zero_counters(SLICE_3B_WRAPPERS)
+    mult_pk, psum_pk = merge_scan.merge_scan_stats_packed(s_pk, pay_bits)
+    launches_3b["merge_scan_stats_packed_i64"] = read_counters(
+        SLICE_3B_WRAPPERS)["merge_scan_stats_packed_i64"]
+    got_pk = (int(mult_pk.long().sum()), int(psum_pk.sum()))
+    if got_pk != (want_count, want_checksum):
+        raise AssertionError(f"#16 on config 1's packed table gave {got_pk}")
+    same("merge_scan_stats_packed_i64", (mult_pk, psum_pk),
+         merge_scan.merge_scan_stats_packed_plain(s_pk, pay_bits), "config 1 packed")
+    del mult_pk, psum_pk, bpacked, ppacked
+    cat38 = torch.cat([ps32, b32])
+    want_b = b32 - 1  # the probe value each build's count matches
+    kernel_ms["merge_two_i32"] = (
+        med(cuda_ms(lambda: bigsort.merge_sorted_i32(ps32, b32))),
+        med(cuda_ms(lambda: bigsort.merge_sorted_i32_plain(ps32, b32))),
+        med(cuda_ms(lambda: cat38.sort().values)),
+    )
+    kernel_ms["merge_scan_build_counts_i32"] = (
+        med(cuda_ms(lambda: merge_scan.merge_scan_build_counts(s38, m1))),
+        med(cuda_ms(lambda: merge_scan.merge_scan_build_counts_plain(s38, m1))),
+        med(cuda_ms(lambda: torch.searchsorted(ps32, want_b, right=True)
+                    - torch.searchsorted(ps32, want_b))),
+    )
+    kernel_ms["merge_scan_stats_packed_i64"] = (
+        med(cuda_ms(lambda: merge_scan.merge_scan_stats_packed(s_pk, pay_bits))),
+        med(cuda_ms(lambda: merge_scan.merge_scan_stats_packed_plain(s_pk, pay_bits))),
+    )
+    # #5: both inputs read and the output written once, a compare an
+    # output; #4: the stream read once and bc written once, a few
+    # operations an element; #16: the packed stream read once, mult and
+    # psum written once, decode, run start and adds an element
+    work["merge_two_i32"] = (8 * (n1 + m1), n1 + m1)
+    work["merge_scan_build_counts_i32"] = (4 * (n1 + m1) + 4 * m1, 4 * (n1 + m1))
+    work["merge_scan_stats_packed_i64"] = (20 * s_pk.numel(), 8 * s_pk.numel())
+    log(f"phase slice-3b kernels (config-1 shapes): ok ({time.perf_counter() - t0:.1f} s), "
+        f"#5 then #4: count {got38[0]} checksum {got38[1]}; #16 (pay_bits {pay_bits}): Σ mult "
+        f"{got_pk[0]} Σ psum {got_pk[1]}; max |kernel - plain| "
+        f"{ {k: max_err[k] for k in SLICE_3B_WRAPPERS} }")
+    log(f"times on [{card}], CUDA events, medians of {REPS}:")
+    for name in SLICE_3B_WRAPPERS:
+        times = kernel_ms[name]
+        lib = f", library {times[2]:.4f} ms" if len(times) > 2 else ""
+        log(f"  {name}: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms{lib}, bound "
+            f"{bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]})")
+    del s38, cat38, s_pk, ps32
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -1844,6 +2130,14 @@ def main() -> int:
                               "ccve_tpu/kernels/drain.py:95"),
         "chunk_rank": ("ccve_tpu_torch/kernels/csrc/chunk_rank.cu",
                        "ccve_tpu/kernels/chunk_probe.py:85"),
+        "merge_scan_stats_i64": ("ccve_tpu_torch/kernels/csrc/merge_stats.cu",
+                                 "ccve_tpu/kernels/merge_scan.py:166"),
+        "merge_scan_stats_packed_i64": ("ccve_tpu_torch/kernels/csrc/merge_stats.cu",
+                                        "ccve_tpu/kernels/merge_scan.py:62"),
+        "merge_scan_build_counts_i32": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
+                                        "ccve_tpu/kernels/merge_scan.py:464"),
+        "merge_two_i32": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
+                          "ccve_tpu/kernels/bigsort.py:229"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per
@@ -1869,6 +2163,10 @@ def main() -> int:
     # occupancy variant's in phase 32's counted fused runs
     launches["chunk_rank"] = sum(launches_cr.values())
     launches["drain_segment_occ"] = sum(launches_occ.values())
+    # slice 3b: #15's generic entry in phase 36's counted bulk_count, #5 and
+    # #4 in phase 37's counted small-probe calls, #16 (on no path) in phase
+    # 38's counted call of the packed totals
+    launches.update(launches_3b)
     entries = []
     for name in sources:
         bound_ms, bound_by = bound(*work[name])

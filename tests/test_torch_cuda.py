@@ -703,3 +703,104 @@ def test_device_tuner_on_card_matches_cpu(cuda):
     before = chunk_probe.chunk_rank.launches
     chunk = SortedPipeline([table] * 3, static, rank_mode="chunk").run(probe)
     assert chunk_probe.chunk_rank.launches > before and chunk["count"] == want
+
+
+# ---- slice 3b: #15's generic entry, #16, #4 and #5 ------------------------
+
+I64_MIN = -(2**63)
+
+
+def _generic_stream(rng, m, n, pay_lo, pay_hi, device):
+    """(sk, st) of the generic totals over the whole int64 range: build ∪
+    probe keys stably sorted (builds first at equal keys), with tagged
+    payloads (pay * 2 + 1 builds, 0 probes)."""
+    bk = rng.integers(I64_MIN, I64_MAX, m, dtype=np.int64, endpoint=True)
+    bk[: min(m, 2)] = [I64_MIN, I64_MAX][: min(m, 2)]
+    pk = np.concatenate([rng.choice(bk, n // 2) if m else np.zeros(n // 2, np.int64),
+                         rng.integers(I64_MIN, I64_MAX, n - n // 2, dtype=np.int64)])
+    keys = np.concatenate([bk, pk])
+    st = np.concatenate([rng.integers(pay_lo, pay_hi, m) * 2 + 1, np.zeros(n, np.int64)])
+    order = np.argsort(keys, kind="stable")
+    return _i64(keys[order], device), _i64(st[order], device)
+
+
+@pytest.mark.parametrize(
+    "m, n, pay_lo, pay_hi",
+    [(0, 5000, 0, 1), (7000, 0, 0, 9), (1, 1, 0, 9), (30_000, 90_000, 0, 2**30),
+     (50_000, 20_000, -(2**40), 2**40), (2000, 400_000, -5, 5)],
+)
+def test_merge_scan_stats_kernel(cuda, m, n, pay_lo, pay_hi):
+    rng = np.random.default_rng(m + n)
+    sk, st = _generic_stream(rng, m, n, pay_lo, pay_hi, cuda)
+    got = merge_scan.merge_scan_stats(sk, st)
+    want = merge_scan.merge_scan_stats_plain(sk, st)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # runs of one extreme key straddling the 2048-element blocks
+    sk = _i64(np.repeat([I64_MIN, 0, I64_MAX], [3000, 5000, 4000]), cuda)
+    st = _i64(np.where(np.arange(12_000) % 7 == 0, 11, 0), cuda)
+    got = merge_scan.merge_scan_stats(sk, st)
+    want = merge_scan.merge_scan_stats_plain(sk, st)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("pay_bits", [2, 25, 31])
+def test_merge_scan_stats_packed_kernel(cuda, pay_bits):
+    rng = np.random.default_rng(pay_bits)
+    m, n = 40_000, 200_000
+    bk, pk = rng.integers(0, 50_000, m), rng.integers(0, 50_100, n)
+    pays = rng.integers(0, 2 ** (pay_bits - 1), m)
+    s = np.concatenate([(bk << pay_bits) | (pays << 1), (pk << pay_bits) | ((1 << pay_bits) - 1)])
+    s = _i64(np.sort(s), cuda)
+    got = merge_scan.merge_scan_stats_packed(s, pay_bits)
+    want = merge_scan.merge_scan_stats_packed_plain(s, pay_bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize(
+    "m, n, dom, phantoms",
+    [(0, 10, 5, 0), (10, 0, 5, 3), (30_000, 100_000, 20_000, 0),
+     (200_000, 50_000, 2**29, 5000), (5, 300_000, 2, 10)],
+)
+def test_merge_scan_build_counts_kernel(cuda, m, n, dom, phantoms):
+    rng = np.random.default_rng(m + n)
+    s = np.concatenate([np.sort(rng.integers(0, dom, m)) * 2 + 1,
+                        rng.integers(0, dom + 4, n) * 2, np.full(phantoms, 2**31 - 1)])
+    s = _i32(np.sort(s), cuda)
+    for mm in (m, m + phantoms // 2):
+        got = merge_scan.merge_scan_build_counts(s, mm, extra=phantoms)
+        assert torch.equal(got, merge_scan.merge_scan_build_counts_plain(s, mm, phantoms))
+
+
+@pytest.mark.parametrize("na, nb", [(1, 1), (0, 9), (9, 0), (1, 100_000), (100_000, 1),
+                                    (100_000, 100_000), (4097, 123_457)])
+def test_merge_sorted_i32_kernel(cuda, na, nb):
+    rng = np.random.default_rng(na * 3 + nb)
+    for lo, hi in ((-(2**31), 2**31), (0, 5)):
+        a = _i32(np.sort(rng.integers(lo, hi, na)), cuda)
+        b = _i32(np.sort(rng.integers(lo, hi, nb)), cuda)
+        assert torch.equal(bigsort.merge_sorted_i32(a, b), bigsort.merge_sorted_i32_plain(a, b))
+
+
+def test_slice_3b_reaches_the_kernels(cuda):
+    """On CUDA tensors the full-range totals launch #15's generic entry
+    once, and the small-probe route #5 and #4 once each; both agree with
+    the CPU's plain versions."""
+    rng = np.random.default_rng(4)
+    keys = rng.integers(I64_MIN, I64_MAX, 50_000, dtype=np.int64)
+    keys[:2] = [I64_MIN, I64_MAX]
+    pays = rng.integers(0, 2**30, keys.size)
+    probe = np.concatenate([rng.choice(keys, 100_000), rng.integers(I64_MIN, I64_MAX, 100_000)])
+    before = merge_scan.merge_scan_stats.launches
+    got = sm.sorted_match_totals(sm.build_sorted(keys, pays), _i64(probe, cuda))
+    assert merge_scan.merge_scan_stats.launches == before + 1
+    want = sm.sorted_match_totals(sm.build_sorted(keys, pays, device="cpu"), probe)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+
+    keys, pays = rng.integers(0, 100_000, 60_000), rng.integers(0, 2**30, 60_000)
+    probe = rng.integers(0, 100_000, 8192).astype(np.int32)
+    before = (bigsort.merge_sorted_i32.launches, merge_scan.merge_scan_build_counts.launches)
+    got = sm.sorted_match_totals(sm.build_sorted(keys, pays), _i32(probe, cuda))
+    after = (bigsort.merge_sorted_i32.launches, merge_scan.merge_scan_build_counts.launches)
+    assert after == (before[0] + 1, before[1] + 1)
+    want = sm.sorted_match_totals(sm.build_sorted(keys, pays, device="cpu"), probe)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))

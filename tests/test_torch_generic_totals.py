@@ -185,3 +185,19 @@ def test_jax_generic_scan_is_wrong_on_negative_payloads():
     want = _numpy_totals(keys, payloads, probe)
     assert (int(got[0]), int(got[1])) == want
     assert int(jax_got[0]) == want[0] and int(jax_got[1]) != want[1]
+
+
+def test_config1_full_range_host_through_bulk_count():
+    """chip_smoke.py's full-range cell at a small size: both extremes among
+    the build keys, a key span past 2^62, and bulk_count equal to numpy."""
+    from ccve_tpu_torch.bench.configs import config1_full_range_host, numpy_totals
+
+    keys, payloads, probe = config1_full_range_host(4096, 1 << 13)
+    assert keys.min() == I64_MIN and keys.max() == I64_MAX
+    assert payloads.min() >= 0 and payloads.max() < 2**30
+    table = sm.build_sorted(keys, payloads, device="cpu")
+    assert table.pack32 is None and not table.span62
+    res = bulk_count([table], probe[:, None])
+    want = numpy_totals(keys, payloads, probe)
+    assert want[0] >= probe.size // 2
+    assert (int(res.count), int(res.payload_checksums[0])) == want
