@@ -164,6 +164,10 @@ def merge_stats_plain(s: torch.Tensor, v: torch.Tensor, n: int):
     return mult, psum
 
 
+def _scratch(size_fn, length: int, device) -> torch.Tensor:
+    return torch.empty(size_fn(length), dtype=torch.uint8, device=device)
+
+
 def _merge_stats(wrapper, s, v, n, dtype):
     _build.check_int(s, "s", dtype)
     _build.check_i32(v, "v")
@@ -177,10 +181,7 @@ def _merge_stats(wrapper, s, v, n, dtype):
     psum = torch.zeros(n, dtype=torch.int64, device=s.device)
     if s.numel():
         lib = _build.load()
-        scratch = torch.empty(
-            lib.ccve_merge_stats_scratch_bytes(s.numel()), dtype=torch.uint8,
-            device=s.device,
-        )
+        scratch = _scratch(lib.ccve_merge_stats_scratch_bytes, s.numel(), s.device)
         entry = getattr(lib, f"ccve_merge_stats_{_build.SUFFIX[dtype]}")
         code = entry(
             s.data_ptr(), v.data_ptr(), s.numel(), n, scratch.data_ptr(),
@@ -211,8 +212,11 @@ merge_stats_i32.launches = 0
 merge_stats_i64.launches = 0
 
 
-def _per_element(key, is_build, pay):
-    """(mult int32[L], psum int64[L]) per element, zero at builds."""
+def per_element_stats(key, is_build, pay):
+    """(mult int32[L], psum int64[L]) per element of a sorted stream of
+    keys `key` with build flags and build payloads `pay`: at a probe, the
+    builds of its run that precede it and the sum of their payloads; zero
+    at builds. Torch scans, on any device."""
     count, total = _run_sums(key, is_build, pay)
     return (torch.where(is_build, 0, count).to(torch.int32),
             torch.where(is_build, 0, total))
@@ -221,28 +225,19 @@ def _per_element(key, is_build, pay):
 def merge_scan_stats_plain(sk: torch.Tensor, st: torch.Tensor):
     """`merge_scan_stats` as torch scans, on any device."""
     is_build = (st & 1) == 1
-    return _per_element(sk, is_build, st >> 1)
+    return per_element_stats(sk, is_build, st >> 1)
 
 
 def merge_scan_stats_packed_plain(s: torch.Tensor, pay_bits: int):
     """`merge_scan_stats_packed` as torch scans, on any device."""
     field = s & ((1 << pay_bits) - 1)
     is_build = (field & 1) == 0
-    return _per_element(s >> pay_bits, is_build, field >> 1)
-
-
-def _check_pay_bits(pay_bits) -> None:
-    if not 2 <= pay_bits <= 31:
-        raise ValueError(f"pay_bits {pay_bits} outside [2, 31]")
+    return per_element_stats(s >> pay_bits, is_build, field >> 1)
 
 
 def _stats_outputs(length: int, device):
     return (torch.empty(length, dtype=torch.int32, device=device),
             torch.empty(length, dtype=torch.int64, device=device))
-
-
-def _scratch(size_fn, length: int, device) -> torch.Tensor:
-    return torch.empty(size_fn(length), dtype=torch.uint8, device=device)
 
 
 def merge_scan_stats(sk: torch.Tensor, st: torch.Tensor):
@@ -277,7 +272,8 @@ def merge_scan_stats_packed(s: torch.Tensor, pay_bits: int):
     `key' << pay_bits | field` (2 <= pay_bits <= 31): a build's field is
     its payload times 2 (even), a probe's the all-ones tag."""
     _build.check_int(s, "s", torch.int64)
-    _check_pay_bits(pay_bits)
+    if not 2 <= pay_bits <= 31:
+        raise ValueError(f"pay_bits {pay_bits} outside [2, 31]")
     if s.device.type == "cpu":
         return merge_scan_stats_packed_plain(s, pay_bits)
     mult, psum = _stats_outputs(s.numel(), s.device)

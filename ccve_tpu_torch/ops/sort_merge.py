@@ -466,13 +466,7 @@ def _merged_stats(table: SortedTable, probe: torch.Tensor):
     sk, order = keys.sort(stable=True)
     spay, srow = pay[order], row[order]
     is_build = srow < 0
-    ib = is_build.to(torch.int64)
-    count = ib.cumsum(0)
-    bpay = torch.where(is_build, spay, 0)
-    total = bpay.cumsum(0)
-    starts = merge_scan.run_starts(sk)
-    mult = torch.where(is_build, 0, count - merge_scan.segment_base(starts, count - ib))
-    psum = torch.where(is_build, 0, total - merge_scan.segment_base(starts, total - bpay))
+    mult, psum = merge_scan.per_element_stats(sk, is_build, spay)
     return mult, psum, srow, is_build, sk, spay
 
 

@@ -1982,16 +1982,21 @@ def main() -> int:
         f"{kernel_ms['merge_scan_stats_i64'][1]:.4f} ms), the rest (concatenations, sums) "
         f"{k_f - med(sort_ms_f) - kernel_ms['merge_scan_stats_i64'][0]:.4f} ms")
 
-    # ---- 37. the small-probe route on config 1's table --------------------------
+    # ---- 37. the small-probe route on config 1's table ---------------------------
     t0 = time.perf_counter()
+    # config 1's table once more: phase 30 reuses the names `table` and `keys`
+    keys1, pays1 = gen_rhs_table(N_BUILD, 1)
+    table1 = sm.build_sorted(keys1, pays1)
+    if not np.array_equal(pays1, payloads):
+        raise AssertionError("config 1's generator gave other payloads")
     counted_37 = {**SLICE_3B_WRAPPERS, "merge_counts_i32": (merge_scan.merge_counts_i32,)}
     launches_3b["merge_two_i32"] = launches_3b["merge_scan_build_counts_i32"] = 0
     small_log = []
     for n_s in (*SMALL_PROBE_NS, SMALL_PROBE_NS[-1] + 1):
         col_s = col[:n_s].contiguous()  # config 1's first probe rows
-        want_s = numpy_totals(keys, payloads, probe[:n_s, 0])
+        want_s = numpy_totals(keys1, payloads, probe[:n_s, 0])
         zero_counters(counted_37)
-        got_s = sm.sorted_match_totals(table, col_s)
+        got_s = sm.sorted_match_totals(table1, col_s)
         torch.cuda.synchronize()
         lc = read_counters(counted_37)
         if (int(got_s[0]), int(got_s[1])) != want_s:
@@ -2007,23 +2012,23 @@ def main() -> int:
                          f"({'small-probe' if small else 'tile'} route)")
     n_8k = SMALL_PROBE_NS[-1]
     col_8k = col[:n_8k].contiguous()
-    want_8k = numpy_totals(keys, payloads, probe[:n_8k, 0])
+    want_8k = numpy_totals(keys1, payloads, probe[:n_8k, 0])
 
     def tile_route_8k():
         """The tile route's steps at 8192 probes, called directly."""
-        p8, b8 = sm.pack32_streams(table, col_8k)
+        p8, b8 = sm.pack32_streams(table1, col_8k)
         n_pad8, run_log8 = sm.count_side_plan(n_8k, b8.numel(), bigsort.TILE_LOG)
         runs8 = bigsort.sort_runs(torch.cat([p8, p8.new_full((n_pad8 - n_8k,), I32_MAX)]), run_log8)
         bc8 = merge_scan.MERGE_COUNTS[torch.int32](runs8, 1 << run_log8, n_8k, b8, b8.numel())
         bc8 = bc8.long()
-        return bc8.sum(), (bc8 * table.payloads).sum()
+        return bc8.sum(), (bc8 * table1.payloads).sum()
 
     if tuple(int(x) for x in tile_route_8k()) != want_8k:
         raise AssertionError("the tile route's steps at 8192 probes disagree with numpy")
     e_37 = {"small-probe": [], "tile": []}
     for which in ("tile", "small-probe", "small-probe", "tile"):
         e_37[which] += cuda_ms(tile_route_8k if which == "tile"
-                               else lambda: sm.sorted_match_totals(table, col_8k))
+                               else lambda: sm.sorted_match_totals(table1, col_8k))
     log(f"phase small-probe route: ok ({time.perf_counter() - t0:.1f} s), config 1's table: "
         + "; ".join(small_log) + "; #5 and #4 once a small-probe call, #3 on the tile route")
     log(f"times on [{card}], CUDA events, medians of {2 * REPS}, 8192 probes against config 1's "
@@ -2040,13 +2045,13 @@ def main() -> int:
     same("merge_scan_build_counts_i32", bc38, merge_scan.merge_scan_build_counts_plain(s38, m1),
          "config 1")
     bc38 = bc38.long()
-    got38 = (int(bc38.sum()), int((bc38 * table.payloads).sum()))
+    got38 = (int(bc38.sum()), int((bc38 * table1.payloads).sum()))
     if got38 != (want_count, want_checksum):
         raise AssertionError(f"#5 then #4 on config 1 gave {got38}")
     # config 1's table packed as the JAX package's `table.pack` packs it
-    kmin, key_bits, pay_bits = table.pack
+    kmin, key_bits, pay_bits = table1.pack
     key_lo, tag = kmin - 1, (1 << pay_bits) - 1
-    bpacked = ((table.keys - key_lo) << pay_bits) | (table.payloads << 1)
+    bpacked = ((table1.keys - key_lo) << pay_bits) | (table1.payloads << 1)
     ppacked = ((col.long() - key_lo).clamp(0, (1 << key_bits) - 1) << pay_bits) | tag
     s_pk = torch.cat([bpacked, ppacked]).sort().values
     zero_counters(SLICE_3B_WRAPPERS)
