@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ccve_tpu_torch.ops.sort_merge import require_device
+from ccve_tpu_torch.device import require_device
 
 
 def numpy_totals(keys: np.ndarray, payloads: np.ndarray, probe: np.ndarray):

@@ -31,7 +31,8 @@ import time
 import numpy as np
 import torch
 
-from ccve_tpu_torch.bench.configs import config1_data, require_device
+from ccve_tpu_torch.bench.configs import config1_data
+from ccve_tpu_torch.device import require_device
 from ccve_tpu_torch.exec.bulk import bulk_count
 from ccve_tpu_torch.kernels import bigsort
 from ccve_tpu_torch.ops import sort_merge
@@ -41,12 +42,12 @@ REPS = 10
 TRACE_CALLS = 5
 
 
-def _times_ms(fn, device: torch.device) -> list[float]:
-    """Milliseconds of REPS calls of `fn` after one warm-up: CUDA events on
-    a GPU, the host clock on the CPU."""
+def times_ms(fn, device: torch.device, reps: int = REPS) -> list[float]:
+    """Milliseconds of `reps` calls of `fn` after one warm-up: CUDA events
+    on a GPU, the host clock on the CPU."""
     fn()
     out = []
-    for _ in range(REPS):
+    for _ in range(reps):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -95,7 +96,7 @@ def sweep(table, probe, expected, device: torch.device):
             if got != expected:
                 raise AssertionError(f"skip {skip}: {got} != numpy {expected}")
             n_pad, run_log = sort_merge.count_side_plan(n, m, bigsort.TILE_LOG)
-            ts = _times_ms(lambda: bulk_count([table], probe), device)
+            ts = times_ms(lambda: bulk_count([table], probe), device)
             rows.append((skip, -(-n_pad >> run_log), ts))
     finally:
         sort_merge.SKIP_LEVELS_OVERRIDE = saved

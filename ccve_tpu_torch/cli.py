@@ -92,7 +92,8 @@ def cmd_pipeline(args) -> int:
     from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode
     from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
     from ccve_tpu_torch.ops.hash_table import build_csr, build_lp
-    from ccve_tpu_torch.ops.sort_merge import build_sorted, require_device
+    from ccve_tpu_torch.device import require_device
+    from ccve_tpu_torch.ops.sort_merge import build_sorted
     from ccve_tpu_torch.utils.profiler import BeeProfiler
 
     strategy = {

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ccve_tpu_torch.ops.sort_merge import require_device
+from ccve_tpu_torch.device import require_device
 
 EPSILON = 0.1
 START_SAMPLING = 2  # default; the reference's value is 4

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ccve_tpu_torch.ops.sort_merge import require_device
+from ccve_tpu_torch.device import require_device
 
 SEL_DTYPE = torch.int32
 COL_DTYPE = torch.int64
@@ -45,7 +45,15 @@ class Chunk(NamedTuple):
 
 
 def iota_sel(block_size: int, device="cuda") -> torch.Tensor:
-    return torch.arange(block_size, dtype=SEL_DTYPE, device=require_device(device))
+    """The identity selection vector on `device` (default the GPU; raises
+    without one)."""
+    return _iota(block_size, require_device(device))
+
+
+def _iota(block_size: int, device: torch.device) -> torch.Tensor:
+    # the chunk functions' own identity: the device is a tensor's, so
+    # nothing is checked per chunk
+    return torch.arange(block_size, dtype=SEL_DTYPE, device=device)
 
 
 def make_dense(cols: torch.Tensor, count=None) -> Chunk:
@@ -54,7 +62,7 @@ def make_dense(cols: torch.Tensor, count=None) -> Chunk:
     block = cols.shape[1]
     return Chunk(
         cols=cols.to(COL_DTYPE),
-        sel=iota_sel(block, cols.device),
+        sel=_iota(block, cols.device),
         count=block if count is None else int(count),
     )
 
@@ -63,7 +71,7 @@ def empty(n_cols: int, block_size: int, device="cuda") -> Chunk:
     device = require_device(device)
     return Chunk(
         cols=torch.zeros((n_cols, block_size), dtype=COL_DTYPE, device=device),
-        sel=iota_sel(block_size, device),
+        sel=_iota(block_size, device),
         count=0,
     )
 
@@ -71,12 +79,12 @@ def empty(n_cols: int, block_size: int, device="cuda") -> Chunk:
 def reset(chunk: Chunk) -> Chunk:
     """DataChunk::Reset (base.h:96-99): identity sel, zero count. Storage is
     left as it is, as in the reference."""
-    return Chunk(chunk.cols, iota_sel(chunk.block_size, chunk.cols.device), 0)
+    return Chunk(chunk.cols, _iota(chunk.block_size, chunk.cols.device), 0)
 
 
 def valid_mask(chunk: Chunk) -> torch.Tensor:
     """bool[block]: True for live positions i < count."""
-    return iota_sel(chunk.block_size, chunk.cols.device) < chunk.count
+    return _iota(chunk.block_size, chunk.cols.device) < chunk.count
 
 
 def slice_compose(parent: Chunk, result_vector: torch.Tensor, result_count) -> Chunk:
@@ -84,7 +92,7 @@ def slice_compose(parent: Chunk, result_vector: torch.Tensor, result_count) -> C
     compose selection vectors: sel'[i] = parent.sel[result_vector[i]].
     Positions >= result_count are garbage, as in the reference, and read
     position 0."""
-    live = iota_sel(parent.block_size, parent.cols.device) < int(result_count)
+    live = _iota(parent.block_size, parent.cols.device) < int(result_count)
     idx = torch.where(live, result_vector.to(torch.int64), 0)
     return Chunk(parent.cols, parent.sel[idx], int(result_count))
 

@@ -44,7 +44,7 @@ import torch
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig
 from ccve_tpu_torch.control.bandit import CompactTuner
 from ccve_tpu_torch.core.chunk import Chunk, gather_rows
-from ccve_tpu_torch.ops.sort_merge import require_device
+from ccve_tpu_torch.device import require_device
 from ccve_tpu_torch.utils.profiler import ZebraProfiler
 
 CURSOR_SLICE = "ROADMAP Queue 1, slice 6 (the cursor executor)"

@@ -64,7 +64,7 @@ from typing import Sequence
 import torch
 
 from ccve_tpu_torch.config import CompactionStrategy, PayloadMode
-from ccve_tpu_torch.core.chunk import Chunk, compact_rows, iota_sel
+from ccve_tpu_torch.core.chunk import Chunk, compact_rows, make_dense
 from ccve_tpu_torch.exec.pipeline import JoinPipeline, PipelineState
 from ccve_tpu_torch.kernels.chunk_probe import chunk_rank, chunk_rank_plain
 from ccve_tpu_torch.kernels.drain import MAX_PATHS, drain_segment
@@ -225,7 +225,7 @@ class SortedPipeline(JoinPipeline):
                 cols_t = cols.clone()
                 cols_t[ca + 1] = table.payloads[(start.long() + t).clamp(0, last_row)]
             dense, cnt = compact_rows(cols_t, mult > t)
-            chunk = Chunk(dense, iota_sel(block, dense.device), cnt)
+            chunk = make_dense(dense, cnt)
             passthrough = cnt >= threshold or cnt >= block
             if skip or passthrough:
                 emitted = chunk  # the compactor is not run

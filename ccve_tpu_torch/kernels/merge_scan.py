@@ -321,8 +321,9 @@ def merge_scan_build_counts(s: torch.Tensor, m: int, extra: int = 0) -> torch.Te
     first): bc[j] = the number of probes in the run of the j-th build
     entry, which is table row j for a pre-sorted table. INT32_MAX entries
     are phantom builds that sort last; build entries past the m-th are
-    dropped. `extra`, the JAX package's bound on those phantoms (it sized
-    that kernel's output ring), must be >= 0 and sizes nothing here."""
+    dropped. `extra` is kept only for parity with the JAX signature, where
+    it bounds the phantoms and sizes that kernel's output ring: it must be
+    >= 0 and sizes nothing here."""
     _build.check_i32(s, "s")
     if m < 0 or extra < 0:
         raise ValueError(f"m {m} and extra {extra} must be >= 0")

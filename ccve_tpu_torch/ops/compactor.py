@@ -24,8 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from ccve_tpu_torch.core.chunk import Chunk, append_into, iota_sel
-from ccve_tpu_torch.ops.sort_merge import require_device
+from ccve_tpu_torch.core.chunk import Chunk, append_into, make_dense
+from ccve_tpu_torch.device import require_device
 
 
 class CompactorState(NamedTuple):
@@ -65,17 +65,14 @@ def compact(
     new_cache, new_count, overflow, over_count = append_into(
         state.cache_cols, state.cache_count, chunk, src_dense=chunk_dense
     )
-    sel = iota_sel(block, chunk.cols.device)
     if new_count >= block:
         # the cache filled (exactly or split): emit it at once (the same
         # multiset as the reference, which pushes it out on the next call)
-        return Chunk(new_cache, sel, block), CompactorState(overflow, over_count)
-    return Chunk(state.cache_cols, sel, 0), CompactorState(new_cache, new_count)
+        return make_dense(new_cache, block), CompactorState(overflow, over_count)
+    return make_dense(state.cache_cols, 0), CompactorState(new_cache, new_count)
 
 
 def flush(state: CompactorState) -> tuple[Chunk, CompactorState]:
     """End of stream: emit the partial cache (compactor.h:23) and reset."""
-    block = state.block_size
-    emitted = Chunk(state.cache_cols, iota_sel(block, state.cache_cols.device),
-                    state.cache_count)
+    emitted = make_dense(state.cache_cols, state.cache_count)
     return emitted, CompactorState(torch.zeros_like(state.cache_cols), 0)

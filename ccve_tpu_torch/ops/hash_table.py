@@ -31,8 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ccve_tpu_torch.device import require_device
 from ccve_tpu_torch.ops.hashing import murmurhash64, murmurhash64_np
-from ccve_tpu_torch.ops.sort_merge import require_device
 
 EMPTY = -1  # empty-slot sentinel (linear_probing_ht.cpp:7)
 

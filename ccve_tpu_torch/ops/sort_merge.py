@@ -35,7 +35,8 @@ under the INT32_MAX padding), else on int64 keys when `span62`; other
 tables take the generic route, one stable int64 torch.sort of build ∪
 probe plus scans. Every route is exact for payloads of any sign, except
 that the full-range totals tag payloads as pay * 2 + 1 in an int64, which
-holds payloads in [-2^62, 2^62), as the JAX package's generic branch does.
+holds payloads in [-2^62, 2^62), as the JAX package's generic branch does;
+they raise ValueError for a table with a payload outside (`pay62`).
 `sorted_expand`'s kernel route is int32 only, as the JAX package's.
 """
 
@@ -48,6 +49,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ccve_tpu_torch.device import require_device
 from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
 
 # The static fields of a SortedTable, as `ccve_tpu.ops.sort_merge` has them.
@@ -66,7 +68,8 @@ class SortedTable:
     gates the packed-int64 branch, `pay32` and `wide_ok` the wide-key
     branches, `max_mult` is the largest key multiplicity, `span62` says the
     key span is below 2^62, and `span_bits` is the bit width of the tagged
-    packed key."""
+    packed key. `pay62`, the port's own, says every payload lies in
+    [-2^62, 2^62), where the full-range totals' tag `pay * 2 + 1` holds it."""
 
     keys: torch.Tensor  # int64[m], ascending
     payloads: torch.Tensor  # int64[m], aligned with keys
@@ -77,6 +80,7 @@ class SortedTable:
     span62: bool = False
     wide_ok: bool = False
     span_bits: int | None = None
+    pay62: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -104,18 +108,6 @@ def _pack32_meta(keys: np.ndarray):
     if key_bits > 30:
         return None
     return (kmin, key_bits)
-
-
-def require_device(device) -> torch.device:
-    """`device` as a torch.device; raises when it names CUDA and no GPU is
-    present: nothing falls back to the CPU unless the caller asks for it."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: run on a machine with a GPU, or ask for the "
-            "plain CPU path explicitly (device='cpu')"
-        )
-    return device
 
 
 def build_sorted(keys, payloads=None, device="cuda") -> SortedTable:
@@ -153,7 +145,12 @@ def build_sorted(keys, payloads=None, device="cuda") -> SortedTable:
             and payloads.max(initial=0) < 2**31
         ),
         span_bits=span.bit_length() + 1 if span is not None else None,
+        pay62=_pay62(payloads),
     )
+
+
+def _pay62(payloads: np.ndarray) -> bool:
+    return bool(payloads.min(initial=0) >= -(2**62) and payloads.max(initial=0) < 2**62)
 
 
 def table_from_arrays(arrays: dict, meta: dict, device) -> SortedTable:
@@ -161,7 +158,8 @@ def table_from_arrays(arrays: dict, meta: dict, device) -> SortedTable:
     holds its `keys` and `payloads` (already sorted by key) and `meta` its
     static fields (META_FIELDS). This is how a `ccve_tpu` table crosses
     over: `{"keys": np.asarray(t.keys), "payloads": np.asarray(t.payloads)}`
-    and `{f: getattr(t, f) for f in META_FIELDS}`."""
+    and `{f: getattr(t, f) for f in META_FIELDS}`. `pay62` is computed
+    from the payloads."""
     if set(arrays) != {"keys", "payloads"}:
         raise ValueError(f"arrays needs keys and payloads, got {sorted(arrays)}")
     if set(meta) != set(META_FIELDS):
@@ -170,7 +168,8 @@ def table_from_arrays(arrays: dict, meta: dict, device) -> SortedTable:
         name: torch.tensor(np.asarray(arr, dtype=np.int64), device=device)
         for name, arr in arrays.items()
     }
-    return SortedTable(**cols, **meta)
+    return SortedTable(**cols, **meta,
+                       pay62=_pay62(np.asarray(arrays["payloads"], dtype=np.int64)))
 
 
 I64_MIN = -(2**63)
@@ -180,8 +179,7 @@ I64_MAX = 2**63 - 1
 # 0.8 * n_pad / m rule otherwise).
 SKIP_LEVELS_OVERRIDE: int | None = None
 # int32 probe streams of at most 2^SMALL_PROBE_LOG keys take the
-# small-probe route of `_count_side_bc` (the JAX package's CHUNK_LOG); read
-# per call, so a test can move it
+# small-probe route of `_count_side_bc` (the JAX package's CHUNK_LOG)
 SMALL_PROBE_LOG = 13
 
 
@@ -327,7 +325,13 @@ def _full_range_totals(table: SortedTable, probe: torch.Tensor):
     """`sorted_match_totals` of a table whose key span reaches 2^62: one
     stable sort of build ∪ probe keys carrying the tagged payloads
     (pay * 2 + 1 builds, 0 probes; builds first at equal keys), then
-    #15's generic scan per element and the two sums."""
+    #15's generic scan per element and the two sums. Raises ValueError
+    when a payload lies outside [-2^62, 2^62), where its tag would wrap."""
+    if not table.pay62:
+        raise ValueError(
+            "the full-range totals tag payloads as pay * 2 + 1 in an int64: "
+            "this table has a payload outside [-2^62, 2^62)"
+        )
     n = probe.numel()
     keys = torch.cat([table.keys, probe.to(torch.int64)])
     tagged = torch.cat([
@@ -365,7 +369,7 @@ def sorted_match_totals(table: SortedTable, probe_keys):
     (`pack32`) or int64 streams (key span below 2^62), exact for negative
     payloads (they never enter the sort, and the dot carries the sign);
     for a key span of 2^62 or more, the generic totals, exact for payloads
-    in [-2^62, 2^62). An empty table gives (0, 0)."""
+    in [-2^62, 2^62) (ValueError outside). An empty table gives (0, 0)."""
     probe = _probe_on(table, probe_keys)
     if not table.keys.numel():
         zero = torch.zeros((), dtype=torch.int64, device=table.device)

@@ -138,12 +138,18 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     extra memory.
 37. The small-probe route: config 1's table against 1, 100 and 8192
     probes through `sorted_match_totals` (numpy's counts; #5 and #4 once a
-    call), 8193 on the tile route; both routes timed at 8192.
+    call), 8193 on the tile route. At each of 1, 100 and 8192, outside the
+    counted call, #5 and #4 on that call's own streams against their plain
+    versions; their times in the kernel line are at 8192 probes, the
+    path's widest shape, beside `torch.sort` of the concatenation and two
+    `torch.searchsorted`. Both routes timed at 1, 100, 1024 and 8192
+    probes (`bench.small_probe`), with each route's device time at 8192.
 38. #5 then #4 on config 1's own streams (the sorted 16M probe stream and
     the 1M build stream), and #16 on config 1's table packed as the JAX
     package's `table.pack` does: Σ bc / dot(bc, payloads) and Σ mult /
-    Σ psum give config 1's count and checksum; timed beside `torch.sort`
-    of the concatenation and two `torch.searchsorted`.
+    Σ psum give config 1's count and checksum; #16 timed beside its plain
+    version, and #5 and #4 at these 17M elements logged beside their
+    8192-probe times.
 
 Prints the per-kernel JSON line (21 kernels: each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
@@ -185,6 +191,7 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
 from ccve_tpu_torch.bench.profile_config1 import busy_window  # noqa: E402
+from ccve_tpu_torch.bench import small_probe  # noqa: E402
 from ccve_tpu_torch.exec.bulk import (  # noqa: E402
     HASH_PLAIN,
     bulk_count,
@@ -1896,7 +1903,8 @@ def main() -> int:
         s_c = i32_dev(np.sort(np.concatenate([np.sort(rng35.integers(0, dom, m_c)) * 2 + 1,
                                               rng35.integers(0, dom + 4, n_c) * 2,
                                               np.full(phantoms, I32_MAX)])))
-        for mm in (m_c, m_c + phantoms // 2):
+        # the last m has ranks past the stream's builds, which stay 0
+        for mm in (m_c, m_c + phantoms // 2, m_c + phantoms + 3000):
             same("merge_scan_build_counts_i32",
                  merge_scan.merge_scan_build_counts(s_c, mm, extra=phantoms),
                  merge_scan.merge_scan_build_counts_plain(s_c, mm, phantoms),
@@ -2010,30 +2018,67 @@ def main() -> int:
             launches_3b["merge_scan_build_counts_i32"] += lc["merge_scan_build_counts_i32"]
         small_log.append(f"n={n_s} count {want_s[0]} checksum {want_s[1]} "
                          f"({'small-probe' if small else 'tile'} route)")
-    n_8k = SMALL_PROBE_NS[-1]
-    col_8k = col[:n_8k].contiguous()
-    want_8k = numpy_totals(keys1, payloads, probe[:n_8k, 0])
-
-    def tile_route_8k():
-        """The tile route's steps at 8192 probes, called directly."""
-        p8, b8 = sm.pack32_streams(table1, col_8k)
-        n_pad8, run_log8 = sm.count_side_plan(n_8k, b8.numel(), bigsort.TILE_LOG)
-        runs8 = bigsort.sort_runs(torch.cat([p8, p8.new_full((n_pad8 - n_8k,), I32_MAX)]), run_log8)
-        bc8 = merge_scan.MERGE_COUNTS[torch.int32](runs8, 1 << run_log8, n_8k, b8, b8.numel())
-        bc8 = bc8.long()
-        return bc8.sum(), (bc8 * table1.payloads).sum()
-
-    if tuple(int(x) for x in tile_route_8k()) != want_8k:
-        raise AssertionError("the tile route's steps at 8192 probes disagree with numpy")
-    e_37 = {"small-probe": [], "tile": []}
-    for which in ("tile", "small-probe", "small-probe", "tile"):
-        e_37[which] += cuda_ms(tile_route_8k if which == "tile"
-                               else lambda: sm.sorted_match_totals(table1, col_8k))
+        if small:
+            # the call's own streams, outside the counted call
+            p_s, b_s = sm.pack32_streams(table1, col_s)
+            ps_s = p_s.sort().values
+            s_s = bigsort.merge_sorted_i32(ps_s, b_s)
+            same("merge_two_i32", s_s, bigsort.merge_sorted_i32_plain(ps_s, b_s), f"n={n_s}")
+            same("merge_scan_build_counts_i32", merge_scan.merge_scan_build_counts(s_s, N_BUILD),
+                 merge_scan.merge_scan_build_counts_plain(s_s, N_BUILD), f"n={n_s}")
     log(f"phase small-probe route: ok ({time.perf_counter() - t0:.1f} s), config 1's table: "
-        + "; ".join(small_log) + "; #5 and #4 once a small-probe call, #3 on the tile route")
-    log(f"times on [{card}], CUDA events, medians of {2 * REPS}, 8192 probes against config 1's "
-        f"1M rows: sorted_match_totals (small-probe route) {spread(e_37['small-probe'])}; the "
-        f"tile route's steps (pack, tile sort, merge counts, sums) {spread(e_37['tile'])}")
+        + "; ".join(small_log) + "; #5 and #4 once a small-probe call, #3 on the tile route; "
+        "#5 and #4 equal their plain versions on each small call's streams")
+    # #5 and #4 at the path's widest shape: 8192 sorted probes and the 1M
+    # build stream
+    n_8k = SMALL_PROBE_NS[-1]
+    p8, b8 = sm.pack32_streams(table1, col[:n_8k].contiguous())
+    ps8 = p8.sort().values
+    s8 = bigsort.merge_sorted_i32(ps8, b8)
+    cat8 = torch.cat([ps8, b8])
+    want_b8 = b8 - 1  # the probe value each build's count matches
+    kernel_ms["merge_two_i32"] = (
+        med(cuda_ms(lambda: bigsort.merge_sorted_i32(ps8, b8))),
+        med(cuda_ms(lambda: bigsort.merge_sorted_i32_plain(ps8, b8))),
+        med(cuda_ms(lambda: cat8.sort().values)),
+    )
+    kernel_ms["merge_scan_build_counts_i32"] = (
+        med(cuda_ms(lambda: merge_scan.merge_scan_build_counts(s8, N_BUILD))),
+        med(cuda_ms(lambda: merge_scan.merge_scan_build_counts_plain(s8, N_BUILD))),
+        med(cuda_ms(lambda: torch.searchsorted(ps8, want_b8, right=True)
+                    - torch.searchsorted(ps8, want_b8))),
+    )
+    # #5: both inputs read and the output written once, a compare an
+    # output; #4: the stream read once and bc written once, a few
+    # operations an element
+    len8 = s8.numel()
+    work["merge_two_i32"] = (8 * len8, len8)
+    work["merge_scan_build_counts_i32"] = (4 * len8 + 4 * N_BUILD, 4 * len8)
+    del p8, b8, ps8, s8, cat8, want_b8
+    log(f"times on [{card}], CUDA events, medians of {REPS}, 8192 probes against config 1's "
+        f"1M rows ({len8} merged elements):")
+    for name in ("merge_two_i32", "merge_scan_build_counts_i32"):
+        times = kernel_ms[name]
+        log(f"  {name}: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, library "
+            f"{times[2]:.4f} ms, bound {bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]})")
+    log(f"times on [{card}], CUDA events, medians of {2 * REPS} in turns tile, small, small, "
+        "tile; host wall time a call (synchronized), medians of "
+        f"{REPS}: config 1's table against its first n probes, sorted_match_totals (small-probe "
+        "route) and the tile route's steps (pack, pad, tile sort, merge counts, sums)")
+    for n_s in small_probe.NS:
+        col_s = col[:n_s].contiguous()
+        want_s = numpy_totals(keys1, payloads, probe[:n_s, 0])
+        for which, fn in small_probe.ROUTES.items():
+            if tuple(int(x) for x in fn(table1, col_s)) != want_s:
+                raise AssertionError(f"n={n_s}: the {which} route disagrees with numpy")
+        ts = small_probe.route_times(table1, col_s, torch.device("cuda"), REPS)
+        log(f"  n={n_s}: small-probe {spread(ts['small'])}, host {med(ts['small host']):.4f} "
+            f"ms; tile {spread(ts['tile'])}, host {med(ts['tile host']):.4f} ms")
+    for which, fn in small_probe.ROUTES.items():
+        busy, n_ev, per_kernel = small_probe.device_split(lambda: fn(table1, col[:n_8k]))
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+        log(f"  device at n=8192, {which} route: busy {busy:.1f} us a call, {n_ev:.0f} device "
+            "events a call; " + "; ".join(f"{k} {v:.1f} us" for k, v in top))
 
     # ---- 38. #5, #4 and #16 at full width on config 1's own data ----------------
     t0 = time.perf_counter()
@@ -2066,27 +2111,30 @@ def main() -> int:
     del mult_pk, psum_pk, bpacked, ppacked
     cat38 = torch.cat([ps32, b32])
     want_b = b32 - 1  # the probe value each build's count matches
-    kernel_ms["merge_two_i32"] = (
-        med(cuda_ms(lambda: bigsort.merge_sorted_i32(ps32, b32))),
-        med(cuda_ms(lambda: bigsort.merge_sorted_i32_plain(ps32, b32))),
-        med(cuda_ms(lambda: cat38.sort().values)),
-    )
-    kernel_ms["merge_scan_build_counts_i32"] = (
-        med(cuda_ms(lambda: merge_scan.merge_scan_build_counts(s38, m1))),
-        med(cuda_ms(lambda: merge_scan.merge_scan_build_counts_plain(s38, m1))),
-        med(cuda_ms(lambda: torch.searchsorted(ps32, want_b, right=True)
-                    - torch.searchsorted(ps32, want_b))),
-    )
+    # #5 and #4 at 17M elements, a shape the main path does not give them
+    # (16M probes take the tile route): logged beside their 8192-probe
+    # times of phase 37, which the kernel line carries
+    ms17 = {
+        "merge_two_i32": (
+            med(cuda_ms(lambda: bigsort.merge_sorted_i32(ps32, b32))),
+            med(cuda_ms(lambda: bigsort.merge_sorted_i32_plain(ps32, b32))),
+            med(cuda_ms(lambda: cat38.sort().values)),
+            bound(8 * (n1 + m1), n1 + m1),
+        ),
+        "merge_scan_build_counts_i32": (
+            med(cuda_ms(lambda: merge_scan.merge_scan_build_counts(s38, m1))),
+            med(cuda_ms(lambda: merge_scan.merge_scan_build_counts_plain(s38, m1))),
+            med(cuda_ms(lambda: torch.searchsorted(ps32, want_b, right=True)
+                        - torch.searchsorted(ps32, want_b))),
+            bound(4 * (n1 + m1) + 4 * m1, 4 * (n1 + m1)),
+        ),
+    }
     kernel_ms["merge_scan_stats_packed_i64"] = (
         med(cuda_ms(lambda: merge_scan.merge_scan_stats_packed(s_pk, pay_bits))),
         med(cuda_ms(lambda: merge_scan.merge_scan_stats_packed_plain(s_pk, pay_bits))),
     )
-    # #5: both inputs read and the output written once, a compare an
-    # output; #4: the stream read once and bc written once, a few
-    # operations an element; #16: the packed stream read once, mult and
-    # psum written once, decode, run start and adds an element
-    work["merge_two_i32"] = (8 * (n1 + m1), n1 + m1)
-    work["merge_scan_build_counts_i32"] = (4 * (n1 + m1) + 4 * m1, 4 * (n1 + m1))
+    # #16: the packed stream read once, mult and psum written once, decode,
+    # run start and adds an element
     work["merge_scan_stats_packed_i64"] = (20 * s_pk.numel(), 8 * s_pk.numel())
     log(f"phase slice-3b kernels (config-1 shapes): ok ({time.perf_counter() - t0:.1f} s), "
         f"#5 then #4: count {got38[0]} checksum {got38[1]}; #16 (pay_bits {pay_bits}): Σ mult "
@@ -2097,7 +2145,12 @@ def main() -> int:
         times = kernel_ms[name]
         lib = f", library {times[2]:.4f} ms" if len(times) > 2 else ""
         log(f"  {name}: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms{lib}, bound "
-            f"{bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]})")
+            f"{bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]})"
+            + (" (phase 36's shape)" if name == "merge_scan_stats_i64"
+               else " (phase 37's 8192 probes)" if name in ms17 else ""))
+    for name, (kt, pt, lt, (bt, by)) in ms17.items():
+        log(f"  {name} at config 1's 17M elements: kernel {kt:.4f} ms, plain {pt:.4f} ms, "
+            f"library {lt:.4f} ms, bound {bt:.4f} ms ({by})")
     del s38, cat38, s_pk, ps32
 
     sources = {

@@ -766,7 +766,8 @@ def test_merge_scan_build_counts_kernel(cuda, m, n, dom, phantoms):
     s = np.concatenate([np.sort(rng.integers(0, dom, m)) * 2 + 1,
                         rng.integers(0, dom + 4, n) * 2, np.full(phantoms, 2**31 - 1)])
     s = _i32(np.sort(s), cuda)
-    for mm in (m, m + phantoms // 2):
+    # the last m has more ranks than the stream has builds: they stay 0
+    for mm in (m, m + phantoms // 2, m + phantoms + 3000):
         got = merge_scan.merge_scan_build_counts(s, mm, extra=phantoms)
         assert torch.equal(got, merge_scan.merge_scan_build_counts_plain(s, mm, phantoms))
 

@@ -169,6 +169,49 @@ def test_generic_totals_negative_payloads():
     assert int(checksum) == (want_checksum + 2**63) % 2**64 - 2**63  # int64 wraps
 
 
+
+def test_generic_totals_payload_limits_exact():
+    """Payloads at both ends of [-2^62, 2^62), where the tag pay * 2 + 1
+    still holds them, are exact against numpy (the sum wraps as int64)."""
+    rng = np.random.default_rng(13)
+    keys = _full_range_keys(rng, 600, 100)
+    payloads = rng.choice(np.array([-(2**62), 2**62 - 1, -1, 0], dtype=np.int64), keys.size)
+    probe = _probes(rng, keys, 2000)
+    table = sm.build_sorted(keys, payloads, device="cpu")
+    assert table.pay62
+    count, checksum = sm.sorted_match_totals(table, probe)
+    want_count, want_checksum = _numpy_totals(keys, payloads, probe)
+    assert int(count) == want_count
+    assert int(checksum) == (want_checksum + 2**63) % 2**64 - 2**63
+
+
+@pytest.mark.parametrize("bad", [2**62, -(2**62) - 1, I64_MAX, I64_MIN])
+def test_generic_totals_refuse_payloads_past_2_62(bad):
+    """A payload outside [-2^62, 2^62) would wrap in its tag: the
+    full-range totals raise, through build_sorted's table and a crossed
+    one alike, and single-level bulk_count with them."""
+    rng = np.random.default_rng(14)
+    keys = _full_range_keys(rng, 50, 0)
+    payloads = rng.integers(0, 100, keys.size)
+    payloads[7] = bad
+    probe = _probes(rng, keys, 80)
+    table = sm.build_sorted(keys, payloads, device="cpu")
+    crossed = _crossed(jax_sm.build_sorted(keys, payloads))
+    for t in (table, crossed):
+        assert not t.pay62
+        with pytest.raises(ValueError, match=r"\[-2\^62, 2\^62\)"):
+            sm.sorted_match_totals(t, probe)
+        with pytest.raises(ValueError, match=r"\[-2\^62, 2\^62\)"):
+            bulk_count([t], probe[:, None])
+    # the counts need no tag, and the packed routes no limit
+    np.testing.assert_array_equal(
+        sm.sorted_build_counts(table, probe).numpy(),
+        np.searchsorted(np.sort(probe), table.keys.numpy(), "right")
+        - np.searchsorted(np.sort(probe), table.keys.numpy(), "left"))
+    small = sm.build_sorted(np.arange(keys.size), payloads, device="cpu")
+    assert not small.pay62
+    assert int(sm.sorted_match_totals(small, np.arange(keys.size))[0]) == keys.size
+
 def test_jax_generic_scan_is_wrong_on_negative_payloads():
     """The reference fault of ROADMAP Queue 3: JAX's generic totals under
     `use_kernel=True` take the matched-payload sum's base as a prefix max,

@@ -209,7 +209,7 @@ def test_port_imports_no_jax():
                  "ops.hashing", "ops.hash_table", "kernels.murmur", "core.chunk",
                  "ops.compactor", "ops.filter", "kernels.drain", "exec.pipeline",
                  "exec.sorted_pipeline", "control.bandit", "control.device_bandit",
-                 "utils.profiler", "kernels.chunk_probe"):
+                 "utils.profiler", "kernels.chunk_probe", "device", "bench.small_probe"):
         assert f"ccve_tpu_torch.{name}" in names.split()
 
 

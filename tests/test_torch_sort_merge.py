@@ -74,10 +74,10 @@ def test_shrunken_tile_many_runs(monkeypatch):
 @pytest.mark.parametrize("skip", [0, 1, 100])
 def test_skip_levels_override(monkeypatch, skip):
     monkeypatch.setattr(bigsort, "TILE_LOG", 6)
-    monkeypatch.setattr(sm, "SMALL_PROBE_LOG", 6)  # 3000 probes: the tile route
     monkeypatch.setattr(sm, "SKIP_LEVELS_OVERRIDE", skip)
     keys, payloads = gen_rhs_table(500, 1)
-    probe = np.random.default_rng(skip).integers(0, 520, 3000)
+    # more than 2^SMALL_PROBE_LOG probes: the tile route
+    probe = np.random.default_rng(skip).integers(0, 520, 9000)
     table = sm.build_sorted(keys, payloads, device="cpu")
     got = sm.sorted_match_totals(table, probe)
     assert (int(got[0]), int(got[1])) == _numpy_totals(keys, payloads, probe)
