@@ -42,12 +42,12 @@ REPS = 10
 TRACE_CALLS = 5
 
 
-def times_ms(fn, device: torch.device, reps: int = REPS) -> list[float]:
-    """Milliseconds of `reps` calls of `fn` after one warm-up: CUDA events
-    on a GPU, the host clock on the CPU."""
+def times_ms(fn, device: torch.device, reps: int | None = None) -> list[float]:
+    """Milliseconds of `reps` (default REPS) calls of `fn` after one
+    warm-up: CUDA events on a GPU, the host clock on the CPU."""
     fn()
     out = []
-    for _ in range(reps):
+    for _ in range(REPS if reps is None else reps):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)

@@ -56,12 +56,8 @@ def tile_route(table: sm.SortedTable, col: torch.Tensor):
     return bc.sum(), (bc * table.payloads).sum()
 
 
-def small_route(table: sm.SortedTable, col: torch.Tensor):
-    """`sorted_match_totals`: the small-probe route for n <= 2^SMALL_PROBE_LOG."""
-    return sm.sorted_match_totals(table, col)
-
-
-ROUTES = {"tile": tile_route, "small": small_route}
+# "small": `sorted_match_totals`, the small-probe route for n <= 2^SMALL_PROBE_LOG
+ROUTES = {"tile": tile_route, "small": sm.sorted_match_totals}
 
 
 def route_times(table, col, device: torch.device, reps: int = 10) -> dict:
