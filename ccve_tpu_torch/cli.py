@@ -1,4 +1,4 @@
-"""Command line of the port: `python -m ccve_tpu_torch.cli pipeline|baseline`.
+"""Command line of the port: `python -m ccve_tpu_torch.cli pipeline|baseline|roofline`.
 
  - `pipeline` is the reference's main executable (`simd_compaction_sevector`,
    main.cpp:37-117), with the JAX CLI's flags and defaults plus `--device`:
@@ -22,9 +22,17 @@
    engine and the sorted-chunk executor) and config 7 (the sorted-chunk
    executor's static compaction policies and its device tuner). Other
    configurations exit non-zero with "not ported yet".
+ - `roofline` prints the per-operator roofline of the count-side join on
+   the H100 (`bench/roofline.py`) at `--n-build` x `--n-probe`; with
+   `--measured-ms` also the percent of the model's speed-of-light, and with
+   `--anchor` the two STAGE_COST anchors measured on the card (the
+   compare-exchange kernel's K-slope and the library sort). `--dist` and
+   `--n-levels` (the distributed cost model, ROADMAP Queue 1, slice 9) exit
+   2 with "not ported yet".
 
 The run goes to `--device` (default `cuda`); without a GPU it fails unless
-`--device cpu` asks for the plain CPU path.
+`--device cpu` asks for the plain CPU path. `roofline` without `--anchor`
+is arithmetic and touches no device.
 """
 
 from __future__ import annotations
@@ -164,6 +172,22 @@ def cmd_pipeline(args) -> int:
     return 0
 
 
+def cmd_roofline(args) -> int:
+    if args.dist or args.n_levels is not None:
+        print("--dist and --n-levels (the distributed cost model, ROADMAP Queue 1): "
+              "not ported yet (slice 9)", file=sys.stderr)
+        return 2
+    from ccve_tpu_torch.bench.roofline import measure_anchors, report
+    from ccve_tpu_torch.device import require_device
+
+    device = require_device(args.device) if args.anchor else None
+    measured = args.measured_ms / 1e3 if args.measured_ms else None
+    print(report(args.n_build, args.n_probe, measured))
+    if args.anchor:
+        print(measure_anchors(device=device))
+    return 0
+
+
 def _add_pipeline(sub):
     p = sub.add_parser("pipeline", help="N-way join pipeline benchmark")
     p.add_argument("--join-num", type=int, default=3)
@@ -227,11 +251,35 @@ def _add_baseline(sub):
     p.set_defaults(func=cmd_baseline)
 
 
+def _add_roofline(sub):
+    p = sub.add_parser(
+        "roofline",
+        help="per-operator roofline of the count-side join on the H100 "
+        "(bench/roofline.py); --measured-ms overlays a measured time",
+    )
+    p.add_argument("--n-build", type=int, default=1_000_000)
+    p.add_argument("--n-probe", type=int, default=16_000_000)
+    p.add_argument("--measured-ms", type=float, default=None)
+    p.add_argument(
+        "--anchor", action="store_true",
+        help="measure the STAGE_COST anchors on the card (a compare-exchange "
+        "kernel that is not the engine's, and torch.sort) against the model constant",
+    )
+    p.add_argument("--dist", action="store_true",
+                   help="the distributed cost model: not ported yet (slice 9)")
+    p.add_argument("--n-levels", type=int, default=None,
+                   help="join levels for --dist: not ported yet (slice 9)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of --anchor (default cuda)")
+    p.set_defaults(func=cmd_roofline)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ccve_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_pipeline(sub)
     _add_baseline(sub)
+    _add_roofline(sub)
     args = parser.parse_args(argv)
     return args.func(args)
 

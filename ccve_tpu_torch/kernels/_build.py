@@ -40,7 +40,8 @@ _L = ctypes.c_longlong
 # name -> argtypes of every C entry point; each returns a cudaError_t as
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
 # same arguments, except those of one key type: the compaction, the drain,
-# the dense build counts and the key-only merge (int32), and the hash, the
+# the dense build counts, the key-only merge and the roofline's
+# compare-exchange stages (int32), and the hash, the
 # chunk ranks and the generic and packed stats scans (int64).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
@@ -82,6 +83,8 @@ _ENTRY_POINTS["ccve_merge_scan_stats_packed_i64"] = [_P, _L, _I, _P, _P, _P, _P]
 _ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _P, _P, _P]
 # (a, na, b, nb, y, stream)
 _ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P]
+# (x, y, n_tiles, n_stages, stream)
+_ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {

@@ -150,8 +150,21 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     Σ psum give config 1's count and checksum; #16 timed beside its plain
     version, and #5 and #4 at these 17M elements logged beside their
     8192-probe times.
+39. #17, the compare-exchange stages of the roofline's calibration, against
+    its plain version, exactly: n = 8192 and 3 x 8192 at K = 1, 3, 16, and
+    n = 2^24 at K = 16 and 64 (kernel and plain times, and the bound from
+    bench/roofline.py's constants); then `roofline.measure_anchors()` in
+    this process, #17's counter zeroed just before.
+40. The slice through its entry point: `python -m ccve_tpu_torch.cli
+    roofline --anchor --measured-ms <phase 5's bulk_count median>` in a
+    process of its own: its operator rows, both anchors and the percent of
+    the model's speed-of-light; the model's plan equal to config 1's run
+    (tile, levels, runs) and each operator's speed-of-light beside phase
+    5's kernel times. Then `DataCollection`: config 3's probe table through
+    `fetch_chunk(..., device="cuda")` and `append_chunk`, chunk by chunk and
+    through a selection vector, equal to the table.
 
-Prints the per-kernel JSON line (21 kernels: each kernel's launches on its main path,
+Prints the per-kernel JSON line (22 kernels: each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
 library call's), then the card line, then, only when every phase passed,
 the last line `{"ok": true, "device": {...}}`. Any failure raises and
@@ -191,7 +204,9 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
 from ccve_tpu_torch.bench.profile_config1 import busy_window  # noqa: E402
-from ccve_tpu_torch.bench import small_probe  # noqa: E402
+from ccve_tpu_torch.bench import roofline, small_probe  # noqa: E402
+from ccve_tpu_torch.core import chunk as chunklib  # noqa: E402
+from ccve_tpu_torch.core.collection import DataCollection  # noqa: E402
 from ccve_tpu_torch.exec.bulk import (  # noqa: E402
     HASH_PLAIN,
     bulk_count,
@@ -202,7 +217,15 @@ from ccve_tpu_torch.exec.bulk import (  # noqa: E402
 )
 from ccve_tpu_torch.exec.oracle import OracleBuildTable, oracle_join, oracle_pipeline  # noqa: E402
 from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline  # noqa: E402
-from ccve_tpu_torch.kernels import _build, bigsort, compact, merge_scan, murmur, pairsort  # noqa: E402
+from ccve_tpu_torch.kernels import (  # noqa: E402
+    _build,
+    bigsort,
+    ce_stages,
+    compact,
+    merge_scan,
+    murmur,
+    pairsort,
+)
 from ccve_tpu_torch.kernels.chunk_probe import chunk_rank, chunk_rank_plain  # noqa: E402
 from ccve_tpu_torch.kernels.drain import (  # noqa: E402
     MAX_PATHS,
@@ -221,11 +244,6 @@ N_PROBE_WIDE = 1 << 24
 REPS = 10
 I32_MAX = 2**31 - 1
 I64_MAX = 2**63 - 1
-# The card's peaks from NVIDIA's H100 SXM data sheet, for the bounds: HBM
-# bandwidth, and the non-tensor float32 rate as the rate of one integer
-# compare or add (the data sheet lists no int32 or int64 rate).
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -309,12 +327,9 @@ def read_counters(wrappers: dict) -> dict:
     return {name: sum(fn.launches for fn in fns) for name, fns in wrappers.items()}
 
 
-def bound(nbytes: float, ops: float):
-    """(ms, what bounds it): the least time the card could take to move
-    `nbytes` through HBM and to do `ops` integer operations."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ALU_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+# (ms, what bounds it) of a kernel's bytes and integer operations, from the
+# card's constants in bench/roofline.py
+bound = roofline.bound_ms
 
 
 def log2_ceil(x: int) -> int:
@@ -371,7 +386,7 @@ def main() -> int:
     }
     max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS,
                              "drain_segment", "drain_segment_occ", "chunk_rank",
-                             *SLICE_3B_WRAPPERS], 0)
+                             *SLICE_3B_WRAPPERS, "ce_stages_i32"], 0)
 
     def same(name: str, got, want, what: str):
         """Exact equality of a kernel's output with its plain version's:
@@ -538,6 +553,8 @@ def main() -> int:
         "merge_level_i32": (8 * n_pad * len(levels), n_pad * len(levels)),
         "merge_counts_i32": (4 * (n + 2 * m), 2 * m * n_runs * log2_ceil(1 << run_log)),
     }
+    # config 1's count-side shape, for phase 40's model
+    plan1 = roofline.CountSidePlan(n_pad, tile_log, run_log, len(levels), n_runs)
     # end to end, in turns: plain, kernel, kernel, plain
     e2e = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
@@ -2153,6 +2170,101 @@ def main() -> int:
             f"library {lt:.4f} ms, bound {bt:.4f} ms ({by})")
     del s38, cat38, s_pk, ps32
 
+    # ---- 39. #17, the compare-exchange stages, against its plain version ------
+    t0 = time.perf_counter()
+    for n_ce in (1 << ce_stages.TILE_LOG, 3 << ce_stages.TILE_LOG):
+        for k_ce in (1, 3, 16):
+            x_ce = values(n_ce)
+            same("ce_stages_i32", ce_stages.ce_stages_i32(x_ce, k_ce),
+                 ce_stages.ce_stages_plain(x_ce, k_ce), f"n={n_ce} K={k_ce}")
+    x_ce = values(1 << 24)
+    ce_ms = {}
+    for k_ce in (16, 64):
+        same("ce_stages_i32", ce_stages.ce_stages_i32(x_ce, k_ce),
+             ce_stages.ce_stages_plain(x_ce, k_ce), f"n=2^24 K={k_ce}")
+        ce_ms[k_ce] = (
+            med(cuda_ms(lambda k=k_ce: ce_stages.ce_stages_i32(x_ce, k))),
+            med(cuda_ms(lambda k=k_ce: ce_stages.ce_stages_plain(x_ce, k))),
+        )
+    # the slice's main path, in this process: the anchors that `cli roofline
+    # --anchor` measures, with #17's counter zeroed just before
+    ce_stages.ce_stages_i32.launches = 0
+    anchors = roofline.measure_anchors()
+    launches["ce_stages_i32"] = ce_stages.ce_stages_i32.launches
+    if not launches["ce_stages_i32"]:
+        raise AssertionError("measure_anchors launched no #17")
+    # #17: each key read and written once a launch, one compare-exchange a
+    # key a stage; the kernel line carries K = 64
+    kernel_ms["ce_stages_i32"] = ce_ms[64]
+    work["ce_stages_i32"] = (8 * x_ce.numel(), 64 * x_ce.numel())
+    log(f"phase #17 (ce_stages_i32): ok ({time.perf_counter() - t0:.1f} s), equal to its plain "
+        f"version at n = 8192 and 24576 (K = 1, 3, 16) and 2^24 (K = 16, 64); "
+        f"{launches['ce_stages_i32']} launches in measure_anchors()")
+    log(f"times on [{card}], CUDA events, medians of {REPS}, one launch over 2^24 keys:")
+    for k_ce, (kt, pt) in ce_ms.items():
+        b_ms, b_by = bound(8 * x_ce.numel(), k_ce * x_ce.numel())
+        log(f"  ce_stages_i32 K={k_ce}: kernel {kt:.4f} ms, plain {pt:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {8 * x_ce.numel()} bytes at {roofline.BW_HBM:.3g} B/s, "
+            f"{k_ce * x_ce.numel()} operations at {roofline.ALU_OPS_PER_S:.3g} op/s)")
+    log("  measure_anchors() in this process:\n" + anchors)
+    del x_ce
+
+    # ---- 40. the slice through its entry point: cli roofline --anchor -------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ccve_tpu_torch.cli", "roofline", "--anchor",
+         "--n-build", str(N_BUILD), "--n-probe", str(N_PROBE), "--measured-ms", repr(k_ms)],
+        capture_output=True, text=True, timeout=600, cwd=repo_root,
+        env=dict(os.environ, PYTHONPATH=repo_root),
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"cli roofline --anchor: rc {proc.returncode}\n{proc.stderr}")
+    out = proc.stdout.splitlines()
+    model1 = roofline.count_side_model(N_BUILD, N_PROBE)
+    if roofline.count_side_plan(N_BUILD, N_PROBE) != plan1:
+        raise AssertionError(f"the model's plan {roofline.count_side_plan(N_BUILD, N_PROBE)} "
+                             f"is not config 1's run {plan1}")
+    missing = [op.name for op in model1 if not any(line.startswith(op.name) for line in out)]
+    missing += [tag for tag in (" A. CE-stage kernel K-slope", " B. library sort",
+                                "% of model speed-of-light")
+                if not any(tag in line for line in out)]
+    if missing:
+        raise AssertionError("cli roofline --anchor lacks " + repr(missing) + ":\n"
+                             + proc.stdout)
+    log(f"phase cli roofline --anchor --measured-ms {k_ms!r}: ok "
+        f"({time.perf_counter() - t0:.1f} s)\n" + proc.stdout.rstrip())
+    measured1 = {1: "sort_tiles_i32", 2: "merge_level_i32", 3: "merge_counts_i32"}
+    log(f"config 1's model speed-of-light beside this run's kernel times on [{card}] "
+        f"(phase 5, CUDA events, medians of {REPS}; merge levels summed):")
+    for i, op in enumerate(model1):
+        got = (f"measured {kernel_ms[measured1[i]][0]:.4f} ms = "
+               f"{op.t_sol * 1e3 / kernel_ms[measured1[i]][0] * 100:.1f}% of it"
+               if i in measured1 else "not measured apart")
+        log(f"  {op.name}: t_sol {op.t_sol * 1e3:.4f} ms ({op.bound}); {got}")
+
+    # ---- 40, DataCollection: config 3's probe table through chunks on the card ---
+    t0 = time.perf_counter()
+    dc3 = DataCollection.from_columns(host3.T)
+    back3 = DataCollection(host3.shape[1])
+    for start in range(0, len(dc3), 2048):
+        chunk3 = dc3.fetch_chunk(start, min(start + 2048, len(dc3)), 2048, device="cuda")
+        if chunk3.cols.device.type != "cuda":
+            raise AssertionError(f"fetch_chunk gave a chunk on {chunk3.cols.device}")
+        back3.append_chunk(chunk3)
+    # one chunk through a selection vector: its rows whose level-0 key is even
+    chunk3 = dc3.fetch_chunk(0, 2048, 2048, device="cuda")
+    picked = torch.nonzero(chunk3.cols[0] % 2 == 0).flatten().to(torch.int32)
+    n_picked = picked.numel()
+    picked = torch.cat([picked, picked.new_zeros(2048 - n_picked)])
+    back3.append_chunk(chunklib.slice_compose(chunk3, picked, n_picked))
+    want3_rows = np.concatenate([host3, host3[:2048][host3[:2048, 0] % 2 == 0]])
+    if not np.array_equal(back3.rows(), want3_rows):
+        raise AssertionError("DataCollection: config 3's probe table did not round-trip")
+    log(f"phase DataCollection: ok ({time.perf_counter() - t0:.1f} s), config 3's probe table "
+        f"({host3.shape[0]} x {host3.shape[1]}) through fetch_chunk(..., device='cuda') and "
+        f"append_chunk in {-(-host3.shape[0] // 2048)} chunks of 2048, and {n_picked} rows of "
+        "one chunk through a selection vector, equal to the table")
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -2196,6 +2308,8 @@ def main() -> int:
                                         "ccve_tpu/kernels/merge_scan.py:464"),
         "merge_two_i32": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
                           "ccve_tpu/kernels/bigsort.py:229"),
+        "ce_stages_i32": ("ccve_tpu_torch/kernels/csrc/ce_stages.cu",
+                          "ccve_tpu/bench/roofline.py:208"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per

@@ -805,3 +805,55 @@ def test_slice_3b_reaches_the_kernels(cuda):
     assert after == (before[0] + 1, before[1] + 1)
     want = sm.sorted_match_totals(sm.build_sorted(keys, pays, device="cpu"), probe)
     assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+
+
+@pytest.mark.parametrize("n_tiles", [1, 3, 64])
+@pytest.mark.parametrize("n_stages", [0, 1, 2, 3, 7, 16, 64])
+def test_ce_stages_kernel(cuda, n_tiles, n_stages):
+    from ccve_tpu_torch.kernels.ce_stages import TILE_LOG, ce_stages_i32, ce_stages_plain
+
+    rng = np.random.default_rng(n_tiles * 100 + n_stages)
+    x = _i32(rng.integers(-(2**31), 2**31 - 1, n_tiles << TILE_LOG), cuda)
+    before = ce_stages_i32.launches
+    got = ce_stages_i32(x, n_stages)
+    assert ce_stages_i32.launches == before + 1
+    assert torch.equal(got, ce_stages_plain(x, n_stages))
+
+
+def test_ce_stages_kernel_refuses_a_ragged_length(cuda):
+    from ccve_tpu_torch.kernels.ce_stages import ce_stages_i32
+
+    with pytest.raises(ValueError, match="multiple"):
+        ce_stages_i32(torch.zeros(8191, dtype=torch.int32, device=cuda), 3)
+
+
+def test_measure_anchors_on_card(cuda):
+    """Both anchors measured on the card through the kernel (it launches
+    2 x (1 + ANCHOR_REPEATS) x niter times)."""
+    from ccve_tpu_torch.bench.roofline import ANCHOR_REPEATS, measure_anchors
+    from ccve_tpu_torch.kernels.ce_stages import ce_stages_i32
+
+    before = ce_stages_i32.launches
+    text = measure_anchors(n=1 << 20, niter=2)
+    assert ce_stages_i32.launches == before + 2 * (1 + ANCHOR_REPEATS) * 2
+    assert "CUDA events" in text
+    assert " A. CE-stage kernel K-slope" in text and " B. library sort" in text
+
+
+def test_data_collection_round_trip_on_card(cuda):
+    from ccve_tpu_torch.core import chunk as chunklib
+    from ccve_tpu_torch.core.collection import DataCollection
+
+    rng = np.random.default_rng(5)
+    cols = rng.integers(-(2**62), 2**62, (3, 5000))
+    dc, out = DataCollection.from_columns(cols), DataCollection(3, 16)
+    for start in range(0, 5000, 2048):
+        chunk = dc.fetch_chunk(start, min(start + 2048, 5000), 2048)
+        assert chunk.cols.device.type == "cuda"
+        out.append_chunk(chunk)
+    assert np.array_equal(out.columns(), cols)
+    chunk = dc.fetch_chunk(0, 100, 128)
+    picked = torch.zeros(128, dtype=torch.int32, device=cuda)
+    picked[:34] = torch.arange(0, 100, 3, dtype=torch.int32, device=cuda)
+    out.append_chunk(chunklib.slice_compose(chunk, picked, 34))
+    assert np.array_equal(out.rows()[5000:], cols[:, 0:100:3].T)

@@ -209,7 +209,8 @@ def test_port_imports_no_jax():
                  "ops.hashing", "ops.hash_table", "kernels.murmur", "core.chunk",
                  "ops.compactor", "ops.filter", "kernels.drain", "exec.pipeline",
                  "exec.sorted_pipeline", "control.bandit", "control.device_bandit",
-                 "utils.profiler", "kernels.chunk_probe", "device", "bench.small_probe"):
+                 "utils.profiler", "kernels.chunk_probe", "device", "bench.small_probe",
+                 "bench.roofline", "kernels.ce_stages", "core.collection"):
         assert f"ccve_tpu_torch.{name}" in names.split()
 
 
