@@ -15,8 +15,9 @@ config 1's first n probe rows and prints:
   call, each call ending in a synchronize. Both answers are checked
   against numpy first.
 - a `DEVICE` line per route: the device's busy time a call (the union of
-  its events under torch.profiler over TRACE_CALLS back-to-back calls),
-  the device events a call, and each kernel's device time a call.
+  its events under torch.profiler over TRACE_CALLS back-to-back calls,
+  `kernel_split.device_split`), the device events a call, and each
+  kernel's device time a call.
 
 `--n-build` and `--ns` shrink the data. `--device cpu` runs the plain
 path with the host clock and skips the trace.
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from ccve_tpu_torch.bench.configs import config1_host, numpy_totals
-from ccve_tpu_torch.bench.profile_config1 import busy_window, times_ms
+from ccve_tpu_torch.bench.kernel_split import device_split
+from ccve_tpu_torch.bench.profile_config1 import times_ms
 from ccve_tpu_torch.device import require_device
 from ccve_tpu_torch.kernels import bigsort, merge_scan
 from ccve_tpu_torch.ops import sort_merge as sm
@@ -77,28 +79,6 @@ def route_times(table, col, device: torch.device, reps: int = 10) -> dict:
     return dict(out)
 
 
-def device_split(fn) -> tuple[float, float, dict]:
-    """(busy us a call, device events a call, {kernel: us a call}) of `fn`
-    over TRACE_CALLS back-to-back calls under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_CALLS):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device events")
-    busy, _ = busy_window([(e.time_range.start, e.time_range.end) for e in events])
-    per_kernel = defaultdict(float)
-    for e in events:
-        per_kernel[e.name[:60]] += (e.time_range.end - e.time_range.start) / TRACE_CALLS
-    return busy / TRACE_CALLS, len(events) / TRACE_CALLS, dict(per_kernel)
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="small_probe")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
@@ -132,10 +112,10 @@ def main(argv=None) -> int:
                   f"{np.median(ts[which + ' host']):.4f}")
         if device.type == "cuda":
             for which, fn in ROUTES.items():
-                busy, n_ev, per_kernel = device_split(lambda: fn(table, col_n))
-                top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
-                print(f"DEVICE {n} {which} busy {busy:.1f} us, {n_ev:.0f} events a call: "
-                      + "; ".join(f"{k} {v:.1f}" for k, v in top))
+                d = device_split(lambda: fn(table, col_n), TRACE_CALLS)
+                top = sorted(d["kernels"].items(), key=lambda kv: -kv[1])
+                print(f"DEVICE {n} {which} busy {d['busy']:.1f} us, {d['events']:g} events a "
+                      "call: " + "; ".join(f"{k} {v:.1f}" for k, v in top))
     return 0
 
 

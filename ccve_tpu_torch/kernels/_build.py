@@ -73,14 +73,14 @@ _ENTRY_POINTS["ccve_murmurhash64_i64"] = [_P, _P, _L, _P]
 #  occupancy, branchy, scratch, total, cache_out, ccnt_out, work, rows, occ,
 #  stream)
 _ENTRY_POINTS["ccve_drain_segment_i32"] = [_P] * 6 + [_L, _I, _I, _I, _I] + [_P] * 8
-# (table, m, keys, valid, n, mult, start, stream)
-_ENTRY_POINTS["ccve_chunk_rank_i64"] = [_P, _L, _P, _P, _L, _P, _P, _P]
+# (table, m, stride_log, keys, valid, n, out, stream)
+_ENTRY_POINTS["ccve_chunk_rank_i64"] = [_P, _L, _I, _P, _P, _L, _P, _P]
 # (sk, st, L, scratch, mult, psum, stream)
 _ENTRY_POINTS["ccve_merge_scan_stats_i64"] = [_P, _P, _L, _P, _P, _P, _P]
 # (s, L, pay_bits, scratch, mult, psum, stream)
 _ENTRY_POINTS["ccve_merge_scan_stats_packed_i64"] = [_P, _L, _I, _P, _P, _P, _P]
-# (s, L, m, scratch, bc, stream)
-_ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _P, _P, _P]
+# (s, L, m, grid, scratch, bc, stream)
+_ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _I, _P, _P, _P]
 # (a, na, b, nb, y, stream)
 _ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P]
 # (x, y, n_tiles, n_stages, stream)
@@ -89,7 +89,6 @@ _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 # returns a byte count
 _SIZE_FUNCTIONS = {
     "ccve_merge_stats_scratch_bytes": [_L],
-    "ccve_merge_build_counts_scratch_bytes": [_L],
     "ccve_compact_scratch_bytes": [_L],
     "ccve_drain_scratch_bytes": [_I, _I],
 }
@@ -160,6 +159,8 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built first if missing or older than a source."""
     global _lib
+    if _lib is not None:  # loaded: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is None:
             if _stale():
@@ -180,15 +181,18 @@ def load() -> ctypes.CDLL:
 
 
 def stream(t: torch.Tensor) -> int:
-    """PyTorch's current stream on `t`'s device, after checking that the
-    device is the current one (the library launches on the current
-    device)."""
-    if t.device.index != torch.cuda.current_device():
+    """PyTorch's current stream on `t`'s device (the raw cudaStream_t, as
+    PyTorch's own generated kernel launchers read it: one C call, where
+    `torch.cuda.current_stream(device).cuda_stream` builds a Stream object
+    a launch), after checking that the device is the current one (the
+    library launches on the current device)."""
+    index = t.get_device()
+    if index != torch.cuda.current_device():
         raise ValueError(
             f"tensor on {t.device}, but the current CUDA device is "
             f"{torch.cuda.current_device()}"
         )
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(code: int, what: str) -> None:
@@ -211,7 +215,7 @@ def check_int(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.device.type not in ("cpu", "cuda"):
+    if not (t.is_cuda or t.is_cpu):
         raise ValueError(f"{name}: unsupported device {t.device}")
     if t.numel() >= 2**31:
         raise ValueError(f"{name}: {t.numel()} elements, the kernels take < 2^31")

@@ -16,7 +16,9 @@ The JAX kernel takes int32 packed operands (key' << 1 | 1, clamped, with
 I32_MAX sentinels on invalid lanes) and a VMEM-staged table, so its
 executor gates each level on key bits and table size and falls back per
 level. The CUDA kernel takes the int64 keys and the table as they are, of
-any size: no packing, no gate.
+any size: no packing, no gate. Each of its blocks stages a sampled index of
+the table in shared memory (every 2^`index_stride_log(m)`-th key, at most
+INDEX_MAX keys) and searches only one leaf of the table in device memory.
 """
 
 from __future__ import annotations
@@ -24,6 +26,16 @@ from __future__ import annotations
 import torch
 
 from ccve_tpu_torch.kernels import _build
+
+INDEX_MAX = 4096  # index keys a block of csrc/chunk_rank.cu stages (32 KB)
+MIN_STRIDE_LOG = 6  # the index samples at least every 64th row
+
+
+def index_stride_log(m: int) -> int:
+    """log2 of the kernel's index stride for a table of m rows: the
+    smallest value >= MIN_STRIDE_LOG at which ceil(m / 2^value) index keys
+    fit in INDEX_MAX, so that the index covers the table."""
+    return max(MIN_STRIDE_LOG, (-(-m // INDEX_MAX) - 1).bit_length())
 
 
 def _check(table_keys, keys, valid):
@@ -34,9 +46,10 @@ def _check(table_keys, keys, valid):
     if valid.shape != keys.shape or not valid.is_contiguous():
         raise ValueError(f"valid: expected a contiguous {tuple(keys.shape)}, "
                          f"got {tuple(valid.shape)}")
-    for name, t in (("keys", keys), ("valid", valid)):
-        if t.device != table_keys.device:
-            raise ValueError(f"{name} on {t.device}, table_keys on {table_keys.device}")
+    index = table_keys.get_device()
+    if keys.get_device() != index or valid.get_device() != index:
+        raise ValueError(f"table_keys on {table_keys.device}, keys on {keys.device}, "
+                         f"valid on {valid.device}")
 
 
 def chunk_rank_plain(table_keys, keys, valid):
@@ -50,20 +63,20 @@ def chunk_rank_plain(table_keys, keys, valid):
 
 def chunk_rank(table_keys, keys, valid):
     """(mult, start) of each lane (see the module docstring): kernel
-    csrc/chunk_rank.cu on a CUDA device, `chunk_rank_plain` on the CPU."""
+    csrc/chunk_rank.cu on a CUDA device, `chunk_rank_plain` on the CPU. On
+    the card both are rows of one int32[2, n] allocation."""
     _check(table_keys, keys, valid)
-    if keys.device.type == "cpu":
+    if keys.is_cpu:
         return chunk_rank_plain(table_keys, keys, valid)
-    n = keys.numel()
-    mult = torch.empty(n, dtype=torch.int32, device=keys.device)
-    start = torch.empty(n, dtype=torch.int32, device=keys.device)
+    n, m = keys.numel(), table_keys.numel()
+    out = keys.new_empty((2, n), dtype=torch.int32)
     code = _build.load().ccve_chunk_rank_i64(
-        table_keys.data_ptr(), table_keys.numel(), keys.data_ptr(), valid.data_ptr(), n,
-        mult.data_ptr(), start.data_ptr(), _build.stream(keys),
+        table_keys.data_ptr(), m, index_stride_log(m), keys.data_ptr(), valid.data_ptr(), n,
+        out.data_ptr(), _build.stream(keys),
     )
     _build.check(code, "chunk_rank")
     chunk_rank.launches += 1
-    return mult, start
+    return out.unbind(0)
 
 
 chunk_rank.launches = 0

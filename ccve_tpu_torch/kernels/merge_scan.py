@@ -5,9 +5,10 @@
    `ccve_tpu.kernels.merge_scan.merge_counts_fused` (int32) and of
    `merge_scan_build_counts64` after `merge_sorted_i64_limbs` (int64),
    summed over the runs of an early-stopped sort, all runs in one launch.
- - `merge_scan_build_counts` (kernel csrc/merge_counts.cu): the same
-   counts from one merged int32 stream, the counterpart of the JAX
-   function of that name.
+ - `merge_scan_build_counts` (kernel csrc/dense_counts.cu, one
+   cooperative launch of `dense_counts_grid` blocks): the same counts from
+   one merged int32 stream, the counterpart of the JAX function of that
+   name.
  - `merge_stats_i32` / `merge_stats_i64` (kernel csrc/merge_stats.cu):
    per-probe match count and matched-payload sum over the merged build and
    probe stream, the counterpart of `merge_scan_stats32` (int32) and of
@@ -27,6 +28,8 @@ it launches its kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ccve_tpu_torch.kernels import _build
@@ -34,6 +37,11 @@ from ccve_tpu_torch.kernels.bigsort import PAD
 
 
 PLAIN_SEARCHES = 1 << 22  # (run, build row) searches a batch of the plain counts
+# csrc/dense_counts.cu's launch: threads a block, stream elements a tile
+# (16 a thread), co-resident blocks an SM
+DENSE_THREADS = 512
+DENSE_TILE = DENSE_THREADS * 16
+DENSE_BLOCKS_PER_SM = 2
 
 
 def _run_counts(runs: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -315,6 +323,22 @@ def merge_scan_build_counts_plain(s: torch.Tensor, m: int, extra: int = 0) -> to
     return dense_build_counts(s >> 1, (s & 1) == 1, m)
 
 
+def dense_counts_grid(length: int, sm_count: int) -> int:
+    """Blocks of the dense counts' cooperative launch over a stream of
+    `length` elements on a card of `sm_count` SMs: one a tile, but at most
+    DENSE_BLOCKS_PER_SM an SM (all resident at once, as its grid-wide
+    barrier needs) and at most DENSE_THREADS (each block scans the grid's
+    aggregates one a thread); at least 1, which zeroes bc when the stream
+    is empty."""
+    tiles = -(-length // DENSE_TILE)
+    return max(1, min(tiles, DENSE_BLOCKS_PER_SM * sm_count, DENSE_THREADS))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def merge_scan_build_counts(s: torch.Tensor, m: int, extra: int = 0) -> torch.Tensor:
     """bc int32[m] from a merged, ascending int32 stream `s` of
     `key' << 1 | tag` (builds odd, probes even, so a key's probes come
@@ -327,14 +351,16 @@ def merge_scan_build_counts(s: torch.Tensor, m: int, extra: int = 0) -> torch.Te
     _build.check_i32(s, "s")
     if m < 0 or extra < 0:
         raise ValueError(f"m {m} and extra {extra} must be >= 0")
-    if s.device.type == "cpu":
+    if s.is_cpu:
         return merge_scan_build_counts_plain(s, m, extra)
-    bc = torch.zeros(m, dtype=torch.int32, device=s.device)
-    if s.numel() and m:
-        lib = _build.load()
-        scratch = _scratch(lib.ccve_merge_build_counts_scratch_bytes, s.numel(), s.device)
-        code = lib.ccve_merge_build_counts_i32(
-            s.data_ptr(), s.numel(), m, scratch.data_ptr(), bc.data_ptr(), _build.stream(s),
+    # every rank is written by the kernel: no memset of bc or the scratch
+    bc = s.new_empty(m)
+    if m:
+        grid = dense_counts_grid(s.numel(), _sm_count(s.get_device()))
+        scratch = s.new_empty(3 * grid)
+        code = _build.load().ccve_merge_build_counts_i32(
+            s.data_ptr(), s.numel(), m, grid, scratch.data_ptr(), bc.data_ptr(),
+            _build.stream(s),
         )
         _build.check(code, "merge_scan_build_counts")
         merge_scan_build_counts.launches += 1

@@ -101,12 +101,21 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     on and off.
 30. #11, the per-chunk rank, against its plain version at small shapes
     (the cases of tests/test_torch_chunk_probe.py and random (m, block) up
-    to block 4096): mult everywhere, start where mult > 0.
+    to block 4096): mult everywhere, start where mult > 0; then the edges of
+    its index design (`bench.edge_cases.chunk_rank_cases`: tables of
+    stride·k and stride·k ± 1 rows, the index's sampled keys, duplicate runs
+    across leaf boundaries, a hot key of 12,000 rows, m = 2^21 and 2^24, the
+    int64 extremes, m = 0 and 1): mult and start everywhere.
 31. Config 3 in the chunk rank mode at full size (phase 8's data, block
     2048), NONE and FULL, preloaded, counters zeroed just before each: count
     62,667 with #11 launched; run() seconds beside the batched mode's; #11
     at config-3 shapes against its plain version, the two-searchsorted
-    library call and its bound, with CUDA events.
+    library call and its bound, with CUDA events; then both read apart on
+    the host and the device (`bench.kernel_split`, in turns kernel,
+    library, library, kernel): one-call and chained CUDA-event times, the
+    host's enqueue, torch.profiler's device time and events a call, and the
+    allocations a call (#11: one kernel, one allocation); and the host time
+    of each step of #11's wrapper, timed apart.
 32. Zebra at config 3: FULL and BINARY with `record_occupancy` on the fused
     route (#10's variant launched, counters zeroed just before) and on the
     torch drain, histograms equal bin for bin and count 62,667; a
@@ -142,8 +151,16 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     counted call, #5 and #4 on that call's own streams against their plain
     versions; their times in the kernel line are at 8192 probes, the
     path's widest shape, beside `torch.sort` of the concatenation and two
-    `torch.searchsorted`. Both routes timed at 1, 100, 1024 and 8192
-    probes (`bench.small_probe`), with each route's device time at 8192.
+    `torch.searchsorted`; #4 and that library call read apart on the host
+    and the device as in phase 31 (#4: one kernel, no memset). #4 against
+    its plain version on the edges of its one-launch design
+    (`bench.edge_cases.dense_counts_cases`: lengths at its tile multiple
+    and one off, builds only, probes only, a 100K-probe hot key, phantoms,
+    m below and past the builds, L = 1 and 0, more tiles than the grid),
+    each into memory the allocator last held garbage in and from a view 4
+    bytes past a 16-byte boundary. Both routes timed at 1, 100, 1024 and
+    8192 probes (`bench.small_probe`), with each route's device time at
+    8192.
 38. #5 then #4 on config 1's own streams (the sorted 16M probe stream and
     the 1M build stream), and #16 on config 1's table packed as the JAX
     package's `table.pack` does: Σ bc / dot(bc, payloads) and Σ mult /
@@ -204,7 +221,7 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
 from ccve_tpu_torch.bench.profile_config1 import busy_window  # noqa: E402
-from ccve_tpu_torch.bench import roofline, small_probe  # noqa: E402
+from ccve_tpu_torch.bench import edge_cases, kernel_split, roofline, small_probe  # noqa: E402
 from ccve_tpu_torch.core import chunk as chunklib  # noqa: E402
 from ccve_tpu_torch.core.collection import DataCollection  # noqa: E402
 from ccve_tpu_torch.exec.bulk import (  # noqa: E402
@@ -729,6 +746,14 @@ def main() -> int:
 
     def spread(ts):
         return f"{med(ts):.4f} ms (min {min(ts):.4f}, max {max(ts):.4f})"
+
+    def log_split(split, bound_ms):
+        """A kernel_split.in_turns reading, kernel first, beside its bound."""
+        log(f"  host and device apart on [{card}] (bench.kernel_split, in turns; call: "
+            f"medians of {2 * kernel_split.REPS}; chain: {kernel_split.CHAIN} calls; device: "
+            f"torch.profiler over {kernel_split.TRACE_CALLS} calls); bound {bound_ms:.6f} ms:")
+        for name, r in split.items():
+            log(f"    {name}: {kernel_split.summary(r)}")
 
     # ---- 8. config 3's bulk engine at full size ----------------------------
     t0 = time.perf_counter()
@@ -1662,9 +1687,15 @@ def main() -> int:
         if m:
             keys[: block // 2] = table[rng.integers(0, m, block // 2)]
         rank_same(table, keys, rng.random(block) < 0.9, f"random case {case}: m={m}")
+    # the index design's edges: start compared everywhere (the lower bound)
+    rank_edges = edge_cases.chunk_rank_cases(np.random.default_rng(30))
+    for what, table, keys, valid in rank_edges:
+        args = [torch.from_numpy(a).cuda() for a in (table, keys, valid)]
+        same("chunk_rank", chunk_rank(*args), chunk_rank_plain(*args), what)
     torch.cuda.synchronize()
     log(f"phase slice-7b kernel #11 (small shapes): ok ({time.perf_counter() - t0:.1f} s), max "
-        f"|kernel - plain| {max_err['chunk_rank']}")
+        f"|kernel - plain| {max_err['chunk_rank']}; {len(rank_edges)} edge cases exact: "
+        + "; ".join(what for what, *_ in rank_edges))
 
     # ---- 31. config 3 in the chunk rank mode at full size -------------------------
     t0 = time.perf_counter()
@@ -1711,6 +1742,19 @@ def main() -> int:
         f"kernel {kernel_ms['chunk_rank'][0]:.4f} ms, plain {kernel_ms['chunk_rank'][1]:.4f} "
         f"ms, two torch.searchsorted {kernel_ms['chunk_rank'][2]:.4f} ms, bound "
         f"{bound_cr[0]:.6f} ms ({bound_cr[1]}, the table counted once a launch) [{card}]")
+    rank_split = kernel_split.in_turns({
+        "chunk_rank": lambda: chunk_rank(table3_keys, keys_cr, valid_cr),
+        "two torch.searchsorted": lambda: (
+            torch.searchsorted(table3_keys, keys_cr, side="left"),
+            torch.searchsorted(table3_keys, keys_cr, side="right")),
+    })
+    log_split(rank_split, bound_cr[0])
+    log("    #11's host steps, us a call (timed apart): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in kernel_split.rank_host_steps(
+            table3_keys, keys_cr, valid_cr).items()))
+    if (rank_split["chunk_rank"]["device"]["events"], rank_split["chunk_rank"]["allocs"]) != (1, 1):
+        raise AssertionError(f"#11 a call: {rank_split['chunk_rank']['device']['events']} device "
+                             f"events, {rank_split['chunk_rank']['allocs']} allocations")
 
     # ---- 32. Zebra at config 3 ---------------------------------------------------
     t0 = time.perf_counter()
@@ -2071,6 +2115,14 @@ def main() -> int:
     len8 = s8.numel()
     work["merge_two_i32"] = (8 * len8, len8)
     work["merge_scan_build_counts_i32"] = (4 * len8 + 4 * N_BUILD, 4 * len8)
+    counts_split = kernel_split.in_turns({
+        "merge_scan_build_counts": lambda: merge_scan.merge_scan_build_counts(s8, N_BUILD),
+        "two torch.searchsorted and a subtraction": lambda: (
+            torch.searchsorted(ps8, want_b8, right=True) - torch.searchsorted(ps8, want_b8)),
+    })
+    d4 = counts_split["merge_scan_build_counts"]["device"]
+    if d4["events"] != 1 or any("emset" in k for k in d4["kernels"]):
+        raise AssertionError(f"#4 a call: {d4['events']} device events {d4['kernels']}")
     del p8, b8, ps8, s8, cat8, want_b8
     log(f"times on [{card}], CUDA events, medians of {REPS}, 8192 probes against config 1's "
         f"1M rows ({len8} merged elements):")
@@ -2078,6 +2130,20 @@ def main() -> int:
         times = kernel_ms[name]
         log(f"  {name}: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, library "
             f"{times[2]:.4f} ms, bound {bound(*work[name])[0]:.4f} ms ({bound(*work[name])[1]})")
+    log_split(counts_split, bound(*work["merge_scan_build_counts_i32"])[0])
+    # #4 on the edges of its one-launch design, each call into memory the
+    # allocator last held garbage in (bc has no memset), and from a view 4
+    # bytes past a 16-byte boundary (the scalar loads)
+    count_edges = edge_cases.dense_counts_cases(np.random.default_rng(37))
+    for what, s_e, m_e in count_edges:
+        s_e = torch.from_numpy(s_e).cuda()
+        for view, x in (("", s_e), (" from element 1", s_e[1:])):
+            torch.full((m_e + 4096,), -7, dtype=torch.int32, device="cuda")  # freed at once
+            same("merge_scan_build_counts_i32", merge_scan.merge_scan_build_counts(x, m_e),
+                 merge_scan.merge_scan_build_counts_plain(x, m_e), what + view)
+    torch.cuda.synchronize()
+    log(f"  #4 on {len(count_edges)} edge cases, aligned and from element 1, exact: "
+        + "; ".join(what for what, *_ in count_edges))
     log(f"times on [{card}], CUDA events, medians of {2 * REPS} in turns tile, small, small, "
         "tile; host wall time a call (synchronized), medians of "
         f"{REPS}: config 1's table against its first n probes, sorted_match_totals (small-probe "
@@ -2092,10 +2158,11 @@ def main() -> int:
         log(f"  n={n_s}: small-probe {spread(ts['small'])}, host {med(ts['small host']):.4f} "
             f"ms; tile {spread(ts['tile'])}, host {med(ts['tile host']):.4f} ms")
     for which, fn in small_probe.ROUTES.items():
-        busy, n_ev, per_kernel = small_probe.device_split(lambda: fn(table1, col[:n_8k]))
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-        log(f"  device at n=8192, {which} route: busy {busy:.1f} us a call, {n_ev:.0f} device "
-            "events a call; " + "; ".join(f"{k} {v:.1f} us" for k, v in top))
+        d = kernel_split.device_split(lambda: fn(table1, col[:n_8k]), small_probe.TRACE_CALLS)
+        top = sorted(d["kernels"].items(), key=lambda kv: -kv[1])[:8]
+        log(f"  device at n=8192, {which} route: busy {d['busy']:.1f} us a call, "
+            f"{d['events']:g} device events a call; "
+            + "; ".join(f"{k} {v:.1f} us" for k, v in top))
 
     # ---- 38. #5, #4 and #16 at full width on config 1's own data ----------------
     t0 = time.perf_counter()
@@ -2304,7 +2371,7 @@ def main() -> int:
                                  "ccve_tpu/kernels/merge_scan.py:166"),
         "merge_scan_stats_packed_i64": ("ccve_tpu_torch/kernels/csrc/merge_stats.cu",
                                         "ccve_tpu/kernels/merge_scan.py:62"),
-        "merge_scan_build_counts_i32": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
+        "merge_scan_build_counts_i32": ("ccve_tpu_torch/kernels/csrc/dense_counts.cu",
                                         "ccve_tpu/kernels/merge_scan.py:464"),
         "merge_two_i32": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
                           "ccve_tpu/kernels/bigsort.py:229"),

@@ -109,3 +109,86 @@ def test_plain_matches_jax_kernel(m, dom, count):
     live = j_mult > 0
     assert live.sum() > 20
     np.testing.assert_array_equal(start.numpy()[live], j_start[live])
+
+
+@pytest.mark.parametrize("m", [0, 1, 63, 64, 65, 64 * 4096 - 1, 64 * 4096, 64 * 4096 + 1,
+                               1 << 21, 1 << 24, (1 << 24) + 1, 2**31 - 1])
+def test_index_stride_fits_and_covers(m):
+    """The kernel's index: within INDEX_MAX keys, covering all m rows, at
+    the least stride that does both (never below 2^MIN_STRIDE_LOG)."""
+    log = chunk_probe.index_stride_log(m)
+    n_index = -(-m // (1 << log))
+    assert log >= chunk_probe.MIN_STRIDE_LOG
+    assert n_index <= chunk_probe.INDEX_MAX and n_index << log >= m
+    assert log == chunk_probe.MIN_STRIDE_LOG or -(-m // (1 << (log - 1))) > chunk_probe.INDEX_MAX
+
+
+def _bound_in(table, lo, hi, k, upper, loads):
+    while lo < hi:
+        mid = lo + ((hi - lo) >> 1)
+        loads[0] += 1
+        if (table[mid] <= k) if upper else (table[mid] < k):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _kernel_model(table, keys, valid):
+    """csrc/chunk_rank.cu's search, lane by lane: (mult, start, the most
+    device-memory loads of a lane whose key is absent or unique, the most
+    of any lane)."""
+    m = table.size
+    log = chunk_probe.index_stride_log(m)
+    index = table[::1 << log]
+    mult, start = np.zeros(keys.size, np.int32), np.zeros(keys.size, np.int32)
+    few = most = 0
+    for lane, k in enumerate(keys.tolist()):
+        loads = [0]
+        j = int(np.searchsorted(index, k, "left"))  # the index, in shared memory
+        first = 0
+        if j:
+            first = _bound_in(table, ((j - 1) << log) + 1, min(j << log, m), k, False, loads)
+        count = 0
+        if valid[lane] and first < m:
+            loads[0] += 1
+            if table[first] == k:
+                last = first + 1
+                if last < m:
+                    loads[0] += 1
+                if last < m and table[last] == k:
+                    j2 = int(np.searchsorted(index, k, "right"))
+                    last = _bound_in(table, max(((j2 - 1) << log) + 1, last + 1),
+                                     min(j2 << log, m), k, True, loads)
+                count = last - first
+        mult[lane], start[lane] = count, first
+        most = max(most, loads[0])
+        if count <= 1:
+            few = max(few, loads[0])
+    return mult, start, few, most
+
+
+def test_kernel_search_model_at_the_edges():
+    """The kernel's index, leaf and gallop searches, modelled lane by lane,
+    give numpy's ranks on every edge case of `bench.edge_cases` (tables of
+    stride·k ± 1 rows, sampled keys, runs across leaf boundaries, a hot
+    key, the int64 extremes, m = 0): at most log2(stride) + 2 loads from
+    device memory for an absent or unique key and 2 log2(stride) + 2 for
+    any key. The plain version gives the same ranks."""
+    from ccve_tpu_torch.bench.edge_cases import HOT_RUN, chunk_rank_cases
+
+    cases = chunk_rank_cases(np.random.default_rng(30), big=False)
+    hot_seen = False
+    for what, table, keys, valid in cases:
+        want_mult, want_start = _numpy(table, keys, valid)
+        mult, start, few, most = _kernel_model(table, keys, valid)
+        np.testing.assert_array_equal(mult, want_mult, err_msg=what)
+        np.testing.assert_array_equal(start, want_start, err_msg=what)
+        log = chunk_probe.index_stride_log(table.size)
+        assert few <= log + 2 and most <= 2 * log + 2, what
+        hot_seen |= int(want_mult.max(initial=0)) >= HOT_RUN
+        t = torch.from_numpy
+        p_mult, p_start = chunk_probe.chunk_rank_plain(t(table), t(keys), t(valid))
+        np.testing.assert_array_equal(p_mult.numpy(), want_mult, err_msg=what)
+        np.testing.assert_array_equal(p_start.numpy(), want_start, err_msg=what)
+    assert hot_seen

@@ -596,6 +596,38 @@ def test_chunk_rank_kernel(cuda, m, dom, n):
     assert torch.equal(mult, want_mult) and torch.equal(start, want_start)
 
 
+def test_chunk_rank_kernel_edges(cuda):
+    """#11 against its plain version on every case of
+    `bench.edge_cases.chunk_rank_cases` (tables of stride·k ± 1 rows, the
+    index's sampled keys, runs across leaf boundaries, a hot key of 12,000
+    rows, the int64 extremes, m = 0 and 1, m = 2^21 and 2^24): mult and
+    start everywhere, exactly."""
+    from ccve_tpu_torch.bench.edge_cases import chunk_rank_cases
+    from ccve_tpu_torch.kernels import chunk_probe
+
+    for what, table, keys, valid in chunk_rank_cases(np.random.default_rng(30)):
+        args = [torch.from_numpy(a).to(cuda) for a in (table, keys, valid)]
+        mult, start = chunk_probe.chunk_rank(*args)
+        want_mult, want_start = chunk_probe.chunk_rank_plain(*args)
+        assert torch.equal(mult, want_mult) and torch.equal(start, want_start), what
+
+
+def test_chunk_rank_kernel_allocates_once(cuda):
+    """One call of #11 makes one device allocation: mult and start are the
+    rows of one int32[2, n]."""
+    from ccve_tpu_torch.kernels import chunk_probe
+
+    table = torch.arange(0, 100_000, 2, dtype=torch.int64, device=cuda)
+    keys = torch.arange(2048, dtype=torch.int64, device=cuda) * 3
+    valid = torch.ones(2048, dtype=torch.bool, device=cuda)
+    chunk_probe.chunk_rank(table, keys, valid)
+    before = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    mult, start = chunk_probe.chunk_rank(table, keys, valid)
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] == before + 1
+    assert mult.untyped_storage().data_ptr() == start.untyped_storage().data_ptr()
+    assert torch.equal(mult, (keys % 2 == 0).int()) and torch.equal(start, ((keys + 1) // 2).int())
+
+
 def _sorted_setup(device, strategy, n_joins=3, lhs=20_000, rhs=3000, chunk_factor=2,
                   block=256, collect=False):
     from ccve_tpu_torch.config import CompactionStrategy, EngineConfig
@@ -770,6 +802,24 @@ def test_merge_scan_build_counts_kernel(cuda, m, n, dom, phantoms):
     for mm in (m, m + phantoms // 2, m + phantoms + 3000):
         got = merge_scan.merge_scan_build_counts(s, mm, extra=phantoms)
         assert torch.equal(got, merge_scan.merge_scan_build_counts_plain(s, mm, phantoms))
+
+
+def test_merge_scan_build_counts_kernel_edges(cuda):
+    """#4 against its plain version on every case of
+    `bench.edge_cases.dense_counts_cases` (lengths at the tile multiple and
+    one off, builds only, probes only, a 100K-probe hot key, phantoms, m
+    below and past the builds, L = 1 and 0, more tiles than the grid),
+    each into memory the caching allocator last filled with garbage (the
+    kernel writes every rank: bc has no memset), and from a view 4 bytes
+    past a 16-byte boundary (the kernel's scalar loads)."""
+    from ccve_tpu_torch.bench.edge_cases import dense_counts_cases
+
+    for what, s, m in dense_counts_cases(np.random.default_rng(37)):
+        s_dev = _i32(s, cuda)
+        for view, x in (("", s_dev), (" from element 1", s_dev[1:])):
+            torch.full((m + 4096,), -7, dtype=torch.int32, device=cuda)  # freed at once
+            got = merge_scan.merge_scan_build_counts(x, m)
+            assert torch.equal(got, merge_scan.merge_scan_build_counts_plain(x, m)), what + view
 
 
 @pytest.mark.parametrize("na, nb", [(1, 1), (0, 9), (9, 0), (1, 100_000), (100_000, 1),

@@ -117,3 +117,44 @@ def test_small_probe_build_counts_match_jax():
     want = np.asarray(jax_sm.sorted_build_counts(jax_table, jnp.asarray(probe)))
     table = sm.build_sorted(keys, device="cpu")
     np.testing.assert_array_equal(sm.sorted_build_counts(table, probe).numpy(), want)
+
+
+@pytest.mark.parametrize("length", [0, 1, merge_scan.DENSE_TILE - 1, merge_scan.DENSE_TILE,
+                                    merge_scan.DENSE_TILE + 1, 264 * merge_scan.DENSE_TILE,
+                                    264 * merge_scan.DENSE_TILE + 1, 17_000_000, 2**31 - 1])
+@pytest.mark.parametrize("sm_count", [1, 132, 300])
+def test_dense_counts_grid(length, sm_count):
+    """The cooperative launch's grid: at least one block, never more than
+    can be resident at once (DENSE_BLOCKS_PER_SM an SM) nor than the
+    prefix step's threads, and one block a tile while the tiles fit, so
+    that each element is then read once."""
+    grid = merge_scan.dense_counts_grid(length, sm_count)
+    tiles = -(-length // merge_scan.DENSE_TILE)
+    cap = min(merge_scan.DENSE_BLOCKS_PER_SM * sm_count, merge_scan.DENSE_THREADS)
+    assert 1 <= grid <= max(cap, 1)
+    assert grid == max(1, min(tiles, cap))
+    # every tile has a block: blocks take ceil(tiles / grid) tiles at most
+    assert grid * -(-tiles // grid) >= tiles
+
+
+def _dense_numpy(s, m):
+    """bc[j] = the probes equal to the j-th build entry's value less one."""
+    builds = s[(s & 1) == 1].astype(np.int64)[:m]
+    v = builds - 1
+    bc = np.zeros(m, np.int32)
+    bc[: builds.size] = np.searchsorted(s, v, "right") - np.searchsorted(s, v, "left")
+    return bc
+
+
+def test_dense_counts_edge_cases():
+    """`bench.edge_cases.dense_counts_cases` at a 64-element tile: the
+    plain version equals numpy on every case (lengths at tile multiples
+    and one off, builds only, probes only, a hot key across many tiles,
+    phantoms, m below and past the builds, L = 1 and 0)."""
+    from ccve_tpu_torch.bench.edge_cases import dense_counts_cases
+
+    cases = dense_counts_cases(np.random.default_rng(37), tile=64)
+    assert {len(s) for _, s, _ in cases} >= {0, 1, 63, 64, 65, 191, 192, 193}
+    for what, s, m in cases:
+        got = merge_scan.merge_scan_build_counts(torch.from_numpy(s), m)
+        np.testing.assert_array_equal(got.numpy(), _dense_numpy(s, m), err_msg=what)
