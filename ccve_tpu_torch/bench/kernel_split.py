@@ -10,7 +10,12 @@ table) and #4 (`merge_scan_build_counts`, config 1's 1M-row table against
 its first 8192 probes, as the small-probe route calls it), and for each
 one's library yardstick (two `torch.searchsorted`; two `torch.searchsorted`
 and a subtraction), it prints one `SPLIT` line of `split`'s readings, in
-turns kernel, library, library, kernel:
+turns kernel, library, library, kernel. For #10 (`drain_segment`, no
+library call computes it) it prints one `SPLIT` line a shape: config 3's
+whole stream (489 chunks of 4 levels, block 2048) under FULL and NONE
+thresholds, its first 64 chunks (a streamed segment) under FULL, config
+7's 977 chunks under FULL, and the occupancy variant at config 3 FULL,
+with the launches a call and the grid:
 
 - `call_ms`: CUDA events around one eager call, median (min, max) of
   2 * REPS calls: what a caller pays, the larger of the host's enqueue
@@ -30,10 +35,10 @@ turns kernel, library, library, kernel:
   the windows that lost nothing;
 - `allocs`: the caching allocator's allocation requests a call.
 
-Both kernels' results are checked against their plain versions first. It
-imports only what earlier versions of these two kernels also had, so the
-same script reads a parent tree (copied into it) and the change back to
-back on one card.
+Every kernel's results are checked against its plain version first. It
+imports only what earlier versions of these kernels also had, so the same
+script reads a parent tree (copied into it) and the change back to back on
+one card.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import torch
 from ccve_tpu_torch.bench.configs import config1_host
 from ccve_tpu_torch.bench.profile_config1 import busy_window
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu_torch.kernels import bigsort, merge_scan
+from ccve_tpu_torch.kernels import bigsort, drain, merge_scan
 from ccve_tpu_torch.kernels.chunk_probe import chunk_rank, chunk_rank_plain
 from ccve_tpu_torch.ops import sort_merge as sm
 
@@ -216,6 +221,82 @@ def counts_inputs(device):
     return bigsort.merge_sorted_i32(ps, b), b.numel(), ps, b
 
 
+DRAIN_BLOCK = 2048
+
+
+def drain_args(tables, probe: np.ndarray, thr: int, occupancy=False) -> tuple:
+    """#10's arguments for a probe table int[n, L] as the sorted executor
+    hands it a preloaded stream at FULL (thr = the block) or NONE (thr =
+    0): its rank pass's mult planes int32[S, L, 2048], the chunk counts,
+    the thresholds and zero caches."""
+    from ccve_tpu_torch.config import CompactionStrategy, EngineConfig
+    from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
+
+    device = tables[0].keys.device
+    n, L = probe.shape
+    S = -(-n // DRAIN_BLOCK)
+    cols = np.zeros((S * DRAIN_BLOCK, L), np.int64)
+    cols[:n] = probe
+    cols = torch.from_numpy(cols.reshape(S, DRAIN_BLOCK, L).transpose(0, 2, 1).copy())
+    cfg = EngineConfig(block_size=DRAIN_BLOCK, n_joins=L, lhs_size=n, rhs_size=50_000,
+                       strategy=CompactionStrategy.FULL)
+    mults = SortedPipeline(list(tables), cfg)._seg_mults(cols.to(device))
+    counts = np.minimum(DRAIN_BLOCK, n - DRAIN_BLOCK * np.arange(S)).astype(np.int32)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)  # noqa: E731
+    return (mults, torch.from_numpy(counts).to(device), z(L) + thr, z(L - 1, L, DRAIN_BLOCK),
+            z(L if occupancy else L - 1))
+
+
+def drain_cases(device) -> dict:
+    """{name: (args, kwargs)} of #10 at config 3's and config 7's shapes."""
+    from ccve_tpu_torch.bench.configs import config3_data, config7_data
+
+    tables3, probe3, _ = config3_data(1_000_000, 50_000, device)
+    host3 = probe3.cpu().numpy()
+    table7, host7, _ = config7_data(2_000_000, 50_000, device)
+    full3 = drain_args(tables3, host3, DRAIN_BLOCK)
+    kw = dict(block=DRAIN_BLOCK, fanouts=(1,) * host3.shape[1])
+    S3 = full3[0].shape[0]
+    return {
+        f"drain_segment config 3 FULL S={S3}": (full3, kw),
+        f"drain_segment config 3 NONE S={S3}": (full3[:2] + (full3[2] * 0,) + full3[3:], kw),
+        "drain_segment config 3 FULL S=64": (drain_args(tables3, host3[:64 * DRAIN_BLOCK],
+                                                        DRAIN_BLOCK), kw),
+        f"drain_segment config 7 FULL S={-(-host7.shape[0] // DRAIN_BLOCK)}": (
+            drain_args([table7] * host7.shape[1], host7, DRAIN_BLOCK), kw),
+        f"drain_segment_occ config 3 FULL S={S3}": (
+            drain_args(tables3, host3, DRAIN_BLOCK, occupancy=True),
+            dict(kw, record_occupancy=True)),
+    }
+
+
+def drain_splits(device) -> dict:
+    """{name: split, with the launches a call and the grid} of #10 at each
+    of `drain_cases`' shapes, each first held against the plain version."""
+    out = {}
+    for name, (args, kw) in drain_cases(device).items():
+        got = drain.drain_segment(*args, **kw)
+        want = drain.drain_segment_plain(*args, **kw)
+        if int(got[0]) != int(want[0]) or not all(
+                torch.equal(g, w) for g, w in zip(got[2:], want[2:])):
+            raise AssertionError(f"{name}: #10 disagrees with its plain version")
+        counter = drain.occupancy_variant if kw.get("record_occupancy") else drain.drain_segment
+        before, calls = counter.launches, [0]
+
+        def call(args=args, kw=kw):
+            calls[0] += 1
+            return drain.drain_segment(*args, **kw)
+
+        r = split(call)
+        r["launches"] = (counter.launches - before) / calls[0]
+        # a drain without `grid` is the one-block kernel it replaced
+        occupancy = kw.get("record_occupancy", False)
+        r["grid"] = (drain.grid(args[0].shape[0], kw["fanouts"], occupancy)
+                     if hasattr(drain, "grid") else 1)
+        out[name] = r
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split: needs a CUDA device")
@@ -248,6 +329,12 @@ def main() -> int:
           f"against config 1's 1M rows ({s.numel()} merged elements), on [{card}]:")
     for name, r in {**rank, **counts}.items():
         print(f"SPLIT {name}: {summary(r)}")
+    drains = drain_splits(device)
+    print(f"#10 at config 3's and config 7's shapes (4 levels, block {DRAIN_BLOCK}, "
+          f"fanouts 1), on [{card}]:")
+    for name, r in drains.items():
+        print(f"SPLIT {name}: {summary(r)}; launches a call {r['launches']:g}, grid "
+              f"{r['grid']}")
     return 0
 
 

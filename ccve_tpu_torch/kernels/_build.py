@@ -69,10 +69,13 @@ _ENTRY_POINTS = {
 _ENTRY_POINTS["ccve_compact_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P]
 # (x, y, n, stream)
 _ENTRY_POINTS["ccve_murmurhash64_i64"] = [_P, _P, _L, _P]
-# (mults, counts, thresholds, fanouts, cache_in, ccnt_in, S, L, block,
-#  occupancy, branchy, scratch, total, cache_out, ccnt_out, work, rows, occ,
-#  stream)
+# (mults, counts, thresholds, fanouts (host), cache_in, ccnt_in, S, L,
+#  block, occupancy, branchy, scratch, total, cache_out, ccnt_out, work,
+#  rows, occ, stream)
 _ENTRY_POINTS["ccve_drain_segment_i32"] = [_P] * 6 + [_L, _I, _I, _I, _I] + [_P] * 8
+# (S, L, occupancy, fanouts (host)): the blocks of such a drain call on the
+# current device, or minus a CUDA error
+_ENTRY_POINTS["ccve_drain_grid"] = [_L, _I, _I, _P]
 # (table, m, stride_log, keys, valid, n, out, stream)
 _ENTRY_POINTS["ccve_chunk_rank_i64"] = [_P, _L, _I, _P, _P, _L, _P, _P]
 # (sk, st, L, scratch, mult, psum, stream)
@@ -90,7 +93,8 @@ _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 _SIZE_FUNCTIONS = {
     "ccve_merge_stats_scratch_bytes": [_L],
     "ccve_compact_scratch_bytes": [_L],
-    "ccve_drain_scratch_bytes": [_I, _I],
+    # (S, L, block, occupancy, fanouts (host)); -1 where they do not fit
+    "ccve_drain_scratch_bytes": [_L, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

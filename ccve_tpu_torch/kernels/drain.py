@@ -36,13 +36,17 @@ empty subtree records its zero-count emissions.
 
 The JAX kernel pads planes to max(block / 128, 8) x 128 lanes and sums in
 int32 (Mosaic has no 64-bit types); here planes are `block` wide and the
-total is int64. Any number of levels and any block run, with the caches in
-shared memory where they fit and in device memory otherwise; the one limit
-is the JAX gate's, at most 64 drain paths (Π fanouts[:-1]).
+total is int64. The kernel takes the recursion level by level in one
+cooperative launch over the whole card (csrc/drain.cu's header), with a
+scratch the wrapper sizes from S, the block and the fanouts. Any number of
+levels and any block run; the one limit is the JAX gate's, at most 64
+drain paths (Π fanouts[:-1]).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from types import SimpleNamespace
 
@@ -157,6 +161,24 @@ def drain_segment_plain(mults, counts, thresholds, cache_m, cache_cnt, *, block,
     return out + (as_i32(occ),) if record_occupancy else out
 
 
+@functools.lru_cache(maxsize=256)
+def _host_fanouts(fanouts: tuple) -> ctypes.Array:
+    """The fanouts as the C entry points take them: int32[L] on the host
+    (kept a tuple, so a call builds no array)."""
+    return (ctypes.c_int * len(fanouts))(*fanouts)
+
+
+def grid(S, fanouts, record_occupancy=False) -> int:
+    """The blocks of the cooperative launch of a drain of S chunks at
+    `fanouts` on the current CUDA device."""
+    fanouts = tuple(int(f) for f in fanouts)
+    blocks = _build.load().ccve_drain_grid(S, len(fanouts), int(record_occupancy),
+                                           ctypes.addressof(_host_fanouts(fanouts)))
+    if blocks <= 0:
+        _build.check(-blocks, "drain grid")
+    return blocks
+
+
 def drain_segment(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanouts,
                   record_occupancy=False, branchy=True):
     """The fused drain of one segment (see the module docstring): kernel
@@ -168,26 +190,27 @@ def drain_segment(mults, counts, thresholds, cache_m, cache_cnt, *, block, fanou
                                    fanouts=fanouts, record_occupancy=record_occupancy,
                                    branchy=branchy)
     S, L, _ = mults.shape
-    dev = mults.device
     lib = _build.load()
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
-    cache_out = cache_m.clone()
-    ccnt_out = torch.empty_like(cache_cnt)
-    work = torch.empty(L, dtype=torch.int32, device=dev)
-    rows = torch.empty(L, dtype=torch.int32, device=dev)
-    occ = (torch.zeros((L, block + 1), dtype=torch.int32, device=dev)
-           if record_occupancy else None)
-    # the fanouts go to the device through pinned memory: no wait for the card
-    fan = torch.tensor(fanouts, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
-    n_scratch = lib.ccve_drain_scratch_bytes(L, block)
-    scratch = (torch.empty(n_scratch // 4, dtype=torch.int32, device=dev)
-               if n_scratch else None)
+    fan = ctypes.addressof(_host_fanouts(fanouts))
+    n_scratch = lib.ccve_drain_scratch_bytes(S, L, block, int(record_occupancy), fan)
+    if n_scratch < 0:
+        raise ValueError(f"drain_segment: L={L}, block {block} and fanouts {fanouts} take "
+                         "row ids past int32 even one chunk at a time")
+    scratch = mults.new_empty(n_scratch // 4)
+    # the outputs in one allocation, each written by the kernel (no memset):
+    # total (int64), caches, cache counts, work, rows and the histograms
+    CL, CC = cache_m.shape[0], cache_cnt.shape[0]
+    sizes = [2, cache_m.numel(), CC, L, L] + ([L * (block + 1)] if record_occupancy else [])
+    parts = mults.new_empty(sum(sizes)).split(sizes)
+    total = parts[0].view(torch.int64)
+    cache_out = parts[1].view(CL, L, block)
+    ccnt_out, work, rows = parts[2:5]
+    occ = parts[5].view(L, block + 1) if record_occupancy else None
     code = lib.ccve_drain_segment_i32(
-        mults.data_ptr(), counts.data_ptr(), thresholds.data_ptr(),
-        fan.data_ptr(), cache_m.data_ptr(), cache_cnt.data_ptr(), S, L,
-        block, int(record_occupancy), int(branchy),
-        None if scratch is None else scratch.data_ptr(), total.data_ptr(),
-        cache_out.data_ptr(), ccnt_out.data_ptr(), work.data_ptr(), rows.data_ptr(),
+        mults.data_ptr(), counts.data_ptr(), thresholds.data_ptr(), fan,
+        cache_m.data_ptr(), cache_cnt.data_ptr(), S, L, block, int(record_occupancy),
+        int(branchy), scratch.data_ptr(), total.data_ptr(), cache_out.data_ptr(),
+        ccnt_out.data_ptr(), work.data_ptr(), rows.data_ptr(),
         None if occ is None else occ.data_ptr(), _build.stream(mults),
     )
     _build.check(code, "drain_segment")

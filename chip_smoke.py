@@ -83,7 +83,12 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     torch drain's seconds.
 25. #10 at config 3's shapes (the FULL run's mult planes, zero caches)
     against its plain version, exactly; both timed with CUDA events, beside
-    the bound.
+    the bound. Then #10 read apart (`bench.kernel_split.split`) at config
+    3's 489 chunks under FULL and NONE thresholds, its first 64 (a
+    streamed segment) and config 7's 977 chunks under FULL: one-call and
+    chained CUDA-event times, the host's enqueue, the device time, one
+    launch a call asserted, the cooperative grid (more than one block
+    asserted) and the bound of each.
 26. Config 7 at full size (2M x 4 levels, hit rates 0.95, 0.03, 1, 1, 50K
     build rows, block 2048): no_compaction, full_compaction and
     mixed_static, preloaded, count equal to the oracle and `bulk_count`,
@@ -250,6 +255,7 @@ from ccve_tpu_torch.kernels.drain import (  # noqa: E402
     drain_segment_plain,
     occupancy_variant,
 )
+from ccve_tpu_torch.kernels.drain import grid as drain_grid  # noqa: E402
 from ccve_tpu_torch.utils.profiler import ZebraProfiler  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
 from ccve_tpu_torch.ops.hash_table import build_csr, build_lp  # noqa: E402
@@ -1545,9 +1551,51 @@ def main() -> int:
         f"{kernel_ms['drain_segment'][0]:.4f} ms, plain {kernel_ms['drain_segment'][1]:.4f} "
         f"ms, bound {bound_d[0]:.4f} ms ({bound_d[1]}) [{card}]")
 
+    # #10 read apart at config 3's and config 7's shapes
+    table7, host7, want7 = config7_data(2_000_000, 50_000, torch.device("cuda"))
+    cols7, counts7 = chunked(host7)
+    mults7 = SortedPipeline([table7] * 4, EngineConfig(
+        block_size=2048, n_joins=4, lhs_size=host7.shape[0], rhs_size=50_000,
+        strategy=CompactionStrategy.FULL))._seg_mults(cols7)
+    thr_none = torch.zeros(4, dtype=torch.int32, device="cuda")
+    log(f"  #10 read apart on [{card}] (bench.kernel_split.split; call: medians of "
+        f"{kernel_split.REPS} (min, max); chain: {kernel_split.CHAIN} calls; device: "
+        f"torch.profiler over {kernel_split.TRACE_CALLS} calls), blocks of 512 threads, "
+        "fanouts 1, zero caches:")
+    for what, args in (
+        (f"config 3 FULL S={S3}", d_args),
+        (f"config 3 NONE S={S3}", (mults3, all_counts, thr_none, cache3, ccnt3)),
+        ("config 3 FULL S=64", (mults3[:64].contiguous(), all_counts[:64].contiguous(), thr3,
+                                cache3, ccnt3)),
+        (f"config 7 FULL S={mults7.shape[0]}", (mults7, counts7, thr3, cache3, ccnt3)),
+    ):
+        out = drain_same(args, (1,) * 4, f"#10 {what}")
+        calls = [0]
+
+        def call(args=args):
+            calls[0] += 1
+            return drain_segment(*args, block=2048, fanouts=(1,) * 4)
+
+        before = drain_segment.launches
+        try:
+            r = kernel_split.split(call)
+            reading = kernel_split.summary(r)
+        except RuntimeError as err:  # the profiler saw no device event
+            ts = cuda_ms(call)
+            reading = f"call {med(ts):.4f} ms (min {min(ts):.4f}, max {max(ts):.4f}); {err}"
+        if drain_segment.launches - before != calls[0]:
+            raise AssertionError(f"#10 {what}: {drain_segment.launches - before} launches in "
+                                 f"{calls[0]} calls")
+        S = args[0].shape[0]
+        grid_d = drain_grid(S, (1,) * 4)
+        if grid_d < 2:
+            raise AssertionError(f"#10 {what}: a cooperative grid of {grid_d} block(s)")
+        b = bound(4 * S * 4 * 2048 + 8 * 3 * 4 * 2048 + 4 * S, 4 * int(out[4].sum()))
+        log(f"    {what}: total {int(out[0])}, rows {out[4].tolist()}; grid {grid_d}; "
+            f"{reading}; one launch a call; bound {b[0]:.6f} ms ({b[1]})")
+
     # ---- 26. config 7 at full size: three static policies -------------------
     t0 = time.perf_counter()
-    table7, host7, want7 = config7_data(2_000_000, 50_000, torch.device("cuda"))
     tables7 = [table7] * 4
     bulk7 = int(bulk_count(tables7, host7).count)
     if bulk7 != want7:
@@ -1562,7 +1610,6 @@ def main() -> int:
                                      rhs_size=50_000, strategy=CompactionStrategy.FULL,
                                      compact_threshold_per_level=(0, 2048, 0, 0)),
     }
-    cols7, counts7 = chunked(host7)
     pipes7 = {name: SortedPipeline(tables7, cfg) for name, cfg in cases7.items()}
     c7 = {name: [] for name in pipes7}
     for name, pipe in pipes7.items():

@@ -574,6 +574,43 @@ def test_drain_kernel_refuses_what_does_not_fit(cuda):
     assert drain.drain_segment.launches == before
 
 
+DRAIN_EDGES = [
+    # (S, block, fanouts): no chunk; one level; blocks that are no multiple
+    # of 32; phase 28's shapes; 64 paths of 8192 lanes over 40 chunks, which
+    # the kernel walks in windows of 16
+    (0, 128, (1, 2, 1)),
+    (7, 100, (3,)),
+    (9, 100, (2, 1, 3)),
+    (8, 2048, (1, 2, 1, 1, 2, 1)),
+    (8, 4096, (1,) * 5),
+    (8, 2048, (1,) * 9),
+    (8, 8192, (2, 1)),
+    (40, 8192, (2,) * 6 + (1,)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DRAIN_EDGES)))
+@pytest.mark.parametrize("occupancy", [False, True])
+def test_drain_kernel_edge_shapes(cuda, case, occupancy):
+    """#10 and its variant at the edges of the level-by-level design, with
+    incoming caches, against the plain version: one launch a call, on a
+    grid of more than one block."""
+    from ccve_tpu_torch.kernels import drain
+
+    S, block, fanouts = DRAIN_EDGES[case]
+    L = len(fanouts)
+    rng = np.random.default_rng(40 + case)
+    thresholds = [int(rng.choice([0, block // 2, block, block + 1])) for _ in range(L)]
+    args = _drain_inputs(rng, S, L, block, fanouts, thresholds, cuda, occupancy=occupancy)
+    kw = dict(block=block, fanouts=fanouts, record_occupancy=occupancy, branchy=case % 2 == 0)
+    counter = drain.occupancy_variant if occupancy else drain.drain_segment
+    before = counter.launches
+    got = drain.drain_segment(*args, **kw)
+    assert counter.launches == before + 1
+    _same_drain(got, drain.drain_segment_plain(*args, **kw), L)
+    assert drain.grid(S, fanouts, occupancy) > 1
+
+
 @pytest.mark.parametrize("m, dom, n", [(0, 50, 128), (1, 3, 2048), (500, 400, 256),
                                        (50_000, 100_000, 2048), (4000, 100, 4096),
                                        (1 << 20, 1 << 40, 2048)])
