@@ -15,7 +15,15 @@ library call computes it) it prints one `SPLIT` line a shape: config 3's
 whole stream (489 chunks of 4 levels, block 2048) under FULL and NONE
 thresholds, its first 64 chunks (a streamed segment) under FULL, config
 7's 977 chunks under FULL, and the occupancy variant at config 3 FULL,
-with the launches a call and the grid:
+with the launches a call and the grid. For #5 (`merge_sorted_i32`, the
+same 8192 probes and 1M rows) it prints its line beside one `torch.sort`
+of the concatenation. For #6 and #7, the stats side's probe sort, at
+config 3's level 0 (1M probes), config 1 materialized (16M) and config 1
+wide's stats (2^24 int64 keys), it prints one line each for the tile sort,
+the first merge level, the whole sort (`sort_multi`: the tile sort and the
+ladder) and the merge of two, with the launches a call by counter, and the
+one-call `torch.sort` yardsticks of the packed (key << 32 | index) words,
+per tile and of the whole stream (`probe_sort_cases`). Every line gives:
 
 - `call_ms`: CUDA events around one eager call, median (min, max) of
   2 * REPS calls: what a caller pays, the larger of the host's enqueue
@@ -43,6 +51,7 @@ one card.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import time
@@ -54,7 +63,7 @@ import torch
 from ccve_tpu_torch.bench.configs import config1_host
 from ccve_tpu_torch.bench.profile_config1 import busy_window
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu_torch.kernels import bigsort, drain, merge_scan
+from ccve_tpu_torch.kernels import bigsort, drain, merge_scan, pairsort
 from ccve_tpu_torch.kernels.chunk_probe import chunk_rank, chunk_rank_plain
 from ccve_tpu_torch.ops import sort_merge as sm
 
@@ -172,8 +181,6 @@ def rank_host_steps(table, chunk, valid) -> dict:
     """{step: host us a call} of `chunk_rank`'s wrapper on the card, each
     step timed alone (the best of 3 runs of STEP_CALLS calls), beside the
     whole call and one `torch.searchsorted`: where the enqueue goes."""
-    import timeit
-
     from ccve_tpu_torch.kernels import _build, chunk_probe
 
     lib = _build.load()
@@ -190,12 +197,68 @@ def rank_host_steps(table, chunk, valid) -> dict:
         "whole call": lambda: chunk_rank(table, chunk, valid),
         "one torch.searchsorted": lambda: torch.searchsorted(table, chunk),
     }
+    return _host_us(steps, STEP_CALLS)
+
+
+def _host_us(steps: dict, number: int, repeat: int = 3) -> dict:
+    """{step: host us a call}: the best of `repeat` runs of `number` calls,
+    the device idle before each run."""
+    import timeit
+
     out_us = {}
     for name, fn in steps.items():
+        best = float("inf")
+        for _ in range(repeat):
+            torch.cuda.synchronize()
+            best = min(best, timeit.timeit(fn, number=number))
         torch.cuda.synchronize()
-        out_us[name] = min(timeit.repeat(fn, number=STEP_CALLS, repeat=3)) / STEP_CALLS * 1e6
-        torch.cuda.synchronize()
+        out_us[name] = best / number * 1e6
     return out_us
+
+
+LADDER_CALLS = 20  # calls a timing of one host step of the ladder: its launches stay queued
+
+
+def ladder_host_steps(p) -> dict:
+    """{step: host us a call} of `sort_multi_i32(p, [rows])` on the card,
+    each step of the wrapper timed alone (the best of 3 runs of
+    LADDER_CALLS calls, few enough that the launch queue never fills and
+    holds the host back), beside the whole call and one `torch.sort` of the
+    packed words: where a host-bound call's enqueue goes. Needs the ladder
+    entry (`pairsort._ladder_kernels`)."""
+    from ccve_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    tl = pairsort.TILE_LOG
+    n = p.numel()
+    rows = torch.arange(n, dtype=torch.int32, device=p.device)
+    n_pad = n + (-n) % (1 << tl)
+    n_levels = max((n_pad >> tl) - 1, 0).bit_length()
+    yk, yv, splits = pairsort._merge_outputs(p, [rows], n_pad, tl)
+    tk, tv = torch.empty_like(yk), torch.empty_like(yv[0])
+    stream = _build.stream(p)
+    words = (p.long() << 32) | rows.long()
+    steps = {
+        "checks": lambda: pairsort._check_planes(p, [rows], "sort", torch.int32),
+        "ctypes size call": lambda: lib.ccve_merge_splits_bytes(n_pad, tl),
+        "allocations (4)": lambda: (pairsort._merge_outputs(p, [rows], n_pad, tl),
+                                    torch.empty_like(yk), torch.empty_like(yv[0])),
+        "stream": lambda: _build.stream(p),
+        f"ladder C call ({1 + 2 * n_levels} launches)": lambda: lib.ccve_sort_multi_i32(
+            p.data_ptr(), rows.data_ptr(), None, None, yk.data_ptr(), yv[0].data_ptr(), None,
+            None, tk.data_ptr(), tv.data_ptr(), None, None, splits, 1, n, tl,
+            n_levels, stream),
+        "tile sort C call (1 launch)": lambda: lib.ccve_sort_tiles_multi_i32(
+            p.data_ptr(), rows.data_ptr(), None, None, yk.data_ptr(), yv[0].data_ptr(), None,
+            None, 1, n, tl, stream),
+        "merge level C call (2 launches)": lambda: lib.ccve_merge_level_multi_i32(
+            yk.data_ptr(), yv[0].data_ptr(), None, None, tk.data_ptr(), tv.data_ptr(), None,
+            None, splits, 1, n_pad, tl, stream),
+        "slices": lambda: (yk[:n], [yv[0][:n]]),
+        "whole sort_multi_i32": lambda: pairsort.sort_multi_i32(p, [rows]),
+        "one torch.sort of the words": lambda: torch.sort(words),
+    }
+    return _host_us(steps, LADDER_CALLS)
 
 
 def rank_inputs(device):
@@ -297,6 +360,120 @@ def drain_splits(device) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def stats_streams(device) -> dict:
+    """{shape: (packed probe keys, build stream, its int32 payloads)} of the
+    stats side's probe sort (`sort_merge.merged_stream`) at config 3's level
+    0 (1M probes against 50,000 rows), config 1 materialized (16M against
+    1M) and config 1 wide's stats (2^24 int64 keys against 1M)."""
+    from ccve_tpu_torch.bench.configs import config1_wide_host
+
+    out = {}
+    keys, payloads = gen_rhs_table(50_000, 1)
+    probe = gen_probe_table(1_000_000, 4, 100_000)[:, 0]
+    keys1, payloads1, probe1 = config1_host(1_000_000, 16_000_000)
+    keys_w, payloads_w, probe_w = config1_wide_host(1_000_000, 1 << 24, 40)
+    for shape, (k, pay, col, pack) in {
+        "config 3 1M": (keys, payloads, probe.astype(np.int32), sm.stats_pack32_streams),
+        "materialize 16M": (keys1, payloads1, probe1[:, 0].astype(np.int32),
+                            sm.stats_pack32_streams),
+        "wide stats 2^24 i64": (keys_w, payloads_w, probe_w, sm.stats_pack64_streams),
+    }.items():
+        table = sm.build_sorted(k, pay, device=device)
+        b, p = pack(table, torch.from_numpy(col).to(device))
+        out[shape] = (p, b, table.payloads.to(torch.int32))
+    return out
+
+
+def _same(got, want, what: str) -> None:
+    """Raise unless (keys, planes) `got` equals `want` bit for bit."""
+    if not (torch.equal(got[0], want[0])
+            and all(torch.equal(g, w) for g, w in zip(got[1], want[1]))):
+        raise AssertionError(f"{what}: the kernel disagrees with its plain version")
+
+
+def probe_sort_cases(device) -> list:
+    """[(name, fn, {counter name: counter}, yardstick name, yardstick fn or
+    None)] of #6 (`sort_tiles_multi`), one #7 merge level (the first, over
+    the sorted tiles), the whole sort (`sort_multi`: #6 and the ladder) and
+    #7's merge of two (the sorted probes and the build stream) at each of
+    `stats_streams`' shapes, each first held against its plain version.
+    The yardsticks are one `torch.sort` call: per tile, of the tile's
+    (key << 32 | tile index) words, for #6; of the stream's (key << 32 |
+    row) words, for the whole sort (int64 keys: a stable sort of the keys,
+    whose order a gather would then apply to the rows)."""
+    tl = pairsort.TILE_LOG
+    out = []
+    for shape, (p, b, pay) in stats_streams(device).items():
+        key = "i32" if p.dtype == torch.int32 else "i64"
+        sort_tiles = getattr(pairsort, f"sort_tiles_multi_{key}")
+        merge_level = getattr(pairsort, f"merge_level_multi_{key}")
+        merge_two = getattr(pairsort, f"merge_two_multi_{key}")
+        sort_multi = getattr(pairsort, f"sort_multi_{key}")
+        rows = torch.arange(p.numel(), dtype=torch.int32, device=device)
+        pk, pv = pairsort.pad_to_tile(p, [rows], tl)
+        tiles = sort_tiles(pk, pv, tl)
+        _same(tiles, pairsort.sort_tiles_multi_plain(pk, pv, tl), f"#6 {shape}")
+        _same(merge_level(*tiles, tl), pairsort.merge_level_multi_plain(*tiles, tl),
+              f"#7 level {shape}")
+        sk, sv = sort_multi(p, [rows])
+        _same((sk, sv), pairsort.sort_multi_plain(p, [rows]), f"sort_multi {shape}")
+        two = (sk, sv, b, [pay])
+        _same(merge_two(*two), pairsort.merge_two_multi_plain(*two), f"#7 merge two {shape}")
+        if key == "i32":
+            local = torch.arange(pk.numel(), device=device) & ((1 << tl) - 1)
+            tile_words = ((pk.long() << 32) | local).view(-1, 1 << tl)
+            words = (p.long() << 32) | rows.long()
+            whole = torch.sort(words).values
+            if not (torch.equal(whole >> 32, sk.long())
+                    and torch.equal(whole & 0xFFFFFFFF, sv[0].long())):
+                raise AssertionError(f"torch.sort of the packed words, {shape}: not sort_multi's")
+            tile_lib = (f"torch.sort of a tile's words, {shape}",
+                        lambda w=tile_words: torch.sort(w, dim=1))
+            whole_lib = (f"torch.sort of the stream's words, {shape}",
+                         lambda w=words: torch.sort(w))
+        else:
+            tile_lib = (f"torch.sort of a tile's keys, stable, {shape}",
+                        lambda k=pk.view(-1, 1 << tl): torch.sort(k, dim=1, stable=True))
+            whole_lib = (f"torch.sort of the stream's keys, stable, {shape}",
+                         lambda k=p: torch.sort(k, stable=True))
+        # the partition kernel's counter exists only since #7's redesign
+        part = ({"merge_partition": pairsort.merge_partition}
+                if hasattr(pairsort, "merge_partition") else {})
+        tiles_c = {sort_tiles.__name__: sort_tiles}
+        level_c = {merge_level.__name__: merge_level, **part}
+        out += [
+            (f"sort_tiles_multi, {shape}", lambda f=sort_tiles, a=(pk, pv, tl): f(*a), tiles_c,
+             *tile_lib),
+            (f"merge level {tl}, {shape}", lambda f=merge_level, a=tiles: f(*a, tl), level_c,
+             None, None),
+            (f"sort_multi (#6 + ladder), {shape}", lambda f=sort_multi, a=(p, [rows]): f(*a),
+             {**tiles_c, **level_c}, *whole_lib),
+            (f"merge two, {shape}", lambda f=merge_two, a=two: f(*a),
+             {merge_two.__name__: merge_two, **part}, None, None),
+        ]
+    return out
+
+
+def probe_sort_splits(device) -> dict:
+    """{name: split} of `probe_sort_cases`, each kernel read in turns with
+    its yardstick where it has one, alone otherwise; a kernel's split also
+    holds its launches a call by counter."""
+    out = {}
+    for name, fn, counters, lib_name, lib in probe_sort_cases(device):
+        before = {c: k.launches for c, k in counters.items()}
+        calls = [0]
+
+        def call(fn=fn, calls=calls):
+            calls[0] += 1
+            return fn()
+
+        out.update(in_turns({name: call, lib_name: lib}) if lib else {name: split(call)})
+        out[name]["launches"] = {c: (k.launches - before[c]) / calls[0]
+                                 for c, k in counters.items()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split: needs a CUDA device")
@@ -325,10 +502,29 @@ def main() -> int:
         "two searchsorted and a subtraction": lambda: (
             torch.searchsorted(ps, want_b, right=True) - torch.searchsorted(ps, want_b)),
     })
-    print(f"#11 at config 3's shape (2048 lanes, m = {table.numel()}) and #4 at 8192 probes "
-          f"against config 1's 1M rows ({s.numel()} merged elements), on [{card}]:")
-    for name, r in {**rank, **counts}.items():
+    if not torch.equal(bigsort.merge_sorted_i32(ps, b), bigsort.merge_sorted_i32_plain(ps, b)):
+        raise AssertionError("merge_sorted_i32 disagrees with its plain version")
+    merge5 = in_turns({
+        "merge_sorted_i32": lambda: bigsort.merge_sorted_i32(ps, b),
+        "torch.sort of the concatenation": lambda: torch.cat([ps, b]).sort(),
+    })
+    print(f"#11 at config 3's shape (2048 lanes, m = {table.numel()}), #4 and #5 at 8192 "
+          f"probes against config 1's 1M rows ({s.numel()} merged elements), on [{card}]:")
+    for name, r in {**rank, **counts, **merge5}.items():
         print(f"SPLIT {name}: {summary(r)}")
+    sorts = probe_sort_splits(device)
+    print(f"#6 and #7, the stats side's probe sort (tile 2^{pairsort.TILE_LOG}, one cargo "
+          f"plane), at config 3's, config 1 materialized's and config 1 wide's shapes, on "
+          f"[{card}]:")
+    for name, r in sorts.items():
+        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
+        print(f"SPLIT {name}: {summary(r)}{launches}")
+    if hasattr(pairsort, "_ladder_kernels"):
+        p = stats_streams(device)["config 3 1M"][0]
+        print(f"host us a call of each step of sort_multi_i32 at config 3's 1M probes, on "
+              f"[{card}]:")
+        for step, us in ladder_host_steps(p).items():
+            print(f"HOST {step}: {us:.1f} us")
     drains = drain_splits(device)
     print(f"#10 at config 3's and config 7's shapes (4 levels, block {DRAIN_BLOCK}, "
           f"fanouts 1), on [{card}]:")

@@ -50,13 +50,17 @@ _KEYED_ENTRY_POINTS = {
     "ccve_merge_level": [_P, _P, _L, _I, _P],
     # (runs, run_len, n_real, b, m, bc, stream)
     "ccve_merge_counts": [_P, _L, _L, _P, _L, _P, _P],
-    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n_tiles, tile_log, stream)
+    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n, tile_log, stream)
     "ccve_sort_tiles_multi": [_P] * 8 + [_I, _L, _I, _P],
-    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n, run_log, stream)
-    "ccve_merge_level_multi": [_P] * 8 + [_I, _L, _I, _P],
+    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, splits, n_planes, n, run_log,
+    #  stream)
+    "ccve_merge_level_multi": [_P] * 9 + [_I, _L, _I, _P],
+    # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, tk, tv0, tv1, tv2, splits,
+    #  n_planes, n, tile_log, n_levels, stream): a tile sort and a ladder
+    "ccve_sort_multi": [_P] * 13 + [_I, _L, _I, _I, _P],
     # (ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk, yv0, yv1, yv2,
-    #  n_planes, stream)
-    "ccve_merge_two_multi": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P],
+    #  splits, n_planes, stream)
+    "ccve_merge_two_multi": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 5 + [_I, _P],
     # (s, v, L, n, scratch, mult, psum, stream)
     "ccve_merge_stats": [_P, _P, _L, _L, _P, _P, _P, _P],
 }
@@ -84,8 +88,8 @@ _ENTRY_POINTS["ccve_merge_scan_stats_i64"] = [_P, _P, _L, _P, _P, _P, _P]
 _ENTRY_POINTS["ccve_merge_scan_stats_packed_i64"] = [_P, _L, _I, _P, _P, _P, _P]
 # (s, L, m, grid, scratch, bc, stream)
 _ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _I, _P, _P, _P]
-# (a, na, b, nb, y, stream)
-_ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P]
+# (a, na, b, nb, y, splits, stream)
+_ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P, _P]
 # (x, y, n_tiles, n_stages, stream)
 _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
@@ -93,6 +97,8 @@ _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 _SIZE_FUNCTIONS = {
     "ccve_merge_stats_scratch_bytes": [_L],
     "ccve_compact_scratch_bytes": [_L],
+    # (n, run_log): the merge-path splits of a merge of n outputs
+    "ccve_merge_splits_bytes": [_L, _I],
     # (S, L, block, occupancy, fanouts (host)); -1 where they do not fit
     "ccve_drain_scratch_bytes": [_L, _I, _I, _I, _P],
 }
@@ -207,6 +213,15 @@ def check(code: int, what: str) -> None:
 
 
 SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
+
+
+def empty_with_scratch(like: torch.Tensor, n: int, scratch_bytes: int):
+    """(out, scratch pointer): an uninitialised tensor of `n` elements of
+    `like`'s type and device, and the address of at least `scratch_bytes`
+    of scratch after it in the same allocation, so that a kernel's scratch
+    costs no allocation (nor view) of its own on a host-bound path."""
+    buf = like.new_empty(n + -(-scratch_bytes // like.element_size()))
+    return buf[:n], buf.data_ptr() + n * like.element_size()
 
 
 def check_int(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:

@@ -172,13 +172,17 @@ def merge_sorted_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{a.numel()} + {b.numel()} values, the kernel takes < 2^31")
     if a.device.type == "cpu":
         return merge_sorted_i32_plain(a, b)
-    y = torch.empty(a.numel() + b.numel(), dtype=torch.int32, device=a.device)
-    if y.numel():
-        code = _build.load().ccve_merge_two_i32(
-            a.data_ptr(), a.numel(), b.data_ptr(), b.numel(), y.data_ptr(), _build.stream(a),
-        )
-        _build.check(code, "merge_sorted_i32")
-        merge_sorted_i32.launches += 1
+    n = a.numel() + b.numel()
+    if not n:
+        return a.new_empty(0)
+    lib = _build.load()
+    # run_log 30: the splits of a merge of two, whose tiles take whole chunks
+    y, splits = _build.empty_with_scratch(a, n, lib.ccve_merge_splits_bytes(n, 30))
+    code = lib.ccve_merge_two_i32(
+        a.data_ptr(), a.numel(), b.data_ptr(), b.numel(), y.data_ptr(), splits, _build.stream(a),
+    )
+    _build.check(code, "merge_sorted_i32")
+    merge_sorted_i32.launches += 1
     return y
 
 

@@ -5,13 +5,16 @@
 //    runs of L = 2^run_log, [2pL, 2pL + L) and [2pL + L, 2pL + 2L),
 //    becomes one ascending run of 2L; the last pair may have a short
 //    second run, or none.
+//  - ccve_sort_multi_i32: a whole ladder in one host call: the tile sort
+//    of sort_tiles_multi.cu, then n_levels merge levels back to back on
+//    the stream, between the output and a scratch buffer.
 //  - ccve_merge_two_multi_i32: the unequal merge of two ascending streams
 //    A[0, na) and B[0, nb) into one of na + nb (either may be empty).
 //  - ccve_merge_two_i32: the same merge of int32 keys with no planes.
 //
-// Both are stable: at equal keys A's elements come first, and each
-// stream keeps its own order, so a ladder over stably sorted tiles is a
-// stable sort.
+// All are stable: at equal keys A's elements come first, and each stream
+// keeps its own order, so a ladder over stably sorted tiles is a stable
+// sort.
 //
 // Replaces: ccve_tpu/kernels/pairsort.py `_make_merge_kernel_multi` (the
 // bitonic lower-half merge-path kernel with value planes, launched per
@@ -20,45 +23,75 @@
 // precomputed from the XLA bisections `_merge_splits_alt` and
 // `_merge_splits_two`); the int64 builds replace `_make_merge_kernel_multi64`
 // (the same kernel on (hi, lo) int32 limb planes, launched by
-// `_sort_padded_multi64` and `merge_sorted_multi_i64`).
+// `_sort_padded_multi64` and `merge_sorted_multi_i64`). The key-only
+// merge, ccve_merge_two_i32, replaces ccve_tpu/kernels/bigsort.py
+// `_make_bitonic_merge_kernel` as `merge_sorted_i32` (:664) launches it
+// through `_merge_two_padded` (:607), with `lax.sort` in its place below
+// 2^17 elements or when a side is empty; here any length takes the kernel
+// and values may be any int32: nothing is a sentinel.
 //
-// What bounds it on an H100: each launch reads and writes every key and
-// every plane once, (1 + P) * 8 bytes per element for int32 keys and
+// What bounds it on an H100: each merge reads and writes every key and
+// every plane once, (1 + P) * 8 bytes an element for int32 keys and
 // (2 + P) * 8 for int64, so device-memory bandwidth bounds it; the merge
-// itself is a few compares per element.
+// itself is a few compares an element. What kept an earlier design at 2-3x
+// that bound was latency, not bytes: each block began with a binary
+// search of its merge-path split in device memory (up to 31 dependent
+// loads while the block waited), loaded its keys in 4-byte steps, and
+// gathered the cargo from device memory after the merge, a second
+// dependent phase of reads.
 //
-// Design: merge_level.cu's, with cargo. CUDA blocks run in no order, so
-// each block owns a fixed range of kChunk outputs and finds its own start
-// and end on the merge-path diagonal by binary search on the keys. It
-// stages the two key slices in shared memory; each thread finds its
-// kPerThread outputs by a second merge-path search there and merges them
-// serially, recording for each output the slot it came from. The block
-// then writes the keys back coalesced and, for each plane, copies the
-// value from the recorded slot (two monotone streams of reads, so the
-// loads stay near coalesced). B is ascending: nothing is stored
-// reversed, and empty streams and the ragged last pair fall out of the
-// split arithmetic. The int64 key is native (no limbs); the shared staging
-// grows from 16 KB to 24 KB and stays static, under the 48 KB limit.
+// Design. A level is two launches. (1) A partition kernel finds every
+// output tile's merge-path split at once, one warp a tile: a 32-way search
+// whose lanes test 32 points of the diagonal per step, so a split takes
+// ceil(log33(range)) dependent loads (5 at 2^24, not 24), into a scratch
+// array the wrapper allocates. (2) The merge kernel: one block of 256
+// threads a tile of kChunk = 4096 outputs (16 a thread), so about 32 KB
+// (int32 keys, one plane) in flight a block. The block reads its two
+// splits and stages its A and B key slices and plane slices together into
+// shared memory with cp.async: 16-byte copies where the source allows
+// (each slice is placed 16-byte congruent with its source), element
+// copies for the misaligned head and tail, one wait. Each thread finds its
+// 16 outputs by a merge-path search in shared memory and merges them
+// serially into registers, keys and planes together, so no cargo is read
+// from device memory after the merge. The block then spreads the outputs
+// over shared memory (a skew of one slot in 32, so that neither the
+// thread-blocked stores nor the row-wise loads conflict on banks) and
+// writes them back coalesced. A tile is chunk = min(kChunk, 2L) outputs,
+// which divides 2L, so a tile never straddles a run pair; B is ascending,
+// nothing is stored reversed, and empty streams and the ragged last pair
+// fall out of the split arithmetic. Shared memory grows with P and the key
+// type, from 17 KB (int32, no planes) to 83 KB (int64, three planes);
+// above 48 KB the launch opts in with cudaFuncSetAttribute.
 //
-// The key-only merge, ccve_merge_two_i32, replaces ccve_tpu/kernels/
-// bigsort.py `_make_bitonic_merge_kernel` as `merge_sorted_i32` (:664)
-// launches it through `_merge_two_padded` (:607): one bitonic lower-half
-// merge-path level over A and B, with B stored descending, the output's
-// orientation complemented by `out_m`, the tile splits from the XLA
-// bisection `_merge_splits_two` (:550), and `lax.sort` in its place below
-// 2^17 elements or when a side is empty. Here it is merge_two_multi with
-// zero planes: each launch reads both inputs and writes the output once,
-// 8 bytes an element, so device memory bounds it. Any length takes the
-// kernel, and values may be any int32: nothing is a sentinel.
+// The ladder entry runs the tile sort and every level from one host call:
+// no Python, allocation or host sync between levels. The levels stay two
+// launches each. At 1M keys (7 levels of 246 tiles) the host enqueues the
+// 15 launches faster than the card runs them, so the launches hide behind
+// the device's work; a variant that ran the levels in one cooperative
+// launch (a grid barrier after each partition and each merge) saved the
+// gaps between kernels but not the call, and at 16M its kernel, holding
+// both steps' registers, ran fewer blocks an SM and was slower.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+#include "merge_path.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kChunk = kThreads * kPerThread;  // outputs per block
+constexpr int kPerThread = 16;
+constexpr int kChunk = kThreads * kPerThread;  // outputs a block
 constexpr int kMaxPlanes = 3;
+constexpr int kWarp = 32;
+constexpr int kSplitsPerBlock = kThreads / kWarp;  // partition: a warp a tile
+// A staging region, in elements: a tile's A and B slices, each placed
+// 16-byte congruent with its source (at most 2 * 7 slots of gaps), or its
+// outputs spread by `skew`.
+constexpr int kRegion = kChunk + kChunk / 32 + 16;
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 struct InPlanes {
   const int* p[kMaxPlanes];
@@ -67,127 +100,200 @@ struct OutPlanes {
   int* p[kMaxPlanes];
 };
 
-// Number of a-values among the first d outputs of the stable merge of
-// ascending a[0, na) and b[0, nb): the least i with a[i] > b[d - i - 1].
-template <typename K>
-__device__ long long merge_path(const K* a, long long na, const K* b,
-                                long long nb, long long d) {
-  long long lo = d - nb > 0 ? d - nb : 0;
-  long long hi = d < na ? d : na;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (a[mid] <= b[d - mid - 1]) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-template <typename K>
-struct Shared {
-  K key[kChunk];
-  int src[kChunk];  // a-slot i as i, b-slot j as ~j
-  long long split[2];
+// One output tile: outputs [d0, d1) of the merge of A = xa[a0, a0 + la)
+// and B = xb[b0, b0 + lb), written from y[out0].
+struct Span {
+  long long a0, b0, la, lb, d0, d1, out0;
 };
 
-// Outputs [d0, d1) of the stable merge of (a, av)[0, la) and (b, bv)[0, lb)
-// go to (y, yv)[out0, out0 + d1 - d0).
-template <typename K, int P>
-__device__ void merge_chunk(const K* a, const InPlanes& av, long long la,
-                            const K* b, const InPlanes& bv, long long lb,
-                            long long d0, long long d1, K* y,
-                            const OutPlanes& yv, long long out0, Shared<K>& sh) {
-  if (threadIdx.x < 2) {
-    sh.split[threadIdx.x] = merge_path(a, la, b, lb, threadIdx.x ? d1 : d0);
-  }
-  __syncthreads();
-  const long long a0 = sh.split[0];
-  const long long b0 = d0 - a0;
-  const int na = static_cast<int>(sh.split[1] - a0);
-  const int cnt = static_cast<int>(d1 - d0);
-  const int nb = cnt - na;
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    sh.key[i] = i < na ? a[a0 + i] : b[b0 + i - na];
-  }
-  __syncthreads();
+// One ladder level over x[0, n): pairs of runs of L = 2^run_log, tiles of
+// chunk = min(kChunk, 2L) outputs.
+struct Level {
+  long long n;
+  int run_log;
+  long long chunk;
 
-  const K* s = sh.key;
-  const int first = static_cast<int>(threadIdx.x) * kPerThread;
-  const int diag = first < cnt ? first : cnt;
-  int ai = static_cast<int>(merge_path<K>(s, na, s + na, nb, diag));
-  int bi = diag - ai;
-  K out_key[kPerThread];
-  int out_src[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    if (diag + k < cnt) {
-      const bool take_a = ai < na && (bi >= nb || s[ai] <= s[na + bi]);
-      if (take_a) {
-        out_key[k] = s[ai];
-        out_src[k] = ai++;
-      } else {
-        out_key[k] = s[na + bi];
-        out_src[k] = ~(bi++);
-      }
-    }
+  __host__ __device__ long long tiles() const { return (n + chunk - 1) / chunk; }
+  __device__ Span tile(long long t) const {
+    const long long L = 1LL << run_log;
+    const long long out0 = t * chunk;
+    const long long base = (out0 >> (run_log + 1)) << (run_log + 1);
+    const long long la = n - base < L ? n - base : L;
+    const long long rest = n - base - L;
+    const long long lb = rest < 0 ? 0 : rest < L ? rest : L;
+    const long long d0 = out0 - base;
+    const long long d1 = d0 + chunk < la + lb ? d0 + chunk : la + lb;
+    return {base, base + la, la, lb, d0, d1, out0};
   }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    if (diag + k < cnt) {
-      sh.key[diag + k] = out_key[k];
-      sh.src[diag + k] = out_src[k];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    y[out0 + i] = sh.key[i];
-    const int e = sh.src[i];  // unread when P == 0
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      yv.p[p][out0 + i] = e >= 0 ? av.p[p][a0 + e] : bv.p[p][b0 + ~e];
-    }
-  }
+};
+
+Level level_of(long long n, int run_log) {
+  const long long two_l = 2LL << run_log;
+  return {n, run_log, kChunk < two_l ? kChunk : two_l};
 }
 
-template <typename K, int P>
-__global__ void merge_level_multi_kernel(const K* __restrict__ x,
-                                         InPlanes xv, K* __restrict__ y,
-                                         OutPlanes yv, long long n,
-                                         int run_log) {
-  __shared__ Shared<K> sh;
-  const long long L = 1LL << run_log;
-  const long long chunk = kChunk < 2 * L ? kChunk : 2 * L;  // divides 2L
-  const long long out0 = static_cast<long long>(blockIdx.x) * chunk;
-  const long long a_base = (out0 >> (run_log + 1)) << (run_log + 1);
-  const long long la = n - a_base < L ? n - a_base : L;
-  long long lb = n - a_base - L < L ? n - a_base - L : L;
-  if (lb < 0) lb = 0;
-  InPlanes av;
-  InPlanes bv;
+// The merge of a[0, na) and b[0, nb), tiles of kChunk outputs.
+struct Two {
+  long long na, nb;
+
+  __host__ __device__ long long tiles() const { return (na + nb + kChunk - 1) / kChunk; }
+  __device__ Span tile(long long t) const {
+    const long long d0 = t * kChunk;
+    const long long d1 = d0 + kChunk < na + nb ? d0 + kChunk : na + nb;
+    return {0, 0, na, nb, d0, d1, d0};
+  }
+};
+
+// Every tile's split (A's elements before its first output), a warp a
+// tile: each step, lane k tests the last point of the k-th of 32 equal
+// parts of [lo, hi), and the first part whose last point lies past the
+// split holds it; a point at or past hi counts as past.
+template <typename K, typename G>
+__global__ void __launch_bounds__(kThreads)
+    partition_kernel(const K* __restrict__ xa, const K* __restrict__ xb, G g,
+                     int* __restrict__ splits) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kSplitsPerBlock + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (t >= g.tiles()) return;  // the whole warp
+  const Span s = g.tile(t);
+  const K* a = xa + s.a0;
+  const K* b = xb + s.b0;
+  long long lo = s.d0 - s.lb > 0 ? s.d0 - s.lb : 0;
+  long long hi = s.d0 < s.la ? s.d0 : s.la;
+  while (lo < hi) {
+    const long long step = (hi - lo + kWarp - 1) / kWarp;
+    const long long e = lo + (lane + 1) * step - 1;
+    const bool past = e >= hi || !(a[e] <= b[s.d0 - e - 1]);
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, past);
+    if (ballot == 0) {
+      lo = hi;
+    } else {
+      const int f = __ffs(ballot) - 1;
+      const long long e_f = lo + (f + 1) * step - 1;
+      lo += f * step;
+      hi = e_f < hi ? e_f : hi;
+    }
+  }
+  if (lane == 0) splits[t] = static_cast<int>(lo);
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+template <int kBytes>
+__device__ __forceinline__ void copy_small(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes)
+               : "memory");
+#else
+  memcpy(dst, src, kBytes);
+#endif
+}
+
+__device__ __forceinline__ void copies_done() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Starts copying src[0, n) into `region` from slot `start` on and returns
+// the copy, placed 16-byte congruent with src: the body moves in 16-byte
+// copies, the head and tail element by element. Uses slots up to
+// start + n + 16 / sizeof(T) - 1. Complete after copies_done() and a
+// barrier.
+template <typename T>
+__device__ __forceinline__ T* stage(const T* src, int n, T* region, int start) {
+  constexpr int V = 16 / sizeof(T);
+  const int phase = static_cast<int>((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % V);
+  T* dst = region + start + ((phase - start) % V + V) % V;
+  int head = (V - phase) % V;
+  if (head > n) head = n;
+  const int body = (n - head) / V;
+  const int tail = head + body * V;
+  for (int v = threadIdx.x; v < body; v += kThreads) {
+    copy16(dst + head + v * V, src + head + v * V);
+  }
+  for (int i = threadIdx.x; i < head + n - tail; i += kThreads) {
+    const int e = i < head ? i : tail + i - head;
+    copy_small<sizeof(T)>(dst + e, src + e);
+  }
+  return dst;
+}
+
+__device__ __forceinline__ int skew(int i) { return i + (i >> 5); }
+
+// One tile a block.
+template <typename K, int P, typename G>
+__global__ void __launch_bounds__(kThreads)
+    merge_kernel(const K* __restrict__ xa, InPlanes va, const K* __restrict__ xb,
+                 InPlanes vb, G g, const int* __restrict__ splits, K* __restrict__ y,
+                 OutPlanes yv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  K* keys = reinterpret_cast<K*>(smem);
+  int* planes = reinterpret_cast<int*>(keys + kRegion);
+  const long long t = blockIdx.x;
+  const Span s = g.tile(t);
+  const int cnt = static_cast<int>(s.d1 - s.d0);
+  const long long a_lo = splits[t];
+  const long long a_hi = s.d1 == s.la + s.lb ? s.la : splits[t + 1];
+  const int na = static_cast<int>(a_hi - a_lo);
+  const int nb = cnt - na;
+  const long long b_lo = s.d0 - a_lo;
+  const K* sa = stage(xa + s.a0 + a_lo, na, keys, 0);
+  const K* sb = stage(xb + s.b0 + b_lo, nb, keys, static_cast<int>(sa - keys) + na);
+  const int* pa[P > 0 ? P : 1];
+  const int* pb[P > 0 ? P : 1];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    av.p[p] = xv.p[p] + a_base;
-    bv.p[p] = av.p[p] + la;  // la < L only if lb == 0
+    int* region = planes + p * kRegion;
+    pa[p] = stage(va.p[p] + s.a0 + a_lo, na, region, 0);
+    pb[p] = stage(vb.p[p] + s.b0 + b_lo, nb, region, static_cast<int>(pa[p] - region) + na);
   }
-  const K* a = x + a_base;
-  const long long d0 = out0 - a_base;
-  const long long d1 = d0 + chunk < la + lb ? d0 + chunk : la + lb;
-  merge_chunk<K, P>(a, av, la, a + la, bv, lb, d0, d1, y, yv, out0, sh);
-}
+  copies_done();
+  __syncthreads();
 
-template <typename K, int P>
-__global__ void merge_two_multi_kernel(const K* __restrict__ a,
-                                       InPlanes av, long long na,
-                                       const K* __restrict__ b,
-                                       InPlanes bv, long long nb,
-                                       K* __restrict__ y, OutPlanes yv) {
-  __shared__ Shared<K> sh;
-  const long long d0 = static_cast<long long>(blockIdx.x) * kChunk;
-  const long long d1 = d0 + kChunk < na + nb ? d0 + kChunk : na + nb;
-  merge_chunk<K, P>(a, av, na, b, bv, nb, d0, d1, y, yv, d0, sh);
+  const int first = static_cast<int>(threadIdx.x) * kPerThread;
+  const int diag = first < cnt ? first : cnt;
+  const auto load_a = [&](int i) { return sa[i]; };
+  const auto load_b = [&](int j) { return sb[j]; };
+  const auto le = [](K x, K z) { return x <= z; };
+  const int ai = merge_path::split(na, nb, diag, load_a, load_b, le);
+  K out_key[kPerThread];
+  int out_val[P > 0 ? P : 1][kPerThread];
+  merge_path::serial<kPerThread, K>(
+      ai, na, diag - ai, nb, cnt - diag, load_a, load_b, le,
+      [&](int k, K key, bool from_a, int i) {
+        out_key[k] = key;
+#pragma unroll
+        for (int p = 0; p < P; ++p) out_val[p][k] = from_a ? pa[p][i] : pb[p][i];
+      });
+  __syncthreads();  // every thread is done with the staged slices
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    if (diag + k < cnt) {
+      keys[skew(diag + k)] = out_key[k];
+#pragma unroll
+      for (int p = 0; p < P; ++p) planes[p * kRegion + skew(diag + k)] = out_val[p][k];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int i = static_cast<int>(threadIdx.x) + k * kThreads;
+    if (i < cnt) {
+      y[s.out0 + i] = keys[skew(i)];
+#pragma unroll
+      for (int p = 0; p < P; ++p) yv.p[p][s.out0 + i] = planes[p * kRegion + skew(i)];
+    }
+  }
 }
 
 InPlanes in_planes(const void* v0, const void* v1, const void* v2) {
@@ -200,134 +306,198 @@ OutPlanes out_planes(void* v0, void* v1, void* v2) {
       {static_cast<int*>(v0), static_cast<int*>(v1), static_cast<int*>(v2)}};
 }
 
-template <typename K, int P>
-int launch_level(const K* x, InPlanes xv, K* y, OutPlanes yv, long long n,
-                 int run_log, cudaStream_t stream) {
-  const long long two_l = 2LL << run_log;
-  const long long chunk = kChunk < two_l ? kChunk : two_l;
-  const long long blocks = (n + chunk - 1) / chunk;
-  merge_level_multi_kernel<K, P><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                   stream>>>(x, xv, y, yv, n, run_log);
+// The partition, then the merge, of every tile of `g`.
+template <typename K, int P, typename G>
+int launch_merge(const K* xa, InPlanes va, const K* xb, InPlanes vb, G g, int* splits,
+                 K* y, OutPlanes yv, cudaStream_t stream) {
+  const long long tiles = g.tiles();
+  const long long part_blocks = (tiles + kSplitsPerBlock - 1) / kSplitsPerBlock;
+  partition_kernel<K, G><<<static_cast<unsigned>(part_blocks), kThreads, 0, stream>>>(
+      xa, xb, g, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = kRegion * (sizeof(K) + P * sizeof(int));
+  if (smem > kDefaultSmem) {
+    err = cudaFuncSetAttribute(merge_kernel<K, P, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  merge_kernel<K, P, G><<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
+      xa, va, xb, vb, g, splits, y, yv);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K, int P>
-int launch_two(const K* a, InPlanes av, long long na, const K* b,
-               InPlanes bv, long long nb, K* y, OutPlanes yv,
-               cudaStream_t stream) {
-  const long long blocks = (na + nb + kChunk - 1) / kChunk;
-  merge_two_multi_kernel<K, P><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(a, av, na, b, bv, nb, y, yv);
-  return static_cast<int>(cudaGetLastError());
+template <typename K, typename G>
+int merge_planes(const K* xa, InPlanes va, const K* xb, InPlanes vb, G g, int* splits, K* y,
+                 OutPlanes yv, int n_planes, cudaStream_t stream) {
+  switch (n_planes) {
+    case 1:
+      return launch_merge<K, 1>(xa, va, xb, vb, g, splits, y, yv, stream);
+    case 2:
+      return launch_merge<K, 2>(xa, va, xb, vb, g, splits, y, yv, stream);
+    default:
+      return launch_merge<K, 3>(xa, va, xb, vb, g, splits, y, yv, stream);
+  }
+}
+
+bool bad_level(int n_planes, long long n, int run_log) {
+  return n < 0 || n > 0x7FFFFFFFLL || run_log < 0 || run_log > 30 || n_planes < 1 ||
+         n_planes > kMaxPlanes;
 }
 
 template <typename K>
-int level_planes(const void* xk, const void* xv0, const void* xv1,
-                 const void* xv2, void* yk, void* yv0, void* yv1, void* yv2,
-                 int n_planes, long long n, int run_log, void* stream) {
-  if (n < 0 || n > 0x7FFFFFFFLL || run_log < 0 || run_log > 30 ||
-      n_planes < 1 || n_planes > kMaxPlanes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+int level_planes(const void* xk, const void* xv0, const void* xv1, const void* xv2,
+                 void* yk, void* yv0, void* yv1, void* yv2, void* splits, int n_planes,
+                 long long n, int run_log, void* stream) {
+  if (bad_level(n_planes, n, run_log)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const K* x = static_cast<const K*>(xk);
   const InPlanes xv = in_planes(xv0, xv1, xv2);
-  K* y = static_cast<K*>(yk);
-  const OutPlanes yv = out_planes(yv0, yv1, yv2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n_planes) {
-    case 1:
-      return launch_level<K, 1>(x, xv, y, yv, n, run_log, st);
-    case 2:
-      return launch_level<K, 2>(x, xv, y, yv, n, run_log, st);
-    default:
-      return launch_level<K, 3>(x, xv, y, yv, n, run_log, st);
-  }
+  return merge_planes(x, xv, x, xv, level_of(n, run_log), static_cast<int*>(splits),
+                      static_cast<K*>(yk), out_planes(yv0, yv1, yv2), n_planes,
+                      static_cast<cudaStream_t>(stream));
 }
 
 template <typename K>
-int two_planes(const void* ak, const void* av0, const void* av1,
-               const void* av2, long long na, const void* bk, const void* bv0,
-               const void* bv1, const void* bv2, long long nb, void* yk,
-               void* yv0, void* yv1, void* yv2, int n_planes, void* stream) {
+int two_planes(const void* ak, const void* av0, const void* av1, const void* av2,
+               long long na, const void* bk, const void* bv0, const void* bv1,
+               const void* bv2, long long nb, void* yk, void* yv0, void* yv1, void* yv2,
+               void* splits, int n_planes, void* stream) {
   if (na < 0 || nb < 0 || na + nb > 0x7FFFFFFFLL || n_planes < 1 ||
       n_planes > kMaxPlanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (na + nb == 0) return 0;
-  const K* a = static_cast<const K*>(ak);
-  const K* b = static_cast<const K*>(bk);
-  const InPlanes av = in_planes(av0, av1, av2);
-  const InPlanes bv = in_planes(bv0, bv1, bv2);
-  K* y = static_cast<K*>(yk);
-  const OutPlanes yv = out_planes(yv0, yv1, yv2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n_planes) {
-    case 1:
-      return launch_two<K, 1>(a, av, na, b, bv, nb, y, yv, st);
-    case 2:
-      return launch_two<K, 2>(a, av, na, b, bv, nb, y, yv, st);
-    default:
-      return launch_two<K, 3>(a, av, na, b, bv, nb, y, yv, st);
-  }
+  return merge_planes(static_cast<const K*>(ak), in_planes(av0, av1, av2),
+                      static_cast<const K*>(bk), in_planes(bv0, bv1, bv2), Two{na, nb},
+                      static_cast<int*>(splits), static_cast<K*>(yk),
+                      out_planes(yv0, yv1, yv2), n_planes,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// Planes past n_planes may be null.
-extern "C" int ccve_merge_level_multi_i32(const void* xk, const void* xv0,
-                                          const void* xv1, const void* xv2,
-                                          void* yk, void* yv0, void* yv1,
-                                          void* yv2, int n_planes,
-                                          long long n, int run_log,
-                                          void* stream) {
-  return level_planes<int>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n,
+extern "C" int ccve_sort_tiles_multi_i32(const void*, const void*, const void*, const void*,
+                                         void*, void*, void*, void*, int, long long, int,
+                                         void*);
+extern "C" int ccve_sort_tiles_multi_i64(const void*, const void*, const void*, const void*,
+                                         void*, void*, void*, void*, int, long long, int,
+                                         void*);
+
+namespace {
+
+using SortTiles = int (*)(const void*, const void*, const void*, const void*, void*, void*,
+                          void*, void*, int, long long, int, void*);
+
+// The tile sort (which pads x's n elements to whole tiles) into the
+// buffer from which an even number of levels ends in y, then each level
+// from one buffer into the other.
+template <typename K>
+int ladder(SortTiles sort_tiles, const void* xk, const void* xv0, const void* xv1,
+           const void* xv2, void* yk, void* yv0, void* yv1, void* yv2, void* tk, void* tv0,
+           void* tv1, void* tv2, void* splits, int n_planes, long long n, int tile_log,
+           int n_levels, void* stream) {
+  if (tile_log < 1 || n_levels < 0 || tile_log + n_levels > 31 ||
+      bad_level(n_planes, n, tile_log)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const long long n_pad = (((n - 1) >> tile_log) + 1) << tile_log;
+  void* bk[2] = {yk, tk};
+  void* bv[2][kMaxPlanes] = {{yv0, yv1, yv2}, {tv0, tv1, tv2}};
+  int cur = n_levels & 1;
+  int code = sort_tiles(xk, xv0, xv1, xv2, bk[cur], bv[cur][0], bv[cur][1], bv[cur][2],
+                        n_planes, n, tile_log, stream);
+  for (int level = 0; level < n_levels && code == 0; ++level, cur ^= 1) {
+    code = level_planes<K>(bk[cur], bv[cur][0], bv[cur][1], bv[cur][2], bk[cur ^ 1],
+                           bv[cur ^ 1][0], bv[cur ^ 1][1], bv[cur ^ 1][2], splits, n_planes,
+                           n_pad, tile_log + level, stream);
+  }
+  return code;
+}
+
+}  // namespace
+
+// Bytes of the split scratch that a merge of n outputs at run_log takes
+// (run_log 30 for a merge of two; a ladder's first level for a ladder).
+extern "C" long long ccve_merge_splits_bytes(long long n, int run_log) {
+  if (n <= 0 || run_log < 0 || run_log > 30) return 0;
+  return level_of(n, run_log).tiles() * static_cast<long long>(sizeof(int));
+}
+
+// Planes past n_planes may be null; splits: ccve_merge_splits_bytes(n,
+// run_log) of scratch.
+extern "C" int ccve_merge_level_multi_i32(const void* xk, const void* xv0, const void* xv1,
+                                          const void* xv2, void* yk, void* yv0, void* yv1,
+                                          void* yv2, void* splits, int n_planes, long long n,
+                                          int run_log, void* stream) {
+  return level_planes<int>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, splits, n_planes, n,
                            run_log, stream);
 }
 
-extern "C" int ccve_merge_level_multi_i64(const void* xk, const void* xv0,
-                                          const void* xv1, const void* xv2,
-                                          void* yk, void* yv0, void* yv1,
-                                          void* yv2, int n_planes,
-                                          long long n, int run_log,
-                                          void* stream) {
-  return level_planes<long long>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2,
-                                 n_planes, n, run_log, stream);
+extern "C" int ccve_merge_level_multi_i64(const void* xk, const void* xv0, const void* xv1,
+                                          const void* xv2, void* yk, void* yv0, void* yv1,
+                                          void* yv2, void* splits, int n_planes, long long n,
+                                          int run_log, void* stream) {
+  return level_planes<long long>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, splits, n_planes, n,
+                                 run_log, stream);
 }
 
-extern "C" int ccve_merge_two_multi_i32(const void* ak, const void* av0,
-                                        const void* av1, const void* av2,
-                                        long long na, const void* bk,
-                                        const void* bv0, const void* bv1,
-                                        const void* bv2, long long nb,
-                                        void* yk, void* yv0, void* yv1,
-                                        void* yv2, int n_planes,
+// x[0, n): padded to whole tiles of 2^tile_log (as the tile sort pads),
+// tiles sorted, then n_levels merge levels, the result in y (n rounded up
+// to a tile); t: scratch of y's shape; splits:
+// ccve_merge_splits_bytes(y's length, tile_log) of scratch.
+extern "C" int ccve_sort_multi_i32(const void* xk, const void* xv0, const void* xv1,
+                                   const void* xv2, void* yk, void* yv0, void* yv1,
+                                   void* yv2, void* tk, void* tv0, void* tv1, void* tv2,
+                                   void* splits, int n_planes, long long n, int tile_log,
+                                   int n_levels, void* stream) {
+  return ladder<int>(ccve_sort_tiles_multi_i32, xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, tk,
+                     tv0, tv1, tv2, splits, n_planes, n, tile_log, n_levels, stream);
+}
+
+extern "C" int ccve_sort_multi_i64(const void* xk, const void* xv0, const void* xv1,
+                                   const void* xv2, void* yk, void* yv0, void* yv1,
+                                   void* yv2, void* tk, void* tv0, void* tv1, void* tv2,
+                                   void* splits, int n_planes, long long n, int tile_log,
+                                   int n_levels, void* stream) {
+  return ladder<long long>(ccve_sort_tiles_multi_i64, xk, xv0, xv1, xv2, yk, yv0, yv1, yv2,
+                           tk, tv0, tv1, tv2, splits, n_planes, n, tile_log, n_levels,
+                           stream);
+}
+
+// splits: ccve_merge_splits_bytes(na + nb, 30) of scratch.
+extern "C" int ccve_merge_two_multi_i32(const void* ak, const void* av0, const void* av1,
+                                        const void* av2, long long na, const void* bk,
+                                        const void* bv0, const void* bv1, const void* bv2,
+                                        long long nb, void* yk, void* yv0, void* yv1,
+                                        void* yv2, void* splits, int n_planes,
                                         void* stream) {
-  return two_planes<int>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk,
-                         yv0, yv1, yv2, n_planes, stream);
+  return two_planes<int>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk, yv0, yv1, yv2,
+                         splits, n_planes, stream);
 }
 
-// a: int32[na], b: int32[nb] (either may be empty); y: int32[na + nb].
-extern "C" int ccve_merge_two_i32(const void* a, long long na, const void* b,
-                                  long long nb, void* y, void* stream) {
+extern "C" int ccve_merge_two_multi_i64(const void* ak, const void* av0, const void* av1,
+                                        const void* av2, long long na, const void* bk,
+                                        const void* bv0, const void* bv1, const void* bv2,
+                                        long long nb, void* yk, void* yv0, void* yv1,
+                                        void* yv2, void* splits, int n_planes,
+                                        void* stream) {
+  return two_planes<long long>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb, yk, yv0, yv1,
+                               yv2, splits, n_planes, stream);
+}
+
+// a: int32[na], b: int32[nb] (either may be empty); y: int32[na + nb];
+// splits: ccve_merge_splits_bytes(na + nb, 30) of scratch.
+extern "C" int ccve_merge_two_i32(const void* a, long long na, const void* b, long long nb,
+                                  void* y, void* splits, void* stream) {
   if (na < 0 || nb < 0 || na + nb > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (na + nb == 0) return 0;
-  return launch_two<int, 0>(static_cast<const int*>(a), InPlanes{}, na,
-                            static_cast<const int*>(b), InPlanes{}, nb,
-                            static_cast<int*>(y), OutPlanes{},
-                            static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int ccve_merge_two_multi_i64(const void* ak, const void* av0,
-                                        const void* av1, const void* av2,
-                                        long long na, const void* bk,
-                                        const void* bv0, const void* bv1,
-                                        const void* bv2, long long nb,
-                                        void* yk, void* yv0, void* yv1,
-                                        void* yv2, int n_planes,
-                                        void* stream) {
-  return two_planes<long long>(ak, av0, av1, av2, na, bk, bv0, bv1, bv2, nb,
-                               yk, yv0, yv1, yv2, n_planes, stream);
+  return launch_merge<int, 0>(static_cast<const int*>(a), InPlanes{},
+                              static_cast<const int*>(b), InPlanes{}, Two{na, nb},
+                              static_cast<int*>(splits), static_cast<int*>(y), OutPlanes{},
+                              static_cast<cudaStream_t>(stream));
 }

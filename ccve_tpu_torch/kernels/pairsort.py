@@ -12,8 +12,13 @@ an int32 and an int64 build:
    (csrc/merge_multi.cu) are one ladder level and the unequal merge of two
    sorted streams.
 
-The entry points `sort_multi_i32`, `sort_multi_i64`, `sort_multi_i32_runs`,
-`merge_sorted_multi_i32` and `merge_sorted_multi_i64` compose them. Every
+The entry points `sort_multi_i32`, `sort_multi_i64` and
+`sort_multi_i32_runs` run the tile sort and the merge ladder: on CUDA
+tensors in one host call (`ccve_sort_multi`: every launch enqueued from
+C), on the CPU through the plain versions level by level.
+`merge_sorted_multi_i32` and `merge_sorted_multi_i64` are the merge of two.
+Each merge level and merge of two is two launches, a merge-path partition
+(counted by `merge_partition.launches`) and the merge. Every
 step is stable (ties keep their input order, A before B in a merge), where
 the TPU's sort is not, so a kernel and its plain version (a stable
 torch.sort plus a gather) agree exactly, and a sort's cargo order is
@@ -29,7 +34,8 @@ appended after the real elements and a stable sort keeps it behind them.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from types import SimpleNamespace
+from typing import Sequence
 
 import torch
 
@@ -37,7 +43,7 @@ from ccve_tpu_torch.kernels import _build
 from ccve_tpu_torch.kernels.bigsort import PAD
 
 TILE_LOG = 13
-MAX_TILE_LOG = 13  # 2^13 (key, index) pairs: 64 KB (int32) or 80 KB (int64)
+MAX_TILE_LOG = 13  # 2^13 (key, index) words a tile: 68 KB (int32) or 85 KB (int64) skewed
 MAX_PLANES = 3
 
 
@@ -98,13 +104,17 @@ def merge_two_multi_plain(ak, avs, bk, bvs):
     return keys, [torch.cat([a, b])[order] for a, b in zip(avs, bvs)]
 
 
-def _sort_tiles_multi(wrapper, keys, vals, tile_log: int, dtype):
-    vals = _check_planes(keys, vals, wrapper.__name__, dtype)
+def _check_tiles(n: int, tile_log: int) -> None:
     if not 1 <= tile_log <= MAX_TILE_LOG:
         raise ValueError(f"tile_log {tile_log} outside [1, {MAX_TILE_LOG}]")
-    n = keys.numel()
     if n % (1 << tile_log):
         raise ValueError(f"length {n} is not a multiple of 2^{tile_log}")
+
+
+def _sort_tiles_multi(wrapper, keys, vals, tile_log: int, dtype):
+    vals = _check_planes(keys, vals, wrapper.__name__, dtype)
+    n = keys.numel()
+    _check_tiles(n, tile_log)
     if keys.device.type == "cpu":
         return sort_tiles_multi_plain(keys, vals, tile_log)
     out_keys = torch.empty_like(keys)
@@ -113,7 +123,7 @@ def _sort_tiles_multi(wrapper, keys, vals, tile_log: int, dtype):
         entry = getattr(_build.load(), f"ccve_sort_tiles_multi_{_build.SUFFIX[dtype]}")
         code = entry(
             keys.data_ptr(), *_ptrs(vals), out_keys.data_ptr(), *_ptrs(out_vals),
-            len(vals), n >> tile_log, tile_log, _build.stream(keys),
+            len(vals), n, tile_log, _build.stream(keys),
         )
         _build.check(code, wrapper.__name__)
         wrapper.launches += 1
@@ -135,22 +145,42 @@ sort_tiles_multi_i32.launches = 0
 sort_tiles_multi_i64.launches = 0
 
 
+# The merge-path partition kernel of csrc/merge_multi.cu: it runs before
+# every merge level and every merge of two, so its launches count apart.
+merge_partition = SimpleNamespace(launches=0)
+
+# run_log of a merge of two in `ccve_merge_splits_bytes`: tiles of the
+# kernel's whole chunk
+_TWO_RUN_LOG = 30
+
+
+def _merge_outputs(keys, vals, n: int, run_log: int):
+    """(keys, planes, splits): the outputs of a merge of n elements and the
+    address of the split scratch its partition kernel writes, after the
+    keys in their allocation."""
+    out_keys, splits = _build.empty_with_scratch(
+        keys, n, _build.load().ccve_merge_splits_bytes(n, run_log))
+    return out_keys, [vals[0].new_empty(n) for _ in vals], splits
+
+
 def _merge_level_multi(wrapper, keys, vals, run_log: int, dtype):
     vals = _check_planes(keys, vals, wrapper.__name__, dtype)
     if not 0 <= run_log <= 30:
         raise ValueError(f"run_log {run_log} outside [0, 30]")
     if keys.device.type == "cpu":
         return merge_level_multi_plain(keys, vals, run_log)
-    out_keys = torch.empty_like(keys)
-    out_vals = [torch.empty_like(v) for v in vals]
-    if keys.numel():
-        entry = getattr(_build.load(), f"ccve_merge_level_multi_{_build.SUFFIX[dtype]}")
-        code = entry(
-            keys.data_ptr(), *_ptrs(vals), out_keys.data_ptr(), *_ptrs(out_vals),
-            len(vals), keys.numel(), run_log, _build.stream(keys),
-        )
-        _build.check(code, wrapper.__name__)
-        wrapper.launches += 1
+    n = keys.numel()
+    if not n:
+        return torch.empty_like(keys), [torch.empty_like(v) for v in vals]
+    out_keys, out_vals, splits = _merge_outputs(keys, vals, n, run_log)
+    entry = getattr(_build.load(), f"ccve_merge_level_multi_{_build.SUFFIX[dtype]}")
+    code = entry(
+        keys.data_ptr(), *_ptrs(vals), out_keys.data_ptr(), *_ptrs(out_vals),
+        splits, len(vals), n, run_log, _build.stream(keys),
+    )
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    merge_partition.launches += 1
     return out_keys, out_vals
 
 
@@ -168,6 +198,10 @@ def merge_level_multi_i64(keys, vals, run_log: int):
 
 merge_level_multi_i32.launches = 0
 merge_level_multi_i64.launches = 0
+_MULTI_WRAPPERS = {
+    torch.int32: (sort_tiles_multi_i32, merge_level_multi_i32),
+    torch.int64: (sort_tiles_multi_i64, merge_level_multi_i64),
+}
 
 
 def _merge_two_multi(wrapper, ak, avs, bk, bvs, dtype):
@@ -183,17 +217,19 @@ def _merge_two_multi(wrapper, ak, avs, bk, bvs, dtype):
         raise ValueError(f"{name}: {n} elements, the kernels take < 2^31")
     if ak.device.type == "cpu":
         return merge_two_multi_plain(ak, avs, bk, bvs)
-    out_keys = ak.new_empty(n)
-    out_vals = [avs[0].new_empty(n) for _ in avs]
-    if n:
-        entry = getattr(_build.load(), f"ccve_merge_two_multi_{_build.SUFFIX[dtype]}")
-        code = entry(
-            ak.data_ptr(), *_ptrs(avs), ak.numel(),
-            bk.data_ptr(), *_ptrs(bvs), bk.numel(),
-            out_keys.data_ptr(), *_ptrs(out_vals), len(avs), _build.stream(ak),
-        )
-        _build.check(code, name)
-        wrapper.launches += 1
+    if not n:
+        return ak.new_empty(0), [avs[0].new_empty(0) for _ in avs]
+    out_keys, out_vals, splits = _merge_outputs(ak, avs, n, _TWO_RUN_LOG)
+    entry = getattr(_build.load(), f"ccve_merge_two_multi_{_build.SUFFIX[dtype]}")
+    code = entry(
+        ak.data_ptr(), *_ptrs(avs), ak.numel(),
+        bk.data_ptr(), *_ptrs(bvs), bk.numel(),
+        out_keys.data_ptr(), *_ptrs(out_vals), splits, len(avs),
+        _build.stream(ak),
+    )
+    _build.check(code, name)
+    wrapper.launches += 1
+    merge_partition.launches += 1
     return out_keys, out_vals
 
 
@@ -225,27 +261,57 @@ def pad_to_tile(keys, vals, tile_log: int):
     )
 
 
-def _ladder(keys, vals, run_log, tile_log, sort_tiles: Callable, merge_level: Callable):
-    if run_log < tile_log:
-        raise ValueError(f"run_log {run_log} below tile_log {tile_log}")
-    n_tiles = keys.numel() >> tile_log
-    n_levels = min(max(n_tiles - 1, 0).bit_length(), run_log - tile_log)
-    keys, vals = sort_tiles(keys, vals, tile_log)
+def _ladder_plain(keys, vals, tile_log: int, n_levels: int):
+    """Padding to whole tiles, the tile sort, then n_levels merge levels, by
+    the plain versions level by level, on any device."""
+    keys, vals = sort_tiles_multi_plain(*pad_to_tile(keys, vals, tile_log), tile_log)
     for level in range(n_levels):
-        keys, vals = merge_level(keys, vals, tile_log + level)
+        keys, vals = merge_level_multi_plain(keys, vals, tile_log + level)
     return keys, vals
 
 
-def _sort_runs(keys, vals, run_log, tile_log, sort_tiles, merge_level):
-    keys, vals = pad_to_tile(keys, _check_planes(keys, vals, "sort"), tile_log)
-    return _ladder(keys, vals, run_log, tile_log, sort_tiles, merge_level)
+def _ladder_kernels(keys, vals, tile_log: int, n_levels: int):
+    """`_ladder_plain` on CUDA tensors in one host call (`ccve_sort_multi`:
+    the tile sort pads in the kernel, and the levels run back to back on the
+    stream between the output and one scratch buffer); on the CPU the plain
+    versions."""
+    if keys.device.type == "cpu":
+        return _ladder_plain(keys, vals, tile_log, n_levels)
+    n = keys.numel() + (-keys.numel()) % (1 << tile_log)
+    _check_tiles(n, tile_log)
+    dtype = keys.dtype
+    sort_tiles, merge_level = _MULTI_WRAPPERS[dtype]
+    out_keys, out_vals, splits = _merge_outputs(keys, vals, n, tile_log)
+    if n:
+        tmp_keys = torch.empty_like(out_keys)
+        tmp_vals = [torch.empty_like(v) for v in out_vals]
+        entry = getattr(_build.load(), f"ccve_sort_multi_{_build.SUFFIX[dtype]}")
+        code = entry(
+            keys.data_ptr(), *_ptrs(vals), out_keys.data_ptr(), *_ptrs(out_vals),
+            tmp_keys.data_ptr(), *_ptrs(tmp_vals), splits, len(vals),
+            keys.numel(), tile_log, n_levels, _build.stream(keys),
+        )
+        _build.check(code, f"sort_multi_{_build.SUFFIX[dtype]}")
+        sort_tiles.launches += 1
+        merge_level.launches += n_levels
+        merge_partition.launches += n_levels
+    return out_keys, out_vals
 
 
-def _sort(keys, vals, tile_log, sort_tiles, merge_level):
+def _sort_runs(keys, vals, run_log, tile_log, ladder, dtype=None):
+    vals = _check_planes(keys, vals, "sort", dtype)
+    if run_log < tile_log:
+        raise ValueError(f"run_log {run_log} below tile_log {tile_log}")
+    n_tiles = -(-keys.numel() >> tile_log)
+    n_levels = min(max(n_tiles - 1, 0).bit_length(), run_log - tile_log)
+    return ladder(keys, vals, tile_log, n_levels)
+
+
+def _sort(keys, vals, tile_log, ladder, dtype=None):
     n = keys.numel()
     n_tiles = -(-n >> tile_log)
     run_log = tile_log + max(n_tiles - 1, 0).bit_length()
-    keys, vals = _sort_runs(keys, vals, run_log, tile_log, sort_tiles, merge_level)
+    keys, vals = _sort_runs(keys, vals, run_log, tile_log, ladder, dtype)
     return keys[:n], [v[:n] for v in vals]
 
 
@@ -254,23 +320,21 @@ def sort_multi_i32_runs(keys, vals, run_log: int, tile_log: int = TILE_LOG):
     cargo) and sorted stably into ascending runs of 2^run_log (the last may
     be shorter): a tile sort, then at most run_log - tile_log merge
     levels."""
-    return _sort_runs(
-        keys, vals, run_log, tile_log, sort_tiles_multi_i32, merge_level_multi_i32
-    )
+    return _sort_runs(keys, vals, run_log, tile_log, _ladder_kernels, torch.int32)
 
 
 def sort_multi_i32(keys, vals, tile_log: int = TILE_LOG):
     """Stable ascending sort of int32 keys carrying 1-3 int32 planes.
     Returns (sorted keys, [sorted planes])."""
-    return _sort(keys, vals, tile_log, sort_tiles_multi_i32, merge_level_multi_i32)
+    return _sort(keys, vals, tile_log, _ladder_kernels, torch.int32)
 
 
 def sort_multi_i64(keys, vals, tile_log: int = TILE_LOG):
     """`sort_multi_i32` for int64 keys."""
-    return _sort(keys, vals, tile_log, sort_tiles_multi_i64, merge_level_multi_i64)
+    return _sort(keys, vals, tile_log, _ladder_kernels, torch.int64)
 
 
-# The JAX package's names for the unequal merge: one kernel launch, no
+# The JAX package's names for the unequal merge: one host call, no
 # padding, whatever the lengths.
 merge_sorted_multi_i32 = merge_two_multi_i32
 merge_sorted_multi_i64 = merge_two_multi_i64
@@ -278,16 +342,14 @@ merge_sorted_multi_i64 = merge_two_multi_i64
 
 def sort_multi_runs_plain(keys, vals, run_log: int, tile_log: int = TILE_LOG):
     """`sort_multi_i32_runs` built from the plain versions, on any device."""
-    return _sort_runs(
-        keys, vals, run_log, tile_log, sort_tiles_multi_plain, merge_level_multi_plain
-    )
+    return _sort_runs(keys, vals, run_log, tile_log, _ladder_plain)
 
 
 def sort_multi_plain(keys, vals, tile_log: int = TILE_LOG):
     """`sort_multi_i32` / `sort_multi_i64` built from the plain versions,
     on any device: the
     yardstick a card run holds the kernels against."""
-    return _sort(keys, vals, tile_log, sort_tiles_multi_plain, merge_level_multi_plain)
+    return _sort(keys, vals, tile_log, _ladder_plain)
 
 
 merge_sorted_multi_plain = merge_two_multi_plain

@@ -22,11 +22,15 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
  8. Config 3's bulk engine at full size (1M probe rows x 4 levels, 50K
     build rows each) through `bulk_count`, launch counters zeroed just
     before: count and four checksums against the numpy oracle and the
-    all-plain path; the kernels again at its shapes; times.
+    all-plain path, a merge-path partition launched for every #7 merge;
+    the kernels again at its shapes; times, and #6 and #7's device time a
+    launch beside their bounds and the one-call `torch.sort` yardsticks
+    of the packed words (per tile; the whole stream).
  9. Config 1 materialized at full size (phase 4's data) through
     `sorted_expand_tiled`, counters zeroed just before: total, Σ payload
     and sampled triples against numpy, every tensor against the
-    all-plain path; the kernels again at its shapes; times.
+    all-plain path; the kernels again at its shapes; times, with #6 and
+    #7 read apart as in phase 8.
 10. Duplicate keys (256K build rows, 4 per key, 4M probes): per-probe
     stats and the expanded triple multiset against numpy.
 11. Runs `config3_four_way` and `config1_materialize` as the CLI would.
@@ -43,7 +47,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     psum on every row against numpy's searchsorted ranges, the all-plain
     route identical), `sorted_match_ranks` on the rank twin, a 2-level
     `bulk_count` against the numpy oracle, each with counters zeroed just
-    before; the int64 stats kernels again at its shapes; times.
+    before; the int64 stats kernels again at its shapes; times, with #6
+    and #7's int64 builds read apart as in phase 8.
 15. The int64/int32 ratio: config 1's own streams (phase 4) widened to
     int64 through the same count side, timed beside the int32 streams.
 16. Slice 4's kernel, the murmur64 hash (#12), against its plain version
@@ -301,6 +306,20 @@ NEW_WRAPPERS = {
     "merge_stats_i32": (merge_scan.merge_stats_i32,),
     "compact_i32": (compact.compact_i32,),
 }
+
+
+# the merge-path partition kernel that runs before each #7 merge level and
+# merge of two (both key types): counted apart from #7's launches
+PARTITION = {"merge_partition": (pairsort.merge_partition,)}
+
+
+def check_partitions(merge_launches: int, what: str) -> int:
+    """The partition launches since PARTITION was zeroed, which must equal
+    the #7 launches (one partition a merge level and a merge of two)."""
+    parts = read_counters(PARTITION)["merge_partition"]
+    if parts != merge_launches:
+        raise AssertionError(f"{what}: {parts} partition launches, {merge_launches} merges")
+    return parts
 
 
 # slice 3's wrappers, the int64 builds
@@ -702,7 +721,8 @@ def main() -> int:
         two = (sk[:n], [x[:n] for x in sv], b32, [tbl.payloads.to(torch.int32)])
         merged = merge_two(*two)
         same(f"merge_multi_{key}", merged, pairsort.merge_two_multi_plain(*two), f"{path} merge two")
-        return {"tile": (pk, pv), "levels": level_in, "two": two, "merged": merged}
+        return {"probe": (p32, rows), "tile": (pk, pv), "levels": level_in, "two": two,
+                "merged": merged}
 
     def path_ms(inputs, key="i32"):
         """(kernel ms, plain ms) of the sort and merges of one call."""
@@ -761,6 +781,55 @@ def main() -> int:
         for name, r in split.items():
             log(f"    {name}: {kernel_split.summary(r)}")
 
+    def probe_sort_readings(inputs, key, path):
+        """#6 and #7 of one stats call at a path's shapes, read apart: each
+        kernel's device time a launch (torch.profiler over `sort_multi` and
+        the merge of two, `bench.kernel_split.device_split`) beside its
+        bound, and the one-call `torch.sort` yardsticks (CUDA events) of the
+        packed (key << 32 | index) words, per tile and of the whole stream
+        (int64 keys: a stable sort of the keys). Returns the yardsticks'
+        ms."""
+        p, rows = inputs["probe"]
+        pk, pv = inputs["tile"]
+        tl = pairsort.TILE_LOG
+        sort_multi = getattr(pairsort, f"sort_multi_{key}")
+        merge_two = getattr(pairsort, f"merge_two_multi_{key}")
+        if key == "i32":
+            local = torch.arange(pk.numel(), device=pk.device) & ((1 << tl) - 1)
+            tile_words = ((pk.long() << 32) | local).view(-1, 1 << tl)
+            words = (p.long() << 32) | rows.long()
+            yard = {"per tile": lambda: torch.sort(tile_words, dim=1),
+                    "whole stream": lambda: torch.sort(words)}
+        else:
+            tile_keys = pk.view(-1, 1 << tl)
+            yard = {"per tile": lambda: torch.sort(tile_keys, dim=1, stable=True),
+                    "whole stream": lambda: torch.sort(p, stable=True)}
+        lib_ms = {name: med(cuda_ms(fn)) for name, fn in yard.items()}
+        n_levels = len(inputs["levels"])
+        d_sort = kernel_split.device_split(lambda: sort_multi(p, [rows]))
+        d_two = kernel_split.device_split(lambda: merge_two(*inputs["two"]))
+
+        def us(d, kernel):
+            return sum(t for name, t in d["kernels"].items() if kernel in name)
+
+        width = pk.element_size() + 4 * len(pv)
+        level_bound = bound(2 * pk.numel() * width, pk.numel())[0]
+        two_n = inputs["merged"][0].numel()
+        log(f"  #6 and #7 of one call on [{card}], device us a launch (torch.profiler, "
+            f"{kernel_split.TRACE_CALLS} calls): tile sort {us(d_sort, 'sort_tiles_kernel'):.2f} "
+            f"(bound {bound(*path_work(inputs)['sort'])[0] * 1e3:.2f}); merge level "
+            f"{us(d_sort, 'merge_kernel') / max(n_levels, 1):.2f} and its partition "
+            f"{us(d_sort, 'partition_kernel') / max(n_levels, 1):.2f} ({n_levels} levels; bound "
+            f"{level_bound * 1e3:.2f} a level); merge two {us(d_two, 'merge_kernel'):.2f} and its "
+            f"partition {us(d_two, 'partition_kernel'):.2f} (bound "
+            f"{bound(2 * two_n * width, two_n)[0] * 1e3:.2f}); sort_multi's device total "
+            f"{d_sort['us']:.2f} in {d_sort['events']:g} events")
+        log(f"  yardsticks at {path}, one torch.sort call: of a tile's words (#6) "
+            f"{lib_ms['per tile']:.4f} ms, of the stream's words (#6 + ladder) "
+            f"{lib_ms['whole stream']:.4f} ms, against sort_multi "
+            f"{med(cuda_ms(lambda: sort_multi(p, [rows]))):.4f} ms")
+        return lib_ms
+
     # ---- 8. config 3's bulk engine at full size ----------------------------
     t0 = time.perf_counter()
     tables3, probe3, (want3, want3_chk) = config3_data(1_000_000, 50_000, torch.device("cuda"))
@@ -768,9 +837,11 @@ def main() -> int:
     log(f"phase config-3 data: ok ({time.perf_counter() - t0:.1f} s), oracle count "
         f"{want3}, checksums {want3_chk}")
     zero_counters(NEW_WRAPPERS)
+    zero_counters(PARTITION)
     res3 = bulk_count(tables3, probe3)
     torch.cuda.synchronize()
     launches3 = read_counters(NEW_WRAPPERS)
+    parts3 = check_partitions(launches3["merge_multi_i32"], "config 3 bulk_count")
     got3 = (int(res3.count), [int(c) for c in res3.payload_checksums])
     if got3 != (want3, want3_chk):
         raise AssertionError(f"config 3 bulk_count gave {got3}, oracle {(want3, want3_chk)}")
@@ -788,7 +859,7 @@ def main() -> int:
     if (int(res3p.count), [int(c) for c in res3p.payload_checksums]) != got3:
         raise AssertionError("config 3: the all-plain path disagrees")
     log(f"phase config 3: ok, bulk_count count {got3[0]} checksums {got3[1]} "
-        f"(oracle and plain path agree); launches {launches3}")
+        f"(oracle and plain path agree); launches {launches3}, partitions {parts3}")
     inputs3 = path_kernels(tables3[0], cols3[0], "config 3")
     ms3, mv3 = inputs3["merged"]
     mv3 = mv3[0]
@@ -815,13 +886,16 @@ def main() -> int:
     for name, (kt, pt) in ms_cfg3.items():
         log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms per level "
             f"({launches3[name]} launch(es) per bulk_count)")
+    probe_sort_readings(inputs3, "i32", "config 3 (1M probes a level)")
 
     # ---- 9. config 1 materialized at full size (phase 4's data) ------------
     col1 = probe_dev[:, 0].contiguous()
     zero_counters(NEW_WRAPPERS)
+    zero_counters(PARTITION)
     tiles, total = sm.sorted_expand_tiled(table, col1)
     torch.cuda.synchronize()
     launches_m = read_counters(NEW_WRAPPERS)
+    parts_m = check_partitions(launches_m["merge_multi_i32"], "sorted_expand_tiled")
     psum_m = sum(int(t[2].sum()) for t in tiles)
     if (total, psum_m) != (want_count, want_checksum):
         raise AssertionError(f"sorted_expand_tiled gave ({total}, {psum_m}), numpy "
@@ -839,7 +913,7 @@ def main() -> int:
             raise AssertionError("sorted_expand: the kernel and all-plain routes disagree")
     log(f"phase config-1 materialize: ok, {len(tiles)} tile(s), {total} triples, "
         f"payload sum {psum_m} (numpy agrees), {sampled} sampled triples match the "
-        f"generators, all-plain route identical; launches {launches_m}")
+        f"generators, all-plain route identical; launches {launches_m}, partitions {parts_m}")
     inputs_m = path_kernels(table, col1, "materialize")
     planes_m, valid_m, _ = sm.expand_candidates(table, col1)
     same("compact_i32", compact.compact_i32(planes_m, valid_m),
@@ -873,6 +947,8 @@ def main() -> int:
     for name, (kt, pt) in ms_mat.items():
         log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
             f"({launches_m[name]} launch(es) per call)")
+    lib_m = probe_sort_readings(inputs_m, "i32", "materialize (16M probes)")
+    ms_mat["sort_tiles_multi_i32"] += (lib_m["per tile"],)
 
     # ---- 10. duplicate keys: mult > 1 and the F > 1 expand loop ------------
     t0 = time.perf_counter()
@@ -1120,9 +1196,11 @@ def main() -> int:
     # ---- 14. the wide stats side on phase 13's data ------------------------
     t0 = time.perf_counter()
     zero_counters(WIDE_WRAPPERS)
+    zero_counters(PARTITION)
     stats_w = sm.sorted_match_stats(table_w, col_w)
     torch.cuda.synchronize()
     launches_s = read_counters(WIDE_WRAPPERS)
+    parts_s = check_partitions(launches_s["merge_multi_i64"], "wide sorted_match_stats")
     prefix_w = np.concatenate([[0], np.cumsum(pays_w[np.argsort(keys_w, kind="stable")])])
     if not (np.array_equal(stats_w.mult.cpu().numpy(), hi_w - lo_w)
             and np.array_equal(stats_w.psum.cpu().numpy(), prefix_w[hi_w] - prefix_w[lo_w])):
@@ -1165,7 +1243,7 @@ def main() -> int:
     log(f"phase config1_wide stats: ok ({time.perf_counter() - t0:.1f} s), mult and psum of "
         f"{N_PROBE_WIDE} rows, ranks and a 2-level bulk_count (count {got2[0]}, checksums "
         f"{got2[1]}) match numpy and its oracle, all-plain identical; launches "
-        f"{ {k: launches_s[k] for k in WIDE_STATS} } (stats), "
+        f"{ {k: launches_s[k] for k in WIDE_STATS} } (stats, and {parts_s} partitions), "
         f"{ {k: launches_2[k] for k in WIDE_STATS} } (2 levels)")
     inputs_w = path_kernels(table_w, col_w, "config1_wide stats", key="i64")
     ms_w, mv_w = inputs_w["merged"]
@@ -1193,6 +1271,8 @@ def main() -> int:
         kt, pt = kernel_ms[name]
         log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms ({launches_s[name]} launch(es) "
             f"per call)")
+    lib_w = probe_sort_readings(inputs_w, "i64", "wide stats (2^24 int64 keys)")
+    kernel_ms["sort_tiles_multi_i64"] += (lib_w["per tile"],)
 
     # ---- 15. the int64/int32 ratio on config 1's own data ------------------
     p32_c, b32_c = sm.pack32_streams(table, col)

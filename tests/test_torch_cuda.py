@@ -944,3 +944,149 @@ def test_data_collection_round_trip_on_card(cuda):
     picked[:34] = torch.arange(0, 100, 3, dtype=torch.int32, device=cuda)
     out.append_chunk(chunklib.slice_compose(chunk, picked, 34))
     assert np.array_equal(out.rows()[5000:], cols[:, 0:100:3].T)
+
+
+# ---- #6 and #7 redesigned: register sort and merge-path rounds; partition,
+# staged merge and the ladder in one host call ------------------------------
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+EDGE_KEYS = ["random", "all equal", "extremes"]
+
+
+def _edge_keys(rng, n, dtype, kind):
+    """Keys of `kind`: uniform over the type, all one value (with arange
+    planes this checks stability), or heavy at the type's minimum and
+    maximum (the maximum is also the padding)."""
+    lo, hi = (I32_MIN, I32_MAX) if dtype == torch.int32 else (I64_MIN, I64_MAX)
+    if kind == "all equal":
+        keys = np.full(n, 7)
+    else:
+        keys = rng.integers(lo, hi, n, dtype=np.int64, endpoint=True)
+        if kind == "extremes":
+            keys[rng.random(n) < 0.3] = hi
+            keys[rng.random(n) < 0.3] = lo
+    return torch.from_numpy(keys).to(dtype)
+
+
+def _edge_planes(rng, n, count, kind, device):
+    if kind == "all equal":
+        return [torch.arange(n, dtype=torch.int32, device=device) * (p + 1)
+                for p in range(count)]
+    return _planes(rng, n, count, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("tile_log", list(range(1, pairsort.MAX_TILE_LOG + 1)))
+@pytest.mark.parametrize("kind", EDGE_KEYS)
+def test_sort_tiles_multi_edges(cuda, dtype, tile_log, kind):
+    """Every tile size, from tiles smaller than one thread's 16 elements
+    (padded in registers) to 2^13; 0, 1 and 3 tiles; P = 1..3."""
+    sort_tiles = pairsort._MULTI_WRAPPERS[dtype][0]
+    rng = np.random.default_rng(tile_log)
+    for n_tiles, n_planes in ((0, 1), (1, 2), (3, 3)):
+        n = n_tiles << tile_log
+        keys = _edge_keys(rng, n, dtype, kind).to(cuda)
+        vals = _edge_planes(rng, n, n_planes, kind, cuda)
+        _same(sort_tiles(keys, vals, tile_log),
+              pairsort.sort_tiles_multi_plain(keys, vals, tile_log))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8191, 8193, 3 * 8192 + 5])
+@pytest.mark.parametrize("kind", EDGE_KEYS)
+def test_merge_level_multi_edges(cuda, dtype, n, kind):
+    """run_log 0..20 (tiles of min(4096, 2L) outputs, the ragged last pair,
+    an empty B), inputs 4 bytes past an aligned address, P = 1..3."""
+    merge_level = pairsort._MULTI_WRAPPERS[dtype][1]
+    rng = np.random.default_rng(n)
+    n_planes = 1 + n % 3
+    keys = _edge_keys(rng, n + 1, dtype, kind).to(cuda)[1:]  # a misaligned view
+    vals = [v[1:] for v in _edge_planes(rng, n + 1, n_planes, kind, cuda)]
+    for run_log in range(21):
+        got = merge_level(keys, vals, run_log)
+        keys, vals = pairsort.merge_level_multi_plain(keys, vals, run_log)
+        _same(got, (keys, vals))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("na, nb", [(0, 0), (0, 1), (1, 0), (1, 1), (4095, 1), (4096, 0),
+                                    (1, 4096), (2048, 2049), (70_001, 3), (5, 90_000)])
+@pytest.mark.parametrize("kind", EDGE_KEYS)
+def test_merge_two_multi_edges(cuda, dtype, na, nb, kind):
+    merge_two = {torch.int32: pairsort.merge_two_multi_i32,
+                 torch.int64: pairsort.merge_two_multi_i64}[dtype]
+    rng = np.random.default_rng(na * 7 + nb)
+    n_planes = 1 + (na + nb) % 3
+    ak = _edge_keys(rng, na + 1, dtype, kind).to(cuda)[1:].sort().values
+    bk = _edge_keys(rng, nb, dtype, kind).to(cuda).sort().values
+    avs = [v[1:] for v in _edge_planes(rng, na + 1, n_planes, kind, cuda)]
+    bvs = _edge_planes(rng, nb, n_planes, kind, cuda)
+    _same(merge_two(ak, avs, bk, bvs), pairsort.merge_two_multi_plain(ak, avs, bk, bvs))
+
+
+@pytest.mark.parametrize("na, nb", [(0, 1), (1, 0), (4095, 1), (4096, 4096), (3, 8190)])
+@pytest.mark.parametrize("kind", EDGE_KEYS)
+def test_merge_sorted_i32_edges(cuda, na, nb, kind):
+    """#5, the key-only merge on #7's template, from misaligned views."""
+    rng = np.random.default_rng(na + 3 * nb)
+    a = _edge_keys(rng, na + 3, torch.int32, kind).to(cuda)[3:].sort().values
+    b = _edge_keys(rng, nb + 1, torch.int32, kind).to(cuda)[1:].sort().values
+    assert torch.equal(bigsort.merge_sorted_i32(a, b), bigsort.merge_sorted_i32_plain(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("tile_log, n", [(pairsort.TILE_LOG, 100_000), (pairsort.TILE_LOG, 8192),
+                                         (4, 1000), (1, 37), (11, 5 * 2048 + 1)])
+def test_sort_ladder_one_call_equals_levels(cuda, dtype, tile_log, n):
+    """The ladder's one host call equals the tile sort and the merge levels
+    called one by one, at either parity of the level count, and counts one
+    launch a level (and a partition a level)."""
+    sort_tiles, merge_level = pairsort._MULTI_WRAPPERS[dtype]
+    rng = np.random.default_rng(n)
+    keys = _edge_keys(rng, n, dtype, "extremes").to(cuda)
+    vals = _planes(rng, n, 2, cuda)
+    pk, pv = pairsort.pad_to_tile(keys, vals, tile_log)
+    n_tiles = pk.numel() >> tile_log
+    for run_log in sorted({tile_log, tile_log + 1, tile_log + 3, tile_log + 20}):
+        n_levels = min(max(n_tiles - 1, 0).bit_length(), run_log - tile_log)
+        want = sort_tiles(pk, pv, tile_log)
+        for level in range(n_levels):
+            want = merge_level(*want, tile_log + level)
+        before = (sort_tiles.launches, merge_level.launches, pairsort.merge_partition.launches)
+        if dtype == torch.int32:
+            got = pairsort.sort_multi_i32_runs(keys, vals, run_log, tile_log)
+        else:
+            got = pairsort._sort_runs(keys, vals, run_log, tile_log, pairsort._ladder_kernels,
+                                      dtype)
+        after = (sort_tiles.launches, merge_level.launches, pairsort.merge_partition.launches)
+        assert after == (before[0] + 1, before[1] + n_levels, before[2] + n_levels)
+        _same(got, want)
+        _same(got, pairsort.sort_multi_runs_plain(keys, vals, run_log, tile_log))
+    sort = pairsort.sort_multi_i32 if dtype == torch.int32 else pairsort.sort_multi_i64
+    _same(sort(keys, vals, tile_log), pairsort.sort_multi_plain(keys, vals, tile_log))
+
+
+def test_probe_sort_bad_shapes_raise(cuda):
+    k = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="cargo planes"):
+        pairsort.sort_multi_i32(k, [k, k, k, k])
+    with pytest.raises(ValueError, match="cargo planes"):
+        pairsort.merge_level_multi_i32(k, [k] * 4, 3)
+    with pytest.raises(ValueError, match="tile_log"):
+        pairsort.sort_multi_i32(k, [k], 14)
+    with pytest.raises(ValueError, match="run_log"):
+        pairsort.merge_level_multi_i32(k, [k], 31)
+    with pytest.raises(TypeError):
+        pairsort.sort_multi_i32(k.long(), [k])
+    with pytest.raises(ValueError, match="multiple"):
+        pairsort.sort_tiles_multi_i64(k[:10].long(), [k[:10]], 4)
+    # the C entries refuse what the wrappers would not pass, and check raises
+    from ccve_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    out = torch.empty_like(k)
+    code = lib.ccve_sort_multi_i32(k.data_ptr(), k.data_ptr(), None, None, out.data_ptr(),
+                                   out.data_ptr(), None, None, out.data_ptr(), out.data_ptr(),
+                                   None, None, out.data_ptr(), 4, 64, 4, 1, _build.stream(k))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(code, "ccve_sort_multi_i32 with 4 planes")

@@ -34,3 +34,39 @@ def test_device_split_raises_without_device_events(monkeypatch):
     _fake_windows(monkeypatch, [({}, {}, 0.0)] * kernel_split.TRACE_WINDOWS)
     with pytest.raises(RuntimeError, match="no device events"):
         kernel_split.device_split(lambda: None, 5)
+
+
+def test_probe_sort_cases_hold_kernels_and_yardsticks(monkeypatch):
+    """#6 and #7's cases on small streams of both key types (on the CPU the
+    wrappers run their plain versions): each kernel is held against its
+    plain version, the packed-word `torch.sort` yardstick gives what
+    `sort_multi_i32` gives, and each case runs and names its counters."""
+    import numpy as np
+    import torch
+
+    from ccve_tpu_torch.kernels import pairsort
+
+    rng = np.random.default_rng(5)
+
+    def streams(device):
+        out = {}
+        for shape, dtype, n, lo, hi in (("small i32", torch.int32, 20_000, 0, 3000),
+                                        ("small i64", torch.int64, 9_000, -2**62, 2**62)):
+            p = torch.from_numpy(rng.integers(lo, hi, n)).to(dtype)
+            b = torch.from_numpy(np.sort(rng.integers(lo, hi, 700))).to(dtype)
+            out[shape] = (p, b, torch.from_numpy(rng.integers(0, 2**30, 700)).to(torch.int32))
+        return out
+
+    monkeypatch.setattr(kernel_split, "stats_streams", streams)
+    cases = kernel_split.probe_sort_cases(torch.device("cpu"))
+    assert len(cases) == 8
+    for name, fn, counters, lib_name, lib in cases:
+        fn()
+        if lib is not None:
+            lib()
+            assert lib_name.startswith("torch.sort")
+        want = {"sort_tiles_multi", "merge_level_multi", "merge_two_multi"}
+        assert counters and all(any(w in c for w in want) or c == "merge_partition"
+                                for c in counters), name
+    assert any(c == "merge_partition" for _, _, cs, _, _ in cases for c in cs) == hasattr(
+        pairsort, "merge_partition")
