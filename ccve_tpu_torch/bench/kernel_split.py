@@ -23,7 +23,16 @@ wide's stats (2^24 int64 keys), it prints one line each for the tile sort,
 the first merge level, the whole sort (`sort_multi`: the tile sort and the
 ladder) and the merge of two, with the launches a call by counter, and the
 one-call `torch.sort` yardsticks of the packed (key << 32 | index) words,
-per tile and of the whole stream (`probe_sort_cases`). Every line gives:
+per tile and of the whole stream (`probe_sort_cases`). For #15
+(`merge_stats_i64` at config 1 wide's stats stream, and its generic entry
+`merge_scan_stats` on the same stream untagged) and #8 (`merge_stats_i32`
+at config 3's level 0) it prints each one's line, with its launches by
+kernel, beside the wrapper's two `torch.zeros` of the outputs alone, and
+the host us of each step of the row-form wrapper (`stats_host_steps`);
+for #1 and #13's count-side tile sort (`sort_tiles_i32` at config 1's 16M
+probes, `sort_tiles_i64` at config 1 wide's 2^24) one line each beside
+one `torch.sort(dim=1)` of the tiles (`tile_sort_cases`). Every line
+gives:
 
 - `call_ms`: CUDA events around one eager call, median (min, max) of
   2 * REPS calls: what a caller pays, the larger of the host's enqueue
@@ -474,6 +483,162 @@ def probe_sort_splits(device) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def stats_scan_inputs(device) -> dict:
+    """{shape: (s, v, n)}: the merged stream, its int32 plane and the probe
+    rows that #15 (`merge_stats_i64`) gets on config 1 wide's stats (2^24
+    int64 probes against 1M rows) and #8 (`merge_stats_i32`) on config 3's
+    level 0 (1M int32 probes against 50,000), from `stats_streams`."""
+    out = {}
+    for shape in ("wide stats 2^24 i64", "config 3 1M"):
+        p, b, pay = stats_streams(device)[shape]
+        key = "i32" if p.dtype == torch.int32 else "i64"
+        rows = torch.arange(p.numel(), dtype=torch.int32, device=device)
+        sk, sv = getattr(pairsort, f"sort_multi_{key}")(p, [rows])
+        s, (v,) = getattr(pairsort, f"merge_two_multi_{key}")(sk, sv, b, [pay])
+        out[shape] = (s, v, p.numel())
+    return out
+
+
+def _same_stats(got, want, what: str) -> None:
+    """Raise unless (mult, psum) `got` equals `want` bit for bit."""
+    _same((got[0], [got[1]]), (want[0], [want[1]]), what)
+
+
+def _generic(s, v):
+    """The generic entry's (sk, st) of a row-form stream: the untagged key,
+    and a build's payload as pay * 2 + 1 beside 0 at a probe."""
+    return s >> 1, torch.where((s & 1) == 0, v.to(torch.int64) * 2 + 1, 0)
+
+
+def stats_cases(device) -> list:
+    """[(name, fn, counter)] of #15 at config 1 wide's stats stream (the
+    row form, and its generic entry on the same stream untagged), #8 at
+    config 3's, and the wrapper's two `torch.zeros` of the outputs alone,
+    each kernel first held against its plain version."""
+    out = []
+    for shape, (s, v, n) in stats_scan_inputs(device).items():
+        key = "i32" if s.dtype == torch.int32 else "i64"
+        wrapper = getattr(merge_scan, f"merge_stats_{key}")
+        _same_stats(wrapper(s, v, n), merge_scan.merge_stats_plain(s, v, n),
+                    f"merge_stats_{key} {shape}")
+        out += [(f"merge_stats_{key}, {shape}", lambda f=wrapper, a=(s, v, n): f(*a), wrapper),
+                (f"two torch.zeros of the outputs, n = {n}", lambda n=n: (
+                    torch.zeros(n, dtype=torch.int32, device=device),
+                    torch.zeros(n, dtype=torch.int64, device=device)), None)]
+        if key == "i64":
+            sk, st = _generic(s, v)
+            _same_stats(merge_scan.merge_scan_stats(sk, st),
+                        merge_scan.merge_scan_stats_plain(sk, st), f"merge_scan_stats {shape}")
+            out.append((f"merge_scan_stats (generic entry), {shape} untagged",
+                        lambda a=(sk, st): merge_scan.merge_scan_stats(*a),
+                        merge_scan.merge_scan_stats))
+    return out
+
+
+def stats_host_steps(s, v, n) -> dict:
+    """{step: host us a call} of `merge_stats_{i32,i64}(s, v, n)`'s wrapper
+    on the card, each step timed alone (the best of 3 runs of
+    LADDER_CALLS calls), beside the whole call: where the enqueue goes."""
+    from ccve_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    key = _build.SUFFIX[s.dtype]
+    mult = torch.zeros(n, dtype=torch.int32, device=s.device)
+    psum = torch.zeros(n, dtype=torch.int64, device=s.device)
+    size = lib.ccve_merge_stats_scratch_bytes
+    size_args = (s.numel(), n)[:len(_build._SIZE_FUNCTIONS["ccve_merge_stats_scratch_bytes"])]
+    scratch = torch.empty(size(*size_args), dtype=torch.uint8, device=s.device)
+    entry = getattr(lib, f"ccve_merge_stats_{key}")
+    steps = {
+        "checks": lambda: (_build.check_int(s, "s", s.dtype), _build.check_i32(v, "v")),
+        "two torch.zeros": lambda: (torch.zeros(n, dtype=torch.int32, device=s.device),
+                                    torch.zeros(n, dtype=torch.int64, device=s.device)),
+        "scratch size call": lambda: size(*size_args),
+        "scratch allocation": lambda: torch.empty(size(*size_args), dtype=torch.uint8,
+                                                  device=s.device),
+        "stream": lambda: _build.stream(s),
+        "ctypes call and launches": lambda: entry(
+            s.data_ptr(), v.data_ptr(), s.numel(), n, scratch.data_ptr(), mult.data_ptr(),
+            psum.data_ptr(), _build.stream(s)),
+        "whole call": lambda: getattr(merge_scan, f"merge_stats_{key}")(s, v, n),
+    }
+    return _host_us(steps, LADDER_CALLS)
+
+
+def stats_splits(device) -> dict:
+    """{name: split} of `stats_cases`, with a kernel's launches a call by
+    counter."""
+    out = {}
+    for name, fn, counter in stats_cases(device):
+        if counter is None:
+            out[name] = split(fn)
+            continue
+        before, calls = counter.launches, [0]
+
+        def call(fn=fn, calls=calls):
+            calls[0] += 1
+            return fn()
+
+        out[name] = split(call)
+        out[name]["launches"] = {counter.__name__: (counter.launches - before) / calls[0]}
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def count_tiles(device) -> dict:
+    """{shape: padded probe stream} that the count side's tile sort gets:
+    config 1's 16M int32 probes (#1, `sort_tiles_i32`) and config 1 wide's
+    2^24 int64 probes (#13's count-side build, `sort_tiles_i64`), packed
+    and padded to whole tiles with the key type's maximum."""
+    from ccve_tpu_torch.bench.configs import config1_wide_host
+
+    out = {}
+    for shape, (k, pay, col), pack in (
+            ("config 1 16M i32", config1_host(1_000_000, 16_000_000), sm.pack32_streams),
+            ("wide count 2^24 i64", config1_wide_host(1_000_000, 1 << 24, 40),
+             sm.pack64_streams)):
+        table = sm.build_sorted(k, pay, device=device)
+        col = col[:, 0] if col.ndim == 2 else col
+        p, _ = pack(table, torch.from_numpy(col).to(device))
+        n_pad = -(-p.numel() >> bigsort.TILE_LOG) << bigsort.TILE_LOG
+        out[shape] = torch.cat([p, p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])])
+    return out
+
+
+def tile_sort_cases(device) -> list:
+    """[(name, fn, counter, yardstick name, yardstick fn)] of #1 and #13's
+    count-side tile sort at `count_tiles`' shapes, each first held against
+    its plain version; the yardstick is one `torch.sort(dim=1)` of the
+    tiles (the plain version's sort)."""
+    out = []
+    T = 1 << bigsort.TILE_LOG
+    for shape, x in count_tiles(device).items():
+        wrapper = bigsort.KERNELS[x.dtype][0]
+        if not torch.equal(wrapper(x), bigsort.sort_tiles_plain(x, bigsort.TILE_LOG)):
+            raise AssertionError(f"{wrapper.__name__} {shape}: disagrees with its plain version")
+        out.append((f"{wrapper.__name__}, {shape}", lambda f=wrapper, x=x: f(x), wrapper,
+                    f"torch.sort(dim=1) of the tiles, {shape}",
+                    lambda x=x.view(-1, T): torch.sort(x, dim=1)))
+    return out
+
+
+def tile_sort_splits(device) -> dict:
+    """{name: split} of `tile_sort_cases`, each kernel read in turns with
+    its yardstick, with its launches a call by counter."""
+    out = {}
+    for name, fn, counter, lib_name, lib in tile_sort_cases(device):
+        before, calls = counter.launches, [0]
+
+        def call(fn=fn, calls=calls):
+            calls[0] += 1
+            return fn()
+
+        out.update(in_turns({name: call, lib_name: lib}))
+        out[name]["launches"] = {counter.__name__: (counter.launches - before) / calls[0]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split: needs a CUDA device")
@@ -525,6 +690,23 @@ def main() -> int:
               f"[{card}]:")
         for step, us in ladder_host_steps(p).items():
             print(f"HOST {step}: {us:.1f} us")
+    stats = stats_splits(device)
+    print(f"#15 (row form at config 1 wide's stats, generic entry on the same stream) and #8 "
+          f"(config 3's level 0), with the wrapper's output zeroing alone, on [{card}]:")
+    for name, r in stats.items():
+        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
+        print(f"SPLIT {name}: {summary(r)}{launches}")
+    for shape, (s, v, n) in stats_scan_inputs(device).items():
+        print(f"host us a call of each step of merge_stats at {shape} ({s.numel()} elements, "
+              f"{n} rows), on [{card}]:")
+        for step, us in stats_host_steps(s, v, n).items():
+            print(f"HOST {step}: {us:.1f} us")
+    tiles = tile_sort_splits(device)
+    print(f"#1 and #13's count-side tile sort (tile 2^{bigsort.TILE_LOG}) at config 1's 16M "
+          f"and config 1 wide's 2^24 probes, on [{card}]:")
+    for name, r in tiles.items():
+        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
+        print(f"SPLIT {name}: {summary(r)}{launches}")
     drains = drain_splits(device)
     print(f"#10 at config 3's and config 7's shapes (4 levels, block {DRAIN_BLOCK}, "
           f"fanouts 1), on [{card}]:")

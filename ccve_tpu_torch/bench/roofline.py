@@ -7,7 +7,9 @@ pack, tile sort, merge-path levels, merge counts, payload dot) it reports
 
   bytes_hbm   device-memory bytes moved (reads + writes)
   t_hbm       bytes / BW_HBM                   (bandwidth bound)
-  t_alu       compare-exchange stage passes x STAGE_COST
+  t_alu       shared-memory passes over the tile x STAGE_COST (a
+              compare-exchange stage, or a merge-path round: one store and
+              one load of each key and a barrier)
   bound       which of the two binds (the larger)
 
 and the totals, so "x % of speed-of-light" names the binding resource of
@@ -54,6 +56,7 @@ ALU_OPS_PER_S = 67e12  # op/s, H100 SXM non-tensor float32, as one integer op
 STAGE_COST = 0.5002e-12  # s per element per CE stage, anchor A on the H100
 I32 = 4
 ANCHOR_REPEATS = 7  # turns of the anchors' three timed runs
+TILE_ITEMS = 16  # keys a thread of the tile sort sorts in registers (csrc/sort_tiles.cu)
 
 
 @dataclass
@@ -110,21 +113,30 @@ def count_side_plan(n_build: int, n_probe: int, tile_log: int | None = None) -> 
     return CountSidePlan(n_pad, tile_log, run_log, run_log - tile_log, -(-n_pad >> run_log))
 
 
+def merge_rounds(tile_log: int) -> int:
+    """Merge-path rounds of csrc/sort_tiles.cu's tile sort: log2 of its
+    threads, one a TILE_ITEMS-key run."""
+    return max(tile_log - TILE_ITEMS.bit_length() + 1, 0)
+
+
 def count_side_model(n_build: int, n_probe: int, tile_log: int | None = None) -> list[OpModel]:
     """Operator list of `sorted_match_totals`' int32 count side as the port
-    runs it (`ops.sort_merge._count_side_bc`): pack, a shared-memory bitonic
-    tile sort (tile_log·(tile_log+1)/2 stages a key), merge-path levels
-    (one read and one write of the stream a level, no stage work), the
-    merge counts over every run (one read of the run buffer and of b, one
-    write of bc; its binary searches' latency is not modelled), and the
-    payload dot."""
+    runs it (`ops.sort_merge._count_side_bc`): pack, the tile sort
+    (TILE_ITEMS keys a thread sorted in registers, which touches no shared
+    memory, then `merge_rounds` merge-path rounds, each one store and one
+    load of every key in shared memory and a barrier: priced as a stage
+    pass apiece), merge-path levels (one read and one write of the stream
+    a level, no stage work), the merge counts over every run (one read of
+    the run buffer and of b, one write of bc; its binary searches' latency
+    is not modelled), and the payload dot."""
     plan = count_side_plan(n_build, n_probe, tile_log)
     n_pad, m, tl = plan.n_pad, n_build, plan.tile_log
-    stages = tl * (tl + 1) // 2
+    rounds = merge_rounds(tl)
     return [
         OpModel("pack_i32 (probe keys -> key' << 1)", 2 * I32 * n_probe, 0),
-        OpModel(f"tile sort, shared-memory bitonic ({stages} stages, 2^{tl} tiles)",
-                2 * I32 * n_pad, stages * n_pad),
+        OpModel(f"tile sort, {TILE_ITEMS} keys a thread in registers, then {rounds} "
+                f"merge-path rounds in shared memory (2^{tl} tiles)",
+                2 * I32 * n_pad, rounds * n_pad),
         OpModel(f"merge-path levels x{plan.n_levels} (-> {plan.n_runs} runs of "
                 f"2^{plan.run_log})", 2 * I32 * n_pad * plan.n_levels, 0),
         OpModel(f"merge counts x{plan.n_runs} runs (2·{plan.run_log} dependent loads a "

@@ -95,7 +95,8 @@ _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {
-    "ccve_merge_stats_scratch_bytes": [_L],
+    # (L, n): a stream of L elements, n output rows (0: per element)
+    "ccve_merge_stats_scratch_bytes": [_L, _L],
     "ccve_compact_scratch_bytes": [_L],
     # (n, run_log): the merge-path splits of a merge of n outputs
     "ccve_merge_splits_bytes": [_L, _I],

@@ -4,7 +4,9 @@ Counterpart of `ccve_tpu.kernels.bigsort._sort_padded_buf(...,
 n_levels_cap=cap)` for int32 keys and of
 `ccve_tpu.kernels.pairsort.pallas_sort_i64_limbs(..., n_levels_cap=cap)`
 for int64 keys: the padded stream is sorted tile by tile (`sort_tiles_i32`,
-`sort_tiles_i64`, kernel csrc/sort_tiles.cu), then merge levels double the
+`sort_tiles_i64`, kernel csrc/sort_tiles.cu: 16 keys a thread sorted in
+registers, then merge-path rounds in shared memory, the multi-plane tile
+sort's template with no cargo), then merge levels double the
 run length (`merge_level_i32`, `merge_level_i64`, kernel
 csrc/merge_level.cu) until runs reach 2^run_log or cover the stream.
 `sort_runs` drives the two for either key type. `merge_sorted_i32`
@@ -29,7 +31,7 @@ import torch
 from ccve_tpu_torch.kernels import _build
 
 TILE_LOG = 13
-MAX_TILE_LOG = 13  # 2^13 keys: 32 KB (int32) or 64 KB (int64) of shared memory
+MAX_TILE_LOG = 13  # 2^13 keys: 34 KB (int32) or 68 KB (int64) of shared memory, skewed
 I32_MAX = 2**31 - 1
 I64_MAX = 2**63 - 1
 # the sort padding of each key type: its maximum, which sorts last

@@ -14,31 +14,35 @@
 // a select of min and max.
 //
 // What it is for: its K-slope, (t(64) - t(16)) / 48 stages / n, prices one
-// compare-exchange stage of the port's tile sort (csrc/sort_tiles.cu) with
-// a kernel that is not the engine's, so the roofline's STAGE_COST is graded
-// by something other than the kernels it grades.
+// pass over a tile in shared memory (a compare-exchange stage; the
+// roofline prices each merge-path round of the port's tile sort,
+// csrc/sort_tiles.cu, as one) with a kernel that is not the engine's, so
+// the roofline's STAGE_COST is graded by something other than the kernels
+// it grades.
 //
 // What bounds it on an H100: per launch, device memory sees one read and one
 // write of each key (8 bytes an element); per stage, the block makes a pass
 // over its tile in shared memory (one load and one store of each key) and a
 // block barrier. At K = 16 and more, the shared-memory passes and barriers
-// dominate, as in the tile sort.
+// dominate.
 //
-// Design: the tile sort's own shape. One block per tile of 2^13 keys (the
-// port's sort tile, kernels/bigsort.py TILE_LOG; 32 KB of shared memory),
-// min(T / 2, 1024) threads, each walking its pairs in strides of the block
-// size with the tile sort's pair indexing (i = 2t - (t & (k - 1)), partner
-// i + k), and __syncthreads() after every stage, so each stage is a round
-// trip through shared memory. K is a runtime argument: the stage loop is a
+// Design: the shape of the shared-memory bitonic tile sort the port first
+// ran. One block per tile of 2^13 keys (the port's sort tile,
+// kernels/bigsort.py TILE_LOG; 32 KB of shared memory), min(T / 2, 1024)
+// threads, each walking its pairs in strides of the block size with that
+// sort's pair indexing (i = 2t - (t & (k - 1)), partner i + k), and
+// __syncthreads() after every stage, so each stage is a round trip through
+// shared memory. K is a runtime argument: the stage loop is a
 // runtime loop, so the compiler cannot unroll stages into one another or
 // elide any (the partner of a pair changes from stage to stage, and the
 // barrier orders the shared-memory stores). A variant in which each thread
 // holds 8 neighbours in registers would let the compiler fuse all K stages
 // into register operations between one load and one store; that would price
-// work the engine's tile sort never does, so this kernel does not do it.
+// register work, not the shared-memory pass it is here to price, so this
+// kernel does not do it.
 // Both keys of a pair are stored every stage, swapped or not: one round of
 // strides 1, 2, 4 reaches a fixed point (no later stage swaps anything), so
-// a store only on a swap, as the tile sort makes, would price every stage
+// a store only on a swap, as that sort made, would price every stage
 // past the third as a pass that only reads. With both stores the stage cost
 // does not depend on the data.
 

@@ -6,7 +6,7 @@
 //    becomes one ascending run of 2L; the last pair may have a short
 //    second run, or none.
 //  - ccve_sort_multi_i32: a whole ladder in one host call: the tile sort
-//    of sort_tiles_multi.cu, then n_levels merge levels back to back on
+//    of sort_tiles.cu, then n_levels merge levels back to back on
 //    the stream, between the output and a scratch buffer.
 //  - ccve_merge_two_multi_i32: the unequal merge of two ascending streams
 //    A[0, na) and B[0, nb) into one of na + nb (either may be empty).

@@ -1,5 +1,5 @@
 // The merge-path search and the serial merge that the multi-plane merge
-// (merge_multi.cu) and the multi-plane tile sort (sort_tiles_multi.cu)
+// (merge_multi.cu) and the tile sort (sort_tiles.cu)
 // share. Both merge two ascending sequences A[0, na) and B[0, nb) stably:
 // at equal keys A's element comes first. The sequences are read through
 // `load_a(i)` and `load_b(j)` and compared by `le(x, y)` (x <= y), so

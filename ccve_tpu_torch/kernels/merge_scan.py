@@ -172,8 +172,11 @@ def merge_stats_plain(s: torch.Tensor, v: torch.Tensor, n: int):
     return mult, psum
 
 
-def _scratch(size_fn, length: int, device) -> torch.Tensor:
-    return torch.empty(size_fn(length), dtype=torch.uint8, device=device)
+def _scratch(lib, length: int, rows: int, device) -> torch.Tensor:
+    """The stats scans' scratch for a stream of `length` elements and
+    `rows` output rows (0 for the per-element forms)."""
+    return torch.empty(lib.ccve_merge_stats_scratch_bytes(length, rows), dtype=torch.uint8,
+                       device=device)
 
 
 def _merge_stats(wrapper, s, v, n, dtype):
@@ -189,7 +192,7 @@ def _merge_stats(wrapper, s, v, n, dtype):
     psum = torch.zeros(n, dtype=torch.int64, device=s.device)
     if s.numel():
         lib = _build.load()
-        scratch = _scratch(lib.ccve_merge_stats_scratch_bytes, s.numel(), s.device)
+        scratch = _scratch(lib, s.numel(), n, s.device)
         entry = getattr(lib, f"ccve_merge_stats_{_build.SUFFIX[dtype]}")
         code = entry(
             s.data_ptr(), v.data_ptr(), s.numel(), n, scratch.data_ptr(),
@@ -265,7 +268,7 @@ def merge_scan_stats(sk: torch.Tensor, st: torch.Tensor):
     mult, psum = _stats_outputs(sk.numel(), sk.device)
     if sk.numel():
         lib = _build.load()
-        scratch = _scratch(lib.ccve_merge_stats_scratch_bytes, sk.numel(), sk.device)
+        scratch = _scratch(lib, sk.numel(), 0, sk.device)
         code = lib.ccve_merge_scan_stats_i64(
             sk.data_ptr(), st.data_ptr(), sk.numel(), scratch.data_ptr(),
             mult.data_ptr(), psum.data_ptr(), _build.stream(sk),
@@ -287,7 +290,7 @@ def merge_scan_stats_packed(s: torch.Tensor, pay_bits: int):
     mult, psum = _stats_outputs(s.numel(), s.device)
     if s.numel():
         lib = _build.load()
-        scratch = _scratch(lib.ccve_merge_stats_scratch_bytes, s.numel(), s.device)
+        scratch = _scratch(lib, s.numel(), 0, s.device)
         code = lib.ccve_merge_scan_stats_packed_i64(
             s.data_ptr(), s.numel(), pay_bits, scratch.data_ptr(),
             mult.data_ptr(), psum.data_ptr(), _build.stream(s),

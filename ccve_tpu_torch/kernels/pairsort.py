@@ -6,8 +6,9 @@ Counterpart of `ccve_tpu.kernels.pairsort` (`pallas_sort_multi_i32`,
 `pallas_sort_multi_i64`, `merge_sorted_multi_i64`). Two kernels, each with
 an int32 and an int64 build:
 
- - `sort_tiles_multi_i32` / `_i64` (csrc/sort_tiles_multi.cu) sort each
-   2^tile_log-key tile and move the planes with their keys;
+ - `sort_tiles_multi_i32` / `_i64` (csrc/sort_tiles.cu, the template of
+   the count side's key-only tile sort) sort each 2^tile_log-key tile and
+   move the planes with their keys;
  - `merge_level_multi_i32` / `_i64` and `merge_two_multi_i32` / `_i64`
    (csrc/merge_multi.cu) are one ladder level and the unequal merge of two
    sorted streams.

@@ -2466,7 +2466,7 @@ def main() -> int:
                             "ccve_tpu/kernels/bigsort.py:286"),
         "merge_counts_i32": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
                              "ccve_tpu/kernels/merge_scan.py:548"),
-        "sort_tiles_multi_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles_multi.cu",
+        "sort_tiles_multi_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                                  "ccve_tpu/kernels/pairsort.py:99"),
         "merge_multi_i32": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
                             "ccve_tpu/kernels/pairsort.py:133"),
@@ -2480,7 +2480,7 @@ def main() -> int:
                             "ccve_tpu/kernels/pairsort.py:592"),
         "merge_counts_i64": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
                              "ccve_tpu/kernels/merge_scan.py:784"),
-        "sort_tiles_multi_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles_multi.cu",
+        "sort_tiles_multi_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                                  "ccve_tpu/kernels/pairsort.py:563"),
         "merge_multi_i64": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
                             "ccve_tpu/kernels/pairsort.py:592"),

@@ -1090,3 +1090,145 @@ def test_probe_sort_bad_shapes_raise(cuda):
                                    None, None, out.data_ptr(), 4, 64, 4, 1, _build.stream(k))
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(code, "ccve_sort_multi_i32 with 4 planes")
+
+
+# ---- #15 and #8 (csrc/merge_stats.cu): the single-pass scan, the staged rows
+
+def _row_stream(rng, n, m, dom, pay_lo, pay_hi, dtype, n_rows, device):
+    """A row-form stream of `dtype` keys: builds even, probes odd with
+    distinct rows in [0, n_rows) but two outside it, and 5 paddings."""
+    builds = np.sort(rng.integers(0, dom, m))
+    probes = rng.integers(0, dom + 3, n)
+    s = np.concatenate([builds * 2, probes * 2 + 1])
+    rows = rng.permutation(n_rows)[:n]
+    if n > 4:
+        rows[:2] = [-7, n_rows + 3]
+    v = np.concatenate([rng.integers(pay_lo, pay_hi, m, endpoint=True), rows])
+    order = np.argsort(s, kind="stable")
+    info = np.iinfo(dtype)
+    s = np.concatenate([s[order].astype(dtype), np.full(5, info.max, dtype)])
+    v = np.concatenate([v[order], np.arange(5)]).astype(np.int32)
+    return (torch.from_numpy(s).to(device), torch.from_numpy(v).to(device))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n, m, dom, n_rows", [
+    (3, 1, 2, 3),  # below one tile of 4096
+    (4091, 2, 3, 4091),  # one tile and a bit (with the builds and padding)
+    (12_345, 0, 50, 20_000),  # all probes, rows no probe names
+    (0, 9000, 50, 10),  # all builds
+    (200_000, 7, 2, 200_000),  # one key run across dozens of tiles
+    (40_000, 40_000, 900, 70_000),  # five buckets of 16384 rows
+])
+def test_merge_stats_edges(cuda, dtype, n, m, dom, n_rows):
+    """The row form against its plain version: lengths off the tile, long
+    runs, all builds, all probes, rows outside [0, n), payload extremes."""
+    rng = np.random.default_rng(n + m)
+    s, v = _row_stream(rng, n, m, dom, -(2**31), 2**31 - 1, dtype, n_rows, cuda)
+    wrapper = merge_scan.merge_stats_i32 if dtype == np.int32 else merge_scan.merge_stats_i64
+    got = wrapper(s, v, n_rows)
+    want = merge_scan.merge_stats_plain(s, v, n_rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_merge_stats_keeps_unnamed_rows(cuda):
+    """Through the C entry, rows that no probe names keep what they held."""
+    from ccve_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(5)
+    n_rows = 50_000
+    s, v = _row_stream(rng, 30_000, 3000, 700, -9, 9, np.int64, n_rows, cuda)
+    lib = _build.load()
+    scratch = torch.empty(lib.ccve_merge_stats_scratch_bytes(s.numel(), n_rows),
+                          dtype=torch.uint8, device=cuda)
+    mult = torch.full((n_rows,), -1, dtype=torch.int32, device=cuda)
+    psum = torch.full((n_rows,), -1, dtype=torch.int64, device=cuda)
+    _build.check(lib.ccve_merge_stats_i64(s.data_ptr(), v.data_ptr(), s.numel(), n_rows,
+                                          scratch.data_ptr(), mult.data_ptr(), psum.data_ptr(),
+                                          _build.stream(s)), "merge_stats_i64")
+    want = merge_scan.merge_stats_plain(s, v, n_rows)
+    named = torch.zeros(n_rows, dtype=torch.bool, device=cuda)
+    probe = ((s & 1) == 1) & (s != 2**63 - 1) & (v >= 0) & (v < n_rows)
+    named[v[probe].long()] = True
+    assert torch.equal(mult, torch.where(named, want[0], -1))
+    assert torch.equal(psum, torch.where(named, want[1], -1))
+
+
+def test_merge_stats_again_and_again(cuda):
+    """The look-back across blocks that run at once: twenty calls on a
+    stream of 300 tiles, each equal to the plain version."""
+    rng = np.random.default_rng(11)
+    s, v = _row_stream(rng, 1_000_000, 200_000, 50_000, 0, 2**30, np.int64, 1_000_000, cuda)
+    want = merge_scan.merge_stats_plain(s, v, 1_000_000)
+    for _ in range(20):
+        got = merge_scan.merge_stats_i64(s, v, 1_000_000)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_merge_stats_past_the_block_bins(cuda):
+    """More than 1024 buckets (n > 2^24 rows): each probe takes its own
+    staging slot; equal to the plain version."""
+    n = (1 << 24) + 5000
+    g = torch.Generator(device=cuda).manual_seed(3)
+    keys = torch.randint(0, 1 << 20, (n,), device=cuda, generator=g)
+    builds = torch.randint(0, 1 << 20, (4000,), device=cuda, generator=g).sort().values
+    s = torch.cat([builds * 2, keys * 2 + 1])
+    v = torch.cat([torch.randint(-9, 9, (4000,), device=cuda, generator=g),
+                   torch.randperm(n, device=cuda, generator=g)]).to(torch.int32)
+    s, order = s.sort(stable=True)
+    v = v[order].contiguous()
+    got = merge_scan.merge_stats_i64(s, v, n)
+    want = merge_scan.merge_stats_plain(s, v, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("L", [1, 7, 4095, 4097, 123_457])
+def test_merge_scan_stats_edges(cuda, L):
+    """The generic form at lengths off the tile, INT64_MIN and INT64_MAX
+    among the keys, payloads at the tag's extremes."""
+    rng = np.random.default_rng(L)
+    sk = np.sort(rng.choice(np.array([I64_MIN, -1, 0, 5, I64_MAX], np.int64), L))
+    is_build = rng.random(L) < 0.5
+    order = np.lexsort((~is_build, sk))
+    sk, is_build = sk[order], is_build[order]
+    pay = rng.choice(np.array([-(2**62), -1, 0, 2**62 - 1], np.int64), L)
+    st = np.where(is_build, pay * 2 + 1, 0)
+    sk, st = _i64(sk, cuda), _i64(st, cuda)
+    got = merge_scan.merge_scan_stats(sk, st)
+    want = merge_scan.merge_scan_stats_plain(sk, st)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("pay_bits", [2, 31])
+@pytest.mark.parametrize("L", [3, 4097, 70_000])
+def test_merge_scan_stats_packed_edges(cuda, pay_bits, L):
+    rng = np.random.default_rng(L + pay_bits)
+    key = rng.integers(0, 40, L)
+    is_build = rng.random(L) < 0.5
+    field = np.where(is_build, rng.integers(0, 2 ** (pay_bits - 1), L) * 2, (1 << pay_bits) - 1)
+    s = _i64(np.sort((key << pay_bits) | field), cuda)
+    got = merge_scan.merge_scan_stats_packed(s, pay_bits)
+    want = merge_scan.merge_scan_stats_packed_plain(s, pay_bits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---- #1 and #13's count-side tile sort (csrc/sort_tiles.cu), key only
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("tile_log", list(range(1, bigsort.MAX_TILE_LOG + 1)))
+@pytest.mark.parametrize("kind", ["random", "equal", "extremes"])
+def test_sort_tiles_key_only_edges(cuda, dtype, tile_log, kind):
+    """tile_log 1..13 (below one thread's 16 keys, the tile padded in
+    registers), all-equal tiles, the key type's extremes among the keys."""
+    info = torch.iinfo(dtype)
+    g = torch.Generator(device=cuda).manual_seed(tile_log)
+    n = 5 << tile_log
+    if kind == "equal":
+        x = torch.full((n,), 12345, dtype=dtype, device=cuda)
+    else:
+        x = torch.randint(info.min, info.max, (n,), dtype=dtype, device=cuda, generator=g)
+        if kind == "extremes":
+            x[::3] = info.max
+            x[1::5] = info.min
+    wrapper = bigsort.sort_tiles_i32 if dtype == torch.int32 else bigsort.sort_tiles_i64
+    assert torch.equal(wrapper(x, tile_log), bigsort.sort_tiles_plain(x, tile_log))

@@ -70,3 +70,88 @@ def test_probe_sort_cases_hold_kernels_and_yardsticks(monkeypatch):
                                 for c in counters), name
     assert any(c == "merge_partition" for _, _, cs, _, _ in cases for c in cs) == hasattr(
         pairsort, "merge_partition")
+
+
+def _stats_streams(device):
+    """Small stand-ins for `kernel_split.stats_streams`: packed probes,
+    builds and payloads of both key types."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(8)
+    out = {}
+    for shape, dtype, n, span in (("wide stats 2^24 i64", torch.int64, 9000, 2**40),
+                                  ("config 3 1M", torch.int32, 20_000, 3000)):
+        p = (torch.from_numpy(rng.integers(0, span, n)) << 1 | 1).to(dtype)
+        b = (torch.from_numpy(np.sort(rng.integers(0, span, 700))) << 1).to(dtype)
+        out[shape] = (p, b, torch.from_numpy(rng.integers(-2**30, 2**30, 700)).to(torch.int32))
+    return out
+
+
+def test_stats_cases_hold_kernels_and_run(monkeypatch):
+    """#15 and #8's cases on small streams (on the CPU the wrappers run
+    their plain versions): the merged streams are the probe sort and the
+    merge of two, each kernel is held against its plain version, the
+    generic entry gets the same stream untagged, and every case runs and
+    names its counter (the zeroing alone has none)."""
+    import torch
+
+    from ccve_tpu_torch.kernels import merge_scan
+
+    monkeypatch.setattr(kernel_split, "stats_streams", _stats_streams)
+    kernel_split.stats_scan_inputs.cache_clear()
+    try:
+        inputs = kernel_split.stats_scan_inputs(torch.device("cpu"))
+        cases = kernel_split.stats_cases(torch.device("cpu"))
+    finally:
+        kernel_split.stats_scan_inputs.cache_clear()
+    s, v, n = inputs["wide stats 2^24 i64"]
+    assert s.dtype == torch.int64 and s.numel() == n + 700 and bool((s[1:] >= s[:-1]).all())
+    sk, st = kernel_split._generic(s, v)
+    mult, psum = merge_scan.merge_stats_plain(s, v, n)
+    probe = (st & 1) == 0
+    gm, gp = merge_scan.merge_scan_stats_plain(sk, st)
+    assert torch.equal(gm[probe], mult[v[probe].long()])
+    assert torch.equal(gp[probe], psum[v[probe].long()])
+    assert [c is None for _, _, c in cases] == [False, True, False, False, True]
+    for name, fn, counter in cases:
+        fn()
+        assert counter is None or counter.__name__ in {"merge_stats_i64", "merge_stats_i32",
+                                                       "merge_scan_stats"}, name
+
+
+def test_tile_sort_cases_hold_kernels_and_yardsticks(monkeypatch):
+    """#1 and #13's count-side cases on small padded streams: each kernel
+    is held against its plain version, and the yardstick's values equal
+    the kernel's."""
+    import numpy as np
+    import torch
+
+    from ccve_tpu_torch.kernels import bigsort
+
+    rng = np.random.default_rng(2)
+    T = 1 << bigsort.TILE_LOG
+    tiles = {"i32": torch.from_numpy(rng.integers(0, 99, 3 * T).astype(np.int32)),
+             "i64": torch.from_numpy(rng.integers(-2**62, 2**62, 2 * T))}
+    monkeypatch.setattr(kernel_split, "count_tiles", lambda device: tiles)
+    cases = kernel_split.tile_sort_cases(torch.device("cpu"))
+    assert [c.__name__ for _, _, c, _, _ in cases] == ["sort_tiles_i32", "sort_tiles_i64"]
+    for _, fn, _, lib_name, lib in cases:
+        assert torch.equal(fn().view(-1, T), lib().values)
+        assert lib_name.startswith("torch.sort(dim=1)")
+
+
+def test_stats_sweep_variants_apply_to_the_sources():
+    """Every rewrite of `bench.stats_sweep` for the design the sources hold
+    finds its text exactly once, so a sweep on the card builds what it
+    names."""
+    from ccve_tpu_torch.bench import stats_sweep
+    from ccve_tpu_torch.kernels import _build
+
+    name, variants = stats_sweep.design()
+    assert name == "single-pass"
+    sources = {f: (_build.CSRC / f).read_text() for f in ("seg_scan.cuh", "merge_stats.cu")}
+    for copy, subs in variants.items():
+        for target, old, _ in subs:
+            assert sources[target].count(old) == 1, (copy, old)
+    assert stats_sweep.INEXACT <= set(variants)
