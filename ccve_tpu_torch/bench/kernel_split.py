@@ -31,8 +31,19 @@ kernel, beside the wrapper's two `torch.zeros` of the outputs alone, and
 the host us of each step of the row-form wrapper (`stats_host_steps`);
 for #1 and #13's count-side tile sort (`sort_tiles_i32` at config 1's 16M
 probes, `sort_tiles_i64` at config 1 wide's 2^24) one line each beside
-one `torch.sort(dim=1)` of the tiles (`tile_sort_cases`). Every line
-gives:
+one `torch.sort(dim=1)` of the tiles (`tile_sort_cases`). At the same two
+shapes, for #2 and #13's count-side merge level (`merge_level_i32`,
+`merge_level_i64`) one line for the ladder's first level beside one
+`torch.sort(dim=1)` of the run pairs, and one for the whole ladder
+(`sort_runs`: the tile sort and every level `count_side_plan` keeps)
+beside one `torch.sort(dim=1)` of the runs (`count_level_cases`). For #9
+(`compact_i32`) at config 1 materialized's candidates (three planes) and
+at the LP ladder's first stage on config 1 (two planes, the lanes live
+after step 0), one line each beside the one library call `planes[:,
+mask]` alone, without the plain version's zeros and copy
+(`compact_cases`). `--only` names the groups to read (rank, counts,
+merge_two, probe_sort, stats, tile_sort, count_levels, compact, drain;
+all by default). Every line gives:
 
 - `call_ms`: CUDA events around one eager call, median (min, max) of
   2 * REPS calls: what a caller pays, the larger of the host's enqueue
@@ -623,23 +634,147 @@ def tile_sort_cases(device) -> list:
     return out
 
 
-def tile_sort_splits(device) -> dict:
-    """{name: split} of `tile_sort_cases`, each kernel read in turns with
-    its yardstick, with its launches a call by counter."""
+COUNT_BUILD_ROWS = 1_000_000  # the build side of both `count_tiles` shapes
+
+
+def _padded_view(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x padded with its key type's maximum to a multiple of `width`, as
+    rows of `width`: a row sort of it sorts each run of `width` of x, the
+    ragged last one too, and puts the padding after it."""
+    pad = x.new_full(((-x.numel()) % width,), bigsort.PAD[x.dtype])
+    return torch.cat([x, pad]).view(-1, width)
+
+
+def count_level_cases(device) -> list:
+    """[(name, fn, {counter name: counter}, yardstick name, yardstick fn)]
+    of #2 and #13's count-side merge level at `count_tiles`' shapes: the
+    ladder's first level (over the sorted tiles) beside one
+    `torch.sort(dim=1)` of the run pairs, and the whole ladder (`sort_runs`
+    at `count_side_plan`'s run_log for COUNT_BUILD_ROWS build rows) beside
+    one `torch.sort(dim=1)` of the runs, each first held against its plain
+    version and the yardstick against the kernel."""
+    tl = bigsort.TILE_LOG
+    out = []
+    for shape, x in count_tiles(device).items():
+        sort_tiles, merge_level = bigsort.KERNELS[x.dtype]
+        run_log = sm.count_side_plan(x.numel(), COUNT_BUILD_ROWS, tl)[1]
+        tiles = bigsort.sort_tiles_plain(x, tl)
+        level = merge_level(tiles, tl)
+        runs = bigsort.sort_runs(x, run_log, tl)
+        pairs = _padded_view(tiles, 2 << tl)
+        whole = _padded_view(x, 1 << run_log)
+        for what, got, want, lib in (
+                ("level", level, bigsort.merge_level_plain(tiles, tl), pairs),
+                ("sort_runs", runs, bigsort.sort_runs_plain(x, run_log, tl), whole)):
+            if not (torch.equal(got, want)
+                    and torch.equal(torch.sort(lib, dim=1).values.view(-1)[:x.numel()], got)):
+                raise AssertionError(f"{merge_level.__name__} {what} {shape}: disagrees with "
+                                     f"its plain version or its yardstick")
+        # the partition kernel's counter is shared with #7's
+        part = {"merge_partition": pairsort.merge_partition}
+        n_levels = run_log - tl
+        out += [
+            (f"{merge_level.__name__} level {tl}, {shape}",
+             lambda f=merge_level, a=tiles: f(a, tl),
+             {merge_level.__name__: merge_level, **part},
+             f"torch.sort(dim=1) of the run pairs, {shape}",
+             lambda v=pairs: torch.sort(v, dim=1)),
+            (f"sort_runs ({n_levels} levels), {shape}",
+             lambda a=x, r=run_log: bigsort.sort_runs(a, r, tl),
+             {sort_tiles.__name__: sort_tiles, merge_level.__name__: merge_level, **part},
+             f"torch.sort(dim=1) of the runs of 2^{run_log}, {shape}",
+             lambda v=whole: torch.sort(v, dim=1)),
+        ]
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def compact_inputs(device) -> dict:
+    """{shape: (planes, mask)} that #9 gets: config 1 materialized's
+    candidates (`expand_candidates`: probe row, key', payload over the
+    merged stream) and the LP ladder's first stage on config 1 (cursor and
+    probe row of each lane, the lanes live after step 0 of config 1's LP
+    table)."""
+    from ccve_tpu_torch.exec import bulk
+    from ccve_tpu_torch.kernels.murmur import murmurhash64_i64
+    from ccve_tpu_torch.ops.hash_table import build_lp
+
+    keys, payloads, probe = config1_host(1_000_000, 16_000_000)
+    table = sm.build_sorted(keys, payloads, device=device)
+    planes, valid, _ = sm.expand_candidates(table, torch.from_numpy(
+        probe[:, 0].astype(np.int32)).to(device))
+    lp = build_lp(keys, payloads, device=device)
+    col = torch.from_numpy(probe[:, 0].astype(np.int64)).to(device)
+    h = murmurhash64_i64(col) & (lp.n_slots - 1)
+    _, _, live, cursor = bulk._lp_step(lp, col, h, torch.ones_like(col, dtype=torch.bool))
+    rows = torch.arange(col.numel(), dtype=torch.int32, device=device)
+    return {f"materialize C=3 n={valid.numel()}": (planes, valid),
+            f"LP ladder stage 1 C=2 n={live.numel()}": (
+                torch.stack([cursor.to(torch.int32), rows]), live)}
+
+
+def compact_cases(device) -> list:
+    """[(name, fn, counter, yardstick name, yardstick fn)] of #9 at
+    `compact_inputs`' shapes, each first held against its plain version;
+    the yardstick is the one library call `planes[:, mask]`, which gives
+    the kept rows without the plain version's zeros and copy."""
+    from ccve_tpu_torch.kernels import compact
+
+    out = []
+    for shape, (planes, mask) in compact_inputs(device).items():
+        got, count = compact.compact_i32(planes, mask)
+        want, want_count = compact.compact_plain(planes, mask)
+        kept = planes[:, mask]
+        if not (torch.equal(got, want) and int(count) == int(want_count)
+                and torch.equal(got[:, :kept.shape[1]], kept)):
+            raise AssertionError(f"compact_i32 {shape}: disagrees with its plain version or "
+                                 f"its yardstick")
+        out.append((f"compact_i32, {shape}", lambda a=(planes, mask): compact.compact_i32(*a),
+                    compact.compact_i32, f"planes[:, mask], {shape}",
+                    lambda a=(planes, mask): a[0][:, a[1]]))
+    return out
+
+
+def counted_splits(cases) -> dict:
+    """{name: split} of (name, fn, counters, yardstick name, yardstick fn)
+    cases, each kernel read in turns with its yardstick, with its launches
+    a call by counter (a counter alone stands for {its name: it})."""
     out = {}
-    for name, fn, counter, lib_name, lib in tile_sort_cases(device):
-        before, calls = counter.launches, [0]
+    for name, fn, counters, lib_name, lib in cases:
+        if not isinstance(counters, dict):
+            counters = {counters.__name__: counters}
+        before = {c: k.launches for c, k in counters.items()}
+        calls = [0]
 
         def call(fn=fn, calls=calls):
             calls[0] += 1
             return fn()
 
         out.update(in_turns({name: call, lib_name: lib}))
-        out[name]["launches"] = {counter.__name__: (counter.launches - before) / calls[0]}
+        out[name]["launches"] = {c: (k.launches - before[c]) / calls[0]
+                                 for c, k in counters.items()}
     return out
 
 
-def main() -> int:
+GROUPS = ("rank", "counts", "merge_two", "probe_sort", "stats", "tile_sort", "count_levels",
+          "compact", "drain")
+
+
+def _print_splits(splits: dict) -> None:
+    for name, r in splits.items():
+        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
+        print(f"SPLIT {name}: {summary(r)}{launches}")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default=",".join(GROUPS),
+                        help=f"comma-separated groups to read, of {', '.join(GROUPS)}")
+    groups = set(parser.parse_args(argv).only.split(","))
+    if groups - set(GROUPS):
+        parser.error(f"unknown groups {sorted(groups - set(GROUPS))}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split: needs a CUDA device")
     card = subprocess.run(
@@ -648,73 +783,84 @@ def main() -> int:
     ).stdout.strip()
     print(f"card: {card}")
     device = torch.device("cuda")
-    table, chunk, valid = rank_inputs(device)
-    got, want = chunk_rank(table, chunk, valid), chunk_rank_plain(table, chunk, valid)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("chunk_rank disagrees with its plain version")
-    rank = in_turns({
-        "chunk_rank": lambda: chunk_rank(table, chunk, valid),
-        "two searchsorted": lambda: (torch.searchsorted(table, chunk, side="left"),
-                                     torch.searchsorted(table, chunk, side="right")),
-    })
-    s, m, ps, b = counts_inputs(device)
-    if not torch.equal(merge_scan.merge_scan_build_counts(s, m),
-                       merge_scan.merge_scan_build_counts_plain(s, m)):
-        raise AssertionError("merge_scan_build_counts disagrees with its plain version")
-    want_b = b - 1
-    counts = in_turns({
-        "merge_scan_build_counts": lambda: merge_scan.merge_scan_build_counts(s, m),
-        "two searchsorted and a subtraction": lambda: (
-            torch.searchsorted(ps, want_b, right=True) - torch.searchsorted(ps, want_b)),
-    })
-    if not torch.equal(bigsort.merge_sorted_i32(ps, b), bigsort.merge_sorted_i32_plain(ps, b)):
-        raise AssertionError("merge_sorted_i32 disagrees with its plain version")
-    merge5 = in_turns({
-        "merge_sorted_i32": lambda: bigsort.merge_sorted_i32(ps, b),
-        "torch.sort of the concatenation": lambda: torch.cat([ps, b]).sort(),
-    })
-    print(f"#11 at config 3's shape (2048 lanes, m = {table.numel()}), #4 and #5 at 8192 "
-          f"probes against config 1's 1M rows ({s.numel()} merged elements), on [{card}]:")
-    for name, r in {**rank, **counts, **merge5}.items():
-        print(f"SPLIT {name}: {summary(r)}")
-    sorts = probe_sort_splits(device)
-    print(f"#6 and #7, the stats side's probe sort (tile 2^{pairsort.TILE_LOG}, one cargo "
-          f"plane), at config 3's, config 1 materialized's and config 1 wide's shapes, on "
-          f"[{card}]:")
-    for name, r in sorts.items():
-        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
-        print(f"SPLIT {name}: {summary(r)}{launches}")
-    if hasattr(pairsort, "_ladder_kernels"):
-        p = stats_streams(device)["config 3 1M"][0]
-        print(f"host us a call of each step of sort_multi_i32 at config 3's 1M probes, on "
+    if "rank" in groups:
+        table, chunk, valid = rank_inputs(device)
+        got, want = chunk_rank(table, chunk, valid), chunk_rank_plain(table, chunk, valid)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("chunk_rank disagrees with its plain version")
+        print(f"#11 at config 3's shape (2048 lanes, m = {table.numel()}), on [{card}]:")
+        _print_splits(in_turns({
+            "chunk_rank": lambda: chunk_rank(table, chunk, valid),
+            "two searchsorted": lambda: (torch.searchsorted(table, chunk, side="left"),
+                                         torch.searchsorted(table, chunk, side="right")),
+        }))
+    if groups & {"counts", "merge_two"}:
+        s, m, ps, b = counts_inputs(device)
+        print(f"#4 and #5 at 8192 probes against config 1's 1M rows ({s.numel()} merged "
+              f"elements), on [{card}]:")
+    if "counts" in groups:
+        if not torch.equal(merge_scan.merge_scan_build_counts(s, m),
+                           merge_scan.merge_scan_build_counts_plain(s, m)):
+            raise AssertionError("merge_scan_build_counts disagrees with its plain version")
+        want_b = b - 1
+        _print_splits(in_turns({
+            "merge_scan_build_counts": lambda: merge_scan.merge_scan_build_counts(s, m),
+            "two searchsorted and a subtraction": lambda: (
+                torch.searchsorted(ps, want_b, right=True) - torch.searchsorted(ps, want_b)),
+        }))
+    if "merge_two" in groups:
+        if not torch.equal(bigsort.merge_sorted_i32(ps, b),
+                           bigsort.merge_sorted_i32_plain(ps, b)):
+            raise AssertionError("merge_sorted_i32 disagrees with its plain version")
+        _print_splits(in_turns({
+            "merge_sorted_i32": lambda: bigsort.merge_sorted_i32(ps, b),
+            "torch.sort of the concatenation": lambda: torch.cat([ps, b]).sort(),
+        }))
+    if "probe_sort" in groups:
+        sorts = probe_sort_splits(device)
+        print(f"#6 and #7, the stats side's probe sort (tile 2^{pairsort.TILE_LOG}, one cargo "
+              f"plane), at config 3's, config 1 materialized's and config 1 wide's shapes, on "
               f"[{card}]:")
-        for step, us in ladder_host_steps(p).items():
-            print(f"HOST {step}: {us:.1f} us")
-    stats = stats_splits(device)
-    print(f"#15 (row form at config 1 wide's stats, generic entry on the same stream) and #8 "
-          f"(config 3's level 0), with the wrapper's output zeroing alone, on [{card}]:")
-    for name, r in stats.items():
-        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
-        print(f"SPLIT {name}: {summary(r)}{launches}")
-    for shape, (s, v, n) in stats_scan_inputs(device).items():
-        print(f"host us a call of each step of merge_stats at {shape} ({s.numel()} elements, "
-              f"{n} rows), on [{card}]:")
-        for step, us in stats_host_steps(s, v, n).items():
-            print(f"HOST {step}: {us:.1f} us")
-    tiles = tile_sort_splits(device)
-    print(f"#1 and #13's count-side tile sort (tile 2^{bigsort.TILE_LOG}) at config 1's 16M "
-          f"and config 1 wide's 2^24 probes, on [{card}]:")
-    for name, r in tiles.items():
-        launches = f"; launches a call {json.dumps(r['launches'])}" if "launches" in r else ""
-        print(f"SPLIT {name}: {summary(r)}{launches}")
-    drains = drain_splits(device)
-    print(f"#10 at config 3's and config 7's shapes (4 levels, block {DRAIN_BLOCK}, "
-          f"fanouts 1), on [{card}]:")
-    for name, r in drains.items():
-        print(f"SPLIT {name}: {summary(r)}; launches a call {r['launches']:g}, grid "
-              f"{r['grid']}")
+        _print_splits(sorts)
+        if hasattr(pairsort, "_ladder_kernels"):
+            p = stats_streams(device)["config 3 1M"][0]
+            print(f"host us a call of each step of sort_multi_i32 at config 3's 1M probes, on "
+                  f"[{card}]:")
+            for step, us in ladder_host_steps(p).items():
+                print(f"HOST {step}: {us:.1f} us")
+    if "stats" in groups:
+        stats = stats_splits(device)
+        print(f"#15 (row form at config 1 wide's stats, generic entry on the same stream) and "
+              f"#8 (config 3's level 0), with the wrapper's output zeroing alone, on [{card}]:")
+        _print_splits(stats)
+        for shape, (s, v, n) in stats_scan_inputs(device).items():
+            print(f"host us a call of each step of merge_stats at {shape} ({s.numel()} "
+                  f"elements, {n} rows), on [{card}]:")
+            for step, us in stats_host_steps(s, v, n).items():
+                print(f"HOST {step}: {us:.1f} us")
+    if "tile_sort" in groups:
+        tiles = counted_splits(tile_sort_cases(device))
+        print(f"#1 and #13's count-side tile sort (tile 2^{bigsort.TILE_LOG}) at config 1's 16M "
+              f"and config 1 wide's 2^24 probes, on [{card}]:")
+        _print_splits(tiles)
+    if "count_levels" in groups:
+        levels = counted_splits(count_level_cases(device))
+        print(f"#2 and #13's count-side merge level and ladder at config 1's 16M and config 1 "
+              f"wide's 2^24 probes, on [{card}]:")
+        _print_splits(levels)
+    if "compact" in groups:
+        compactions = counted_splits(compact_cases(device))
+        print(f"#9 at config 1 materialized's candidates and the LP ladder's first stage, on "
+              f"[{card}]:")
+        _print_splits(compactions)
+    if "drain" in groups:
+        drains = drain_splits(device)
+        print(f"#10 at config 3's and config 7's shapes (4 levels, block {DRAIN_BLOCK}, "
+              f"fanouts 1), on [{card}]:")
+        for name, r in drains.items():
+            print(f"SPLIT {name}: {summary(r)}; launches a call {r['launches']:g}, grid "
+                  f"{r['grid']}")
     return 0
-
 
 if __name__ == "__main__":
     raise SystemExit(main())

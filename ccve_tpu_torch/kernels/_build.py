@@ -46,8 +46,11 @@ _L = ctypes.c_longlong
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
     "ccve_sort_tiles": [_P, _P, _L, _I, _P],
-    # (x, y, n, run_log, stream)
-    "ccve_merge_level": [_P, _P, _L, _I, _P],
+    # (x, y, splits, n, run_log, stream): a key-only merge level
+    "ccve_merge_level": [_P, _P, _P, _L, _I, _P],
+    # (x, y, t, splits, n, tile_log, n_levels, stream): a key-only tile sort
+    # and a ladder
+    "ccve_sort_runs": [_P, _P, _P, _P, _L, _I, _I, _P],
     # (runs, run_len, n_real, b, m, bc, stream)
     "ccve_merge_counts": [_P, _L, _L, _P, _L, _P, _P],
     # (xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n, tile_log, stream)

@@ -8,9 +8,13 @@ for int64 keys: the padded stream is sorted tile by tile (`sort_tiles_i32`,
 registers, then merge-path rounds in shared memory, the multi-plane tile
 sort's template with no cargo), then merge levels double the
 run length (`merge_level_i32`, `merge_level_i64`, kernel
-csrc/merge_level.cu) until runs reach 2^run_log or cover the stream.
-`sort_runs` drives the two for either key type. `merge_sorted_i32`
-(kernel csrc/merge_multi.cu, the key-only merge) is the counterpart of
+csrc/merge_multi.cu with no planes: a merge-path partition and the merge,
+two launches a level) until runs reach 2^run_log or cover the stream.
+`sort_runs` drives the two for either key type: on CUDA tensors in one
+host call (`ccve_sort_runs`: every launch enqueued from C, one output, one
+scratch buffer, one split scratch), on the CPU through the plain versions
+level by level. `merge_sorted_i32` (kernel csrc/merge_multi.cu, the
+key-only merge) is the counterpart of
 `ccve_tpu.kernels.bigsort.merge_sorted_i32`: two ascending int32 streams
 into one.
 
@@ -24,6 +28,7 @@ key is native: the TPU's (hi, lo) limb planes have no job.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Callable
 
 import torch
@@ -54,13 +59,17 @@ def merge_level_plain(x: torch.Tensor, run_log: int) -> torch.Tensor:
     return torch.cat([head, x[full:].sort().values])
 
 
-def _sort_tiles(wrapper, x, tile_log: int, dtype) -> torch.Tensor:
+def _check_tiles(x, tile_log: int, dtype) -> None:
     _build.check_int(x, "x", dtype)
     if not 1 <= tile_log <= MAX_TILE_LOG:
         raise ValueError(f"tile_log {tile_log} outside [1, {MAX_TILE_LOG}]")
+    if x.numel() % (1 << tile_log):
+        raise ValueError(f"length {x.numel()} is not a multiple of 2^{tile_log}")
+
+
+def _sort_tiles(wrapper, x, tile_log: int, dtype) -> torch.Tensor:
+    _check_tiles(x, tile_log, dtype)
     n = x.numel()
-    if n % (1 << tile_log):
-        raise ValueError(f"length {n} is not a multiple of 2^{tile_log}")
     if x.device.type == "cpu":
         return sort_tiles_plain(x, tile_log)
     y = torch.empty_like(x)
@@ -88,18 +97,28 @@ sort_tiles_i32.launches = 0
 sort_tiles_i64.launches = 0
 
 
+# The merge-path partition kernel of csrc/merge_multi.cu: it runs before
+# every merge level (key-only or with planes) and every merge of two with
+# planes, so its launches count apart.
+merge_partition = SimpleNamespace(launches=0)
+
+
 def _merge_level(wrapper, x, run_log: int, dtype) -> torch.Tensor:
     _build.check_int(x, "x", dtype)
     if not 0 <= run_log <= 30:
         raise ValueError(f"run_log {run_log} outside [0, 30]")
     if x.device.type == "cpu":
         return merge_level_plain(x, run_log)
-    y = torch.empty_like(x)
-    if x.numel():
-        entry = getattr(_build.load(), f"ccve_merge_level_{_build.SUFFIX[dtype]}")
-        code = entry(x.data_ptr(), y.data_ptr(), x.numel(), run_log, _build.stream(x))
-        _build.check(code, wrapper.__name__)
-        wrapper.launches += 1
+    n = x.numel()
+    if not n:
+        return torch.empty_like(x)
+    lib = _build.load()
+    y, splits = _build.empty_with_scratch(x, n, lib.ccve_merge_splits_bytes(n, run_log))
+    entry = getattr(lib, f"ccve_merge_level_{_build.SUFFIX[dtype]}")
+    code = entry(x.data_ptr(), y.data_ptr(), splits, n, run_log, _build.stream(x))
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    merge_partition.launches += 1
     return y
 
 
@@ -124,12 +143,16 @@ KERNELS = {
 }
 
 
-def _ladder(x, run_log, tile_log, sort_tiles: Callable, merge_level: Callable):
+def _n_levels(n: int, run_log: int, tile_log: int) -> int:
+    """The merge levels of a ladder over n keys: ceil(log2(n_tiles)) for
+    one run, capped at run_log - tile_log."""
     if run_log < tile_log:
         raise ValueError(f"run_log {run_log} below tile_log {tile_log}")
-    n_tiles = x.numel() >> tile_log
-    # merge levels needed for one run: ceil(log2(n_tiles)), capped
-    n_levels = min(max(n_tiles - 1, 0).bit_length(), run_log - tile_log)
+    return min(max((n >> tile_log) - 1, 0).bit_length(), run_log - tile_log)
+
+
+def _ladder(x, run_log, tile_log, sort_tiles: Callable, merge_level: Callable):
+    n_levels = _n_levels(x.numel(), run_log, tile_log)
     y = sort_tiles(x, tile_log)
     for level in range(n_levels):
         y = merge_level(y, tile_log + level)
@@ -140,9 +163,30 @@ def sort_runs(x: torch.Tensor, run_log: int, tile_log: int = TILE_LOG) -> torch.
     """int32[n_pad] or int64[n_pad] (n_pad a multiple of 2^tile_log) as
     independently sorted ascending runs of 2^run_log values: a tile sort,
     then run_log - tile_log merge levels at most (fewer when one run
-    already covers the stream), on the kernels of the key type."""
-    sort_tiles, merge_level = KERNELS[_build.key_dtype(x, "x")]
-    return _ladder(x, run_log, tile_log, sort_tiles, merge_level)
+    already covers the stream), on the kernels of the key type. On CUDA
+    tensors one host call enqueues the tile sort and every level; each
+    launch counts on its wrapper (and each level's partition on
+    `merge_partition`)."""
+    dtype = _build.key_dtype(x, "x")
+    sort_tiles, merge_level = KERNELS[dtype]
+    if x.device.type == "cpu":
+        return _ladder(x, run_log, tile_log, sort_tiles, merge_level)
+    _check_tiles(x, tile_log, dtype)
+    n = x.numel()
+    n_levels = _n_levels(n, run_log, tile_log)
+    if not n:
+        return torch.empty_like(x)
+    lib = _build.load()
+    y, splits = _build.empty_with_scratch(x, n, lib.ccve_merge_splits_bytes(n, tile_log))
+    t = torch.empty_like(y) if n_levels else y
+    entry = getattr(lib, f"ccve_sort_runs_{_build.SUFFIX[dtype]}")
+    code = entry(x.data_ptr(), y.data_ptr(), t.data_ptr(), splits, n, tile_log, n_levels,
+                 _build.stream(x))
+    _build.check(code, f"sort_runs_{_build.SUFFIX[dtype]}")
+    sort_tiles.launches += 1
+    merge_level.launches += n_levels
+    merge_partition.launches += n_levels
+    return y
 
 
 def sort_runs_plain(

@@ -4,7 +4,8 @@ Counterpart of `ccve_tpu.kernels.compact.pallas_compact_i32`:
 `compact_i32` (kernel csrc/compact.cu) packs the rows where the mask holds
 to the front of each plane, in their order, and returns their count. It
 takes any n (the TPU kernel wants a multiple of 128). Slots past the count
-hold 0.
+hold 0: on the card the kernel writes them, one launch a call, so the
+output is allocated, not zeroed.
 """
 
 from __future__ import annotations
@@ -52,16 +53,17 @@ def compact_i32(planes: torch.Tensor, mask: torch.Tensor):
     if planes.device.type == "cpu":
         return compact_plain(planes, mask)
     n_planes, n = planes.shape
-    out = torch.zeros_like(planes)
-    count = torch.zeros((), dtype=torch.int64, device=planes.device)
     if not n:
-        return out, count
+        return torch.empty_like(planes), torch.zeros((), dtype=torch.int64, device=planes.device)
     lib = _build.load()
-    scratch = torch.empty(
-        lib.ccve_compact_scratch_bytes(n), dtype=torch.uint8, device=planes.device
-    )
+    # the kernel writes every slot of out; the count and the look-back's
+    # scratch share one allocation, the scratch 16 bytes in
+    out = torch.empty_like(planes)
+    buf = torch.empty(2 + -(-lib.ccve_compact_scratch_bytes(n) // 8), dtype=torch.int64,
+                      device=planes.device)
+    count = buf[0]
     code = lib.ccve_compact_i32(
-        planes.data_ptr(), mask.data_ptr(), n, n_planes, scratch.data_ptr(),
+        planes.data_ptr(), mask.data_ptr(), n, n_planes, buf.data_ptr() + 16,
         out.data_ptr(), count.data_ptr(), _build.stream(planes),
     )
     _build.check(code, "compact_i32")

@@ -1,13 +1,17 @@
-// Multi-plane merges: int32 or int64 keys carrying P int32 cargo planes
-// (P = 1..3); each entry point has an _i32 and an _i64 build.
+// Merges: int32 or int64 keys carrying P int32 cargo planes (P = 0..3);
+// each entry point has an _i32 and an _i64 build, but the last.
 //
 //  - ccve_merge_level_multi_i32: one ladder level. Each pair of ascending
 //    runs of L = 2^run_log, [2pL, 2pL + L) and [2pL + L, 2pL + 2L),
 //    becomes one ascending run of 2L; the last pair may have a short
 //    second run, or none.
+//  - ccve_merge_level_i32: the same level of keys with no planes (the
+//    count side's ladder).
 //  - ccve_sort_multi_i32: a whole ladder in one host call: the tile sort
 //    of sort_tiles.cu, then n_levels merge levels back to back on
 //    the stream, between the output and a scratch buffer.
+//  - ccve_sort_runs_i32: the same ladder of keys with no planes, over
+//    sort_tiles.cu's key-only tile sort.
 //  - ccve_merge_two_multi_i32: the unequal merge of two ascending streams
 //    A[0, na) and B[0, nb) into one of na + nb (either may be empty).
 //  - ccve_merge_two_i32: the same merge of int32 keys with no planes.
@@ -23,7 +27,13 @@
 // precomputed from the XLA bisections `_merge_splits_alt` and
 // `_merge_splits_two`); the int64 builds replace `_make_merge_kernel_multi64`
 // (the same kernel on (hi, lo) int32 limb planes, launched by
-// `_sort_padded_multi64` and `merge_sorted_multi_i64`). The key-only
+// `_sort_padded_multi64` and `merge_sorted_multi_i64`, and with no cargo
+// by `_sort_padded_multi64_capped`, the count side's int64 ladder). The
+// key-only level ccve_merge_level_i32 replaces ccve_tpu/kernels/bigsort.py
+// `_make_carried_merge_kernel` (one level of `_sort_padded_buf`'s ladder:
+// per output tile, the bitonic lower half of an A window and a reversed B
+// window, with the two read cursors carried in SMEM from one sequential
+// grid step to the next). The key-only
 // merge, ccve_merge_two_i32, replaces ccve_tpu/kernels/bigsort.py
 // `_make_bitonic_merge_kernel` as `merge_sorted_i32` (:664) launches it
 // through `_merge_two_padded` (:607), with `lax.sort` in its place below
@@ -33,12 +43,12 @@
 // What bounds it on an H100: each merge reads and writes every key and
 // every plane once, (1 + P) * 8 bytes an element for int32 keys and
 // (2 + P) * 8 for int64, so device-memory bandwidth bounds it; the merge
-// itself is a few compares an element. What kept an earlier design at 2-3x
+// itself is a few compares an element. What kept earlier designs at 2-4x
 // that bound was latency, not bytes: each block began with a binary
 // search of its merge-path split in device memory (up to 31 dependent
-// loads while the block waited), loaded its keys in 4-byte steps, and
-// gathered the cargo from device memory after the merge, a second
-// dependent phase of reads.
+// loads, by two threads, while the block waited), loaded its keys in 4- or
+// 8-byte steps, and (with planes) gathered the cargo from device memory
+// after the merge, a second dependent phase of reads.
 //
 // Design. A level is two launches. (1) A partition kernel finds every
 // output tile's merge-path split at once, one warp a tile: a 32-way search
@@ -61,7 +71,8 @@
 // nothing is stored reversed, and empty streams and the ragged last pair
 // fall out of the split arithmetic. Shared memory grows with P and the key
 // type, from 17 KB (int32, no planes) to 83 KB (int64, three planes);
-// above 48 KB the launch opts in with cudaFuncSetAttribute.
+// above 48 KB the launch opts in with cudaFuncSetAttribute. The key-only
+// build (P = 0) is the same kernel with no plane staged or moved.
 //
 // The ladder entry runs the tile sort and every level from one host call:
 // no Python, allocation or host sync between levels. The levels stay two
@@ -74,9 +85,7 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-#include <cstring>
-
+#include "cp_async.cuh"
 #include "merge_path.cuh"
 
 namespace {
@@ -178,56 +187,6 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) splits[t] = static_cast<int>(lo);
 }
 
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-#else
-  memcpy(dst, src, 16);
-#endif
-}
-
-template <int kBytes>
-__device__ __forceinline__ void copy_small(void* dst, const void* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(kBytes)
-               : "memory");
-#else
-  memcpy(dst, src, kBytes);
-#endif
-}
-
-__device__ __forceinline__ void copies_done() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
-// Starts copying src[0, n) into `region` from slot `start` on and returns
-// the copy, placed 16-byte congruent with src: the body moves in 16-byte
-// copies, the head and tail element by element. Uses slots up to
-// start + n + 16 / sizeof(T) - 1. Complete after copies_done() and a
-// barrier.
-template <typename T>
-__device__ __forceinline__ T* stage(const T* src, int n, T* region, int start) {
-  constexpr int V = 16 / sizeof(T);
-  const int phase = static_cast<int>((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % V);
-  T* dst = region + start + ((phase - start) % V + V) % V;
-  int head = (V - phase) % V;
-  if (head > n) head = n;
-  const int body = (n - head) / V;
-  const int tail = head + body * V;
-  for (int v = threadIdx.x; v < body; v += kThreads) {
-    copy16(dst + head + v * V, src + head + v * V);
-  }
-  for (int i = threadIdx.x; i < head + n - tail; i += kThreads) {
-    const int e = i < head ? i : tail + i - head;
-    copy_small<sizeof(T)>(dst + e, src + e);
-  }
-  return dst;
-}
-
 __device__ __forceinline__ int skew(int i) { return i + (i >> 5); }
 
 // One tile a block.
@@ -247,17 +206,19 @@ __global__ void __launch_bounds__(kThreads)
   const int na = static_cast<int>(a_hi - a_lo);
   const int nb = cnt - na;
   const long long b_lo = s.d0 - a_lo;
-  const K* sa = stage(xa + s.a0 + a_lo, na, keys, 0);
-  const K* sb = stage(xb + s.b0 + b_lo, nb, keys, static_cast<int>(sa - keys) + na);
+  const K* sa = cp_async::stage<kThreads>(xa + s.a0 + a_lo, na, keys, 0);
+  const K* sb =
+      cp_async::stage<kThreads>(xb + s.b0 + b_lo, nb, keys, static_cast<int>(sa - keys) + na);
   const int* pa[P > 0 ? P : 1];
   const int* pb[P > 0 ? P : 1];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     int* region = planes + p * kRegion;
-    pa[p] = stage(va.p[p] + s.a0 + a_lo, na, region, 0);
-    pb[p] = stage(vb.p[p] + s.b0 + b_lo, nb, region, static_cast<int>(pa[p] - region) + na);
+    pa[p] = cp_async::stage<kThreads>(va.p[p] + s.a0 + a_lo, na, region, 0);
+    pb[p] = cp_async::stage<kThreads>(vb.p[p] + s.b0 + b_lo, nb, region,
+                                      static_cast<int>(pa[p] - region) + na);
   }
-  copies_done();
+  cp_async::wait_all();
   __syncthreads();
 
   const int first = static_cast<int>(threadIdx.x) * kPerThread;
@@ -332,6 +293,8 @@ template <typename K, typename G>
 int merge_planes(const K* xa, InPlanes va, const K* xb, InPlanes vb, G g, int* splits, K* y,
                  OutPlanes yv, int n_planes, cudaStream_t stream) {
   switch (n_planes) {
+    case 0:
+      return launch_merge<K, 0>(xa, va, xb, vb, g, splits, y, yv, stream);
     case 1:
       return launch_merge<K, 1>(xa, va, xb, vb, g, splits, y, yv, stream);
     case 2:
@@ -342,7 +305,7 @@ int merge_planes(const K* xa, InPlanes va, const K* xb, InPlanes vb, G g, int* s
 }
 
 bool bad_level(int n_planes, long long n, int run_log) {
-  return n < 0 || n > 0x7FFFFFFFLL || run_log < 0 || run_log > 30 || n_planes < 1 ||
+  return n < 0 || n > 0x7FFFFFFFLL || run_log < 0 || run_log > 30 || n_planes < 0 ||
          n_planes > kMaxPlanes;
 }
 
@@ -384,11 +347,21 @@ extern "C" int ccve_sort_tiles_multi_i32(const void*, const void*, const void*, 
 extern "C" int ccve_sort_tiles_multi_i64(const void*, const void*, const void*, const void*,
                                          void*, void*, void*, void*, int, long long, int,
                                          void*);
+extern "C" int ccve_sort_tiles_i32(const void*, void*, long long, int, void*);
+extern "C" int ccve_sort_tiles_i64(const void*, void*, long long, int, void*);
 
 namespace {
 
 using SortTiles = int (*)(const void*, const void*, const void*, const void*, void*, void*,
                           void*, void*, int, long long, int, void*);
+using SortKeyTiles = int (*)(const void*, void*, long long, int, void*);
+
+// The key-only tile sort as a SortTiles (n whole tiles, no planes).
+template <SortKeyTiles kSort>
+int sort_keys(const void* xk, const void*, const void*, const void*, void* yk, void*, void*,
+              void*, int, long long n, int tile_log, void* stream) {
+  return kSort(xk, yk, n >> tile_log, tile_log, stream);
+}
 
 // The tile sort (which pads x's n elements to whole tiles) into the
 // buffer from which an even number of levels ends in y, then each level
@@ -415,6 +388,17 @@ int ladder(SortTiles sort_tiles, const void* xk, const void* xv0, const void* xv
                            n_pad, tile_log + level, stream);
   }
   return code;
+}
+
+// The key-only ladder: x, y, t: n keys, n a multiple of 2^tile_log.
+template <typename K>
+int sort_runs(SortTiles sort_tiles, const void* x, void* y, void* t, void* splits, long long n,
+              int tile_log, int n_levels, void* stream) {
+  if (tile_log < 1 || tile_log > 30 || n % (1LL << tile_log) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return ladder<K>(sort_tiles, x, nullptr, nullptr, nullptr, y, nullptr, nullptr, nullptr, t,
+                   nullptr, nullptr, nullptr, splits, 0, n, tile_log, n_levels, stream);
 }
 
 }  // namespace
@@ -465,6 +449,35 @@ extern "C" int ccve_sort_multi_i64(const void* xk, const void* xv0, const void* 
   return ladder<long long>(ccve_sort_tiles_multi_i64, xk, xv0, xv1, xv2, yk, yv0, yv1, yv2,
                            tk, tv0, tv1, tv2, splits, n_planes, n, tile_log, n_levels,
                            stream);
+}
+
+// The key-only builds: x, y: n keys; splits: ccve_merge_splits_bytes(n,
+// run_log) of scratch.
+extern "C" int ccve_merge_level_i32(const void* x, void* y, void* splits, long long n,
+                                    int run_log, void* stream) {
+  return level_planes<int>(x, nullptr, nullptr, nullptr, y, nullptr, nullptr, nullptr, splits,
+                           0, n, run_log, stream);
+}
+
+extern "C" int ccve_merge_level_i64(const void* x, void* y, void* splits, long long n,
+                                    int run_log, void* stream) {
+  return level_planes<long long>(x, nullptr, nullptr, nullptr, y, nullptr, nullptr, nullptr,
+                                 splits, 0, n, run_log, stream);
+}
+
+// x, y, t: n keys, n a multiple of 2^tile_log: the tiles sorted, then
+// n_levels merge levels, the result in y; t: scratch of y's shape;
+// splits: ccve_merge_splits_bytes(n, tile_log) of scratch.
+extern "C" int ccve_sort_runs_i32(const void* x, void* y, void* t, void* splits, long long n,
+                                  int tile_log, int n_levels, void* stream) {
+  return sort_runs<int>(sort_keys<ccve_sort_tiles_i32>, x, y, t, splits, n, tile_log, n_levels,
+                        stream);
+}
+
+extern "C" int ccve_sort_runs_i64(const void* x, void* y, void* t, void* splits, long long n,
+                                  int tile_log, int n_levels, void* stream) {
+  return sort_runs<long long>(sort_keys<ccve_sort_tiles_i64>, x, y, t, splits, n, tile_log,
+                              n_levels, stream);
 }
 
 // splits: ccve_merge_splits_bytes(na + nb, 30) of scratch.

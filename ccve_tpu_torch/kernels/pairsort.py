@@ -35,13 +35,12 @@ appended after the real elements and a stable sort keeps it behind them.
 
 from __future__ import annotations
 
-from types import SimpleNamespace
 from typing import Sequence
 
 import torch
 
 from ccve_tpu_torch.kernels import _build
-from ccve_tpu_torch.kernels.bigsort import PAD
+from ccve_tpu_torch.kernels.bigsort import PAD, merge_partition
 
 TILE_LOG = 13
 MAX_TILE_LOG = 13  # 2^13 (key, index) words a tile: 68 KB (int32) or 85 KB (int64) skewed
@@ -146,9 +145,9 @@ sort_tiles_multi_i32.launches = 0
 sort_tiles_multi_i64.launches = 0
 
 
-# The merge-path partition kernel of csrc/merge_multi.cu: it runs before
-# every merge level and every merge of two, so its launches count apart.
-merge_partition = SimpleNamespace(launches=0)
+# `merge_partition` (from bigsort) counts the merge-path partition kernel
+# of csrc/merge_multi.cu apart: it runs before every merge level and every
+# merge of two.
 
 # run_log of a merge of two in `ccve_merge_splits_bytes`: tiles of the
 # kernel's whole chunk

@@ -10,7 +10,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     (tolerance 0, the outputs are integers).
  4. Drives the config-1 join (1M build rows against 16M probe rows) once
     through `build_sorted` and `bulk_count`, with every launch counter set
-    to 0 just before; checks that each kernel launched, and that count and
+    to 0 just before; checks that each kernel launched, a merge-path
+    partition for every count-side merge level, and that count and
     checksum equal numpy's and the all-plain path's.
  5. Holds each kernel against its plain version again at the shapes that
     run gave it, and times kernels, plain versions, `bulk_count` and the
@@ -41,8 +42,9 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     streams.
 13. `config1_wide` at full size (1M build rows with keys over 2^40, 2^24
     probes) through `bulk_count` and `sorted_match_totals`, counters zeroed
-    just before: count and checksum against numpy and the all-plain path;
-    the int64 count-side kernels again at its shapes; times.
+    just before: count and checksum against numpy and the all-plain path,
+    a partition for every count-side merge level; the int64 count-side
+    kernels again at its shapes; times.
 14. The wide stats side on phase 13's data: `sorted_match_stats` (mult and
     psum on every row against numpy's searchsorted ranges, the all-plain
     route identical), `sorted_match_ranks` on the rank twin, a 2-level
@@ -309,13 +311,15 @@ NEW_WRAPPERS = {
 
 
 # the merge-path partition kernel that runs before each #7 merge level and
-# merge of two (both key types): counted apart from #7's launches
+# merge of two and each count-side merge level (#2, #13; both key types):
+# counted apart from the merges' launches
 PARTITION = {"merge_partition": (pairsort.merge_partition,)}
 
 
 def check_partitions(merge_launches: int, what: str) -> int:
     """The partition launches since PARTITION was zeroed, which must equal
-    the #7 launches (one partition a merge level and a merge of two)."""
+    the merges' launches (one partition a #7 merge level and merge of two,
+    and a count-side merge level)."""
     parts = read_counters(PARTITION)["merge_partition"]
     if parts != merge_launches:
         raise AssertionError(f"{what}: {parts} partition launches, {merge_launches} merges")
@@ -351,10 +355,10 @@ LADDER_HIT_PCTS = (5, 25, 50)  # hit rates of phase 22's probes, in percent
 WIDE_COUNT = ("sort_tiles_i64", "merge_level_i64", "merge_counts_i64")
 WIDE_STATS = ("sort_tiles_multi_i64", "merge_multi_i64", "merge_stats_i64")
 # kernels whose plain version is itself the one PyTorch call that computes
-# the same function (torch.sort per tile or run pair, torch.searchsorted,
-# boolean indexing): their library time is the plain time, not taken twice
+# the same function (torch.sort per tile or run pair, torch.searchsorted):
+# their library time is the plain time, not taken twice
 LIBRARY_IS_PLAIN = {
-    "sort_tiles_i32", "merge_level_i32", "merge_counts_i32", "compact_i32",
+    "sort_tiles_i32", "merge_level_i32", "merge_counts_i32",
     "sort_tiles_i64", "merge_level_i64", "merge_counts_i64",
 }
 
@@ -522,9 +526,11 @@ def main() -> int:
     torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
+    zero_counters(PARTITION)
     res = bulk_count([table], probe_dev)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    parts1 = check_partitions(launches["merge_level_i32"], "config 1 bulk_count")
     count, checksum = int(res.count), int(res.payload_checksums[0])
     if (count, checksum) != (want_count, want_checksum):
         raise AssertionError(f"bulk_count gave ({count}, {checksum}), numpy "
@@ -549,7 +555,7 @@ def main() -> int:
         raise AssertionError(f"plain path gave ({int(pc)}, {int(ps)})")
     n_runs = -(-n_pad // (1 << run_log))
     log(f"phase slice: ok, bulk_count count {count} checksum {checksum} "
-        f"(numpy and plain path agree); launches {launches}; "
+        f"(numpy and plain path agree); launches {launches}, partitions {parts1}; "
         f"{n_runs} runs of 2^{run_log}, n_pad {n_pad}")
 
     # ---- 5. kernels at the slice's shapes, and times -----------------------
@@ -570,8 +576,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"phase kernels (config-1 shapes): ok, max |kernel - plain| {max_err}")
 
-    def level_ms(fn):
-        return sum(med(cuda_ms(lambda x=x, lv=lv: fn(x, lv))) for x, lv in zip(level_in, levels))
+    def level_ms(fn, level_in=level_in, levels=levels):
+        """ms of one call's levels back to back in one CUDA-event window, as
+        the ladder enqueues them: no level waits on the host."""
+        return med(cuda_ms(lambda: [fn(x, lv) for x, lv in zip(level_in, levels)]))
 
     kernel_ms = {
         "sort_tiles_i32": (
@@ -921,9 +929,12 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"phase kernels (materialize shapes): ok, max |kernel - plain| {max_err}")
     ms_mat = path_ms(inputs_m)
+    # the library yardstick: the one call `planes[:, mask]`, without the
+    # plain version's zeros and copy
     ms_mat["compact_i32"] = (
         med(cuda_ms(lambda: compact.compact_i32(planes_m, valid_m))),
         med(cuda_ms(lambda: compact.compact_plain(planes_m, valid_m))),
+        med(cuda_ms(lambda: planes_m[:, valid_m])),
     )
     w_m = path_work(inputs_m)
     n_c = planes_m.shape[1]
@@ -944,8 +955,9 @@ def main() -> int:
         f"{total / med(em['kernel']) / 1e3:.1f}M triples/s; peak extra device "
         f"memory {peak_m:.1f} MiB")
     log(f"  all-plain torch path: {spread(em['plain'])}")
-    for name, (kt, pt) in ms_mat.items():
-        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
+    for name, (kt, pt, *lib) in ms_mat.items():
+        lib_s = f", planes[:, mask] {lib[0]:.4f} ms" if lib else ""
+        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms{lib_s} "
             f"({launches_m[name]} launch(es) per call)")
     lib_m = probe_sort_readings(inputs_m, "i32", "materialize (16M probes)")
     ms_mat["sort_tiles_multi_i32"] += (lib_m["per tile"],)
@@ -1118,9 +1130,12 @@ def main() -> int:
     log(f"phase config1_wide data: ok ({time.perf_counter() - t0:.1f} s), numpy count "
         f"{want_w[0]}, checksum {want_w[1]}")
     zero_counters(WIDE_WRAPPERS)
+    zero_counters(PARTITION)
     res_w = bulk_count([table_w], col_w.view(-1, 1))
     torch.cuda.synchronize()
     launches_w = read_counters(WIDE_WRAPPERS)
+    parts_w = check_partitions(launches_w["merge_level_i64"] + launches_w["merge_multi_i64"],
+                               "config1_wide bulk_count")
     got_w = (int(res_w.count), int(res_w.payload_checksums[0]))
     if got_w != want_w:
         raise AssertionError(f"config1_wide bulk_count gave {got_w}, numpy {want_w}")
@@ -1146,7 +1161,8 @@ def main() -> int:
     n_runs_w = -(-n_pad_w // (1 << run_log_w))
     log(f"phase config1_wide: ok, bulk_count and sorted_match_totals count {got_w[0]} "
         f"checksum {got_w[1]} (numpy and plain path agree); launches "
-        f"{ {k: launches_w[k] for k in WIDE_COUNT} }; {n_runs_w} runs of 2^{run_log_w}, "
+        f"{ {k: launches_w[k] for k in WIDE_COUNT} }, partitions {parts_w}; {n_runs_w} runs "
+        f"of 2^{run_log_w}, "
         f"n_pad {n_pad_w}")
     levels_w = list(range(bigsort.TILE_LOG, bigsort.TILE_LOG + launches_w["merge_level_i64"]))
     tiles_w = bigsort.sort_tiles_i64(padded_w)
@@ -1168,10 +1184,8 @@ def main() -> int:
             med(cuda_ms(lambda: bigsort.sort_tiles_plain(padded_w, bigsort.TILE_LOG))),
         ),
         "merge_level_i64": (
-            sum(med(cuda_ms(lambda x=x, lv=lv: bigsort.merge_level_i64(x, lv)))
-                for x, lv in zip(level_in_w, levels_w)),
-            sum(med(cuda_ms(lambda x=x, lv=lv: bigsort.merge_level_plain(x, lv)))
-                for x, lv in zip(level_in_w, levels_w)),
+            level_ms(bigsort.merge_level_i64, level_in_w, levels_w),
+            level_ms(bigsort.merge_level_plain, level_in_w, levels_w),
         ),
         "merge_counts_i64": (
             med(cuda_ms(lambda: merge_scan.merge_counts_i64(runs_w, 1 << run_log_w, n_w, b64, m_w))),
@@ -2429,7 +2443,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)\n" + proc.stdout.rstrip())
     measured1 = {1: "sort_tiles_i32", 2: "merge_level_i32", 3: "merge_counts_i32"}
     log(f"config 1's model speed-of-light beside this run's kernel times on [{card}] "
-        f"(phase 5, CUDA events, medians of {REPS}; merge levels summed):")
+        f"(phase 5, CUDA events, medians of {REPS}; the merge levels back to back in one "
+        f"window):")
     for i, op in enumerate(model1):
         got = (f"measured {kernel_ms[measured1[i]][0]:.4f} ms = "
                f"{op.t_sol * 1e3 / kernel_ms[measured1[i]][0] * 100:.1f}% of it"
@@ -2462,7 +2477,7 @@ def main() -> int:
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
-        "merge_level_i32": ("ccve_tpu_torch/kernels/csrc/merge_level.cu",
+        "merge_level_i32": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
                             "ccve_tpu/kernels/bigsort.py:286"),
         "merge_counts_i32": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
                              "ccve_tpu/kernels/merge_scan.py:548"),
@@ -2476,7 +2491,7 @@ def main() -> int:
                         "ccve_tpu/kernels/compact.py:77"),
         "sort_tiles_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/pairsort.py:563"),
-        "merge_level_i64": ("ccve_tpu_torch/kernels/csrc/merge_level.cu",
+        "merge_level_i64": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
                             "ccve_tpu/kernels/pairsort.py:592"),
         "merge_counts_i64": ("ccve_tpu_torch/kernels/csrc/merge_counts.cu",
                              "ccve_tpu/kernels/merge_scan.py:784"),

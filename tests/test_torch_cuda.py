@@ -1232,3 +1232,132 @@ def test_sort_tiles_key_only_edges(cuda, dtype, tile_log, kind):
             x[1::5] = info.min
     wrapper = bigsort.sort_tiles_i32 if dtype == torch.int32 else bigsort.sort_tiles_i64
     assert torch.equal(wrapper(x, tile_log), bigsort.sort_tiles_plain(x, tile_log))
+
+
+# ---- #2 and #13's count-side merge level on merge_multi.cu's key-only build
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8191, 8193, 3 * 8192 + 5])
+@pytest.mark.parametrize("kind", EDGE_KEYS)
+def test_merge_level_key_only_edges(cuda, dtype, n, kind):
+    """run_log 0..20 (tiles of min(4096, 2L) outputs, the ragged last pair,
+    an empty B), from a view 4 bytes past an aligned address, the key
+    type's extremes and all-equal keys; each level is one launch on the
+    wrapper and one partition."""
+    merge_level = bigsort.KERNELS[dtype][1]
+    rng = np.random.default_rng(n + 11)
+    runs = _edge_keys(rng, n + 1, dtype, kind).to(cuda)[1:]  # a misaligned view
+    for run_log in range(21):
+        before = (merge_level.launches, pairsort.merge_partition.launches)
+        got = merge_level(runs, run_log)
+        after = (merge_level.launches, pairsort.merge_partition.launches)
+        runs = bigsort.merge_level_plain(runs, run_log)
+        assert torch.equal(got, runs), run_log
+        assert after == tuple(b + (n > 0) for b in before)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("tile_log, n_tiles", [(bigsort.TILE_LOG, 13), (bigsort.TILE_LOG, 1),
+                                               (11, 5), (4, 70), (1, 9)])
+def test_sort_runs_one_call_equals_levels(cuda, dtype, tile_log, n_tiles):
+    """The ladder's one host call (`ccve_sort_runs`) equals the tile sort
+    and the levels called one by one, at either parity of the level count
+    and capped by run_log, and counts one tile sort, and a launch and a
+    partition a level."""
+    sort_tiles, merge_level = bigsort.KERNELS[dtype]
+    rng = np.random.default_rng(n_tiles * 31 + tile_log)
+    x = _edge_keys(rng, n_tiles << tile_log, dtype, "extremes").to(cuda)
+    for run_log in sorted({tile_log, tile_log + 1, tile_log + 2, tile_log + 3, tile_log + 20}):
+        n_levels = min(max(n_tiles - 1, 0).bit_length(), run_log - tile_log)
+        want = sort_tiles(x, tile_log)
+        for level in range(n_levels):
+            want = merge_level(want, tile_log + level)
+        counters = (sort_tiles, merge_level, pairsort.merge_partition)
+        before = tuple(c.launches for c in counters)
+        got = bigsort.sort_runs(x, run_log, tile_log)
+        after = tuple(c.launches for c in counters)
+        assert after == (before[0] + 1, before[1] + n_levels, before[2] + n_levels)
+        assert torch.equal(got, want), run_log
+        assert torch.equal(got, bigsort.sort_runs_plain(x, run_log, tile_log)), run_log
+
+
+def test_count_side_reaches_the_key_only_levels(cuda):
+    """config 1's count side at a small size: the tile sort once, every
+    level once with its partition, the totals equal to the CPU's."""
+    from ccve_tpu_torch.bench.configs import config1_host
+
+    keys, pays, probe = config1_host(20_000, 300_000)
+    col = torch.from_numpy(probe[:, 0].astype(np.int32))
+    counters = (bigsort.sort_tiles_i32, bigsort.merge_level_i32, pairsort.merge_partition)
+    before = tuple(c.launches for c in counters)
+    got = sm.sorted_match_totals(sm.build_sorted(keys, pays, cuda), col.to(cuda))
+    after = tuple(c.launches for c in counters)
+    n_pad, run_log = sm.count_side_plan(col.numel(), keys.size, bigsort.TILE_LOG)
+    n_levels = run_log - bigsort.TILE_LOG
+    assert n_levels > 0
+    assert after == (before[0] + 1, before[1] + n_levels, before[2] + n_levels)
+    want = sm.sorted_match_totals(sm.build_sorted(keys, pays, device="cpu"), col)
+    assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+
+
+# ---- #9, the compaction: one launch, look-back across tiles, zeros from the kernel
+
+COMPACT_MASKS = ["all", "none", "alternating", "random", "first", "last", "runs"]
+
+
+def _compact_mask(rng, n, kind):
+    if kind == "runs":  # long kept and dropped stretches across tiles
+        return np.repeat(rng.random(n // 5000 + 1) < 0.5, 5000)[:n]
+    return {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+            "alternating": np.arange(n) % 2 == 0, "random": rng.random(n) < 0.3,
+            "first": np.arange(n) == 0, "last": np.arange(n) == n - 1}[kind]
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 4096, 4097, 8192, 3 * 4096 + 7, 200_003])
+@pytest.mark.parametrize("kind", COMPACT_MASKS)
+def test_compact_kernel_edges(cuda, n, kind):
+    """n under a tile, at and off the tile, C = 1..3 by n; the mask and the
+    planes also from views 1 byte / 4 bytes past an aligned address (the
+    mask's byte-by-byte path); output garbage before the call is
+    overwritten; one launch a call."""
+    rng = np.random.default_rng(n)
+    n_planes = 1 + n % 3
+    mask_np = _compact_mask(rng, n, kind)
+    planes = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (n_planes, n)).astype(np.int32)).to(cuda)
+    want, want_count = compact.compact_plain(planes, torch.from_numpy(mask_np).to(cuda))
+    mask = torch.from_numpy(mask_np).to(cuda)
+    odd_mask = torch.from_numpy(np.concatenate([[True], mask_np])).to(cuda)[1:]
+    odd_planes = torch.cat([planes.new_zeros(1), planes.reshape(-1)])[1:].view(n_planes, n)
+    for p, m in ((planes, mask), (odd_planes, odd_mask)):
+        del_me = torch.full_like(p, -7)  # garbage where the output will be allocated
+        del del_me
+        before = compact.compact_i32.launches
+        got, count = compact.compact_i32(p, m)
+        assert compact.compact_i32.launches == before + 1
+        assert int(count) == int(want_count) == int(mask_np.sum())
+        assert torch.equal(got, want)
+
+
+def test_compact_again_and_again(cuda):
+    """The look-back across blocks that run at once: twenty calls on each
+    of four streams at once, over 1,500 tiles, each equal to the plain
+    version."""
+    rng = np.random.default_rng(21)
+    n = 6_000_001
+    planes = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (3, n)).astype(np.int32)).to(cuda)
+    masks = [torch.from_numpy(_compact_mask(rng, n, kind)).to(cuda)
+             for kind in ("random", "runs", "alternating", "all")]
+    wants = [compact.compact_plain(planes, m) for m in masks]
+    streams = [torch.cuda.Stream() for _ in masks]
+    torch.cuda.synchronize()
+    results = [[] for _ in masks]
+    for _ in range(20):
+        for s, mask, out in zip(streams, masks, results):
+            with torch.cuda.stream(s):
+                out.append(compact.compact_i32(planes, mask))
+    torch.cuda.synchronize()
+    for (want, want_count), out in zip(wants, results):
+        for got, count in out:
+            assert int(count) == int(want_count)
+            assert torch.equal(got, want)

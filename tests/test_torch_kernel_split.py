@@ -155,3 +155,102 @@ def test_stats_sweep_variants_apply_to_the_sources():
         for target, old, _ in subs:
             assert sources[target].count(old) == 1, (copy, old)
     assert stats_sweep.INEXACT <= set(variants)
+
+
+def _count_tiles():
+    """Small stand-ins for `kernel_split.count_tiles`: padded probe streams
+    of both key types, whole tiles of 2^TILE_LOG."""
+    import numpy as np
+    import torch
+
+    from ccve_tpu_torch.kernels import bigsort
+
+    rng = np.random.default_rng(6)
+    T = 1 << bigsort.TILE_LOG
+    return {"small i32": torch.from_numpy(rng.integers(0, 500, 5 * T).astype(np.int32)),
+            "small i64": torch.from_numpy(rng.integers(-2**62, 2**62, 3 * T))}
+
+
+def test_count_level_cases_hold_kernels_and_yardsticks(monkeypatch):
+    """#2 and #13's count-side cases on small streams (on the CPU the
+    wrappers run their plain versions): the first level and the ladder at
+    `count_side_plan`'s run_log, each held against its plain version and
+    its yardstick (a row sort of the padded run pairs or runs), name the
+    level's wrapper and the partition counter."""
+    import torch
+
+    from ccve_tpu_torch.kernels import bigsort
+
+    tiles = _count_tiles()
+    monkeypatch.setattr(kernel_split, "count_tiles", lambda device: tiles)
+    cases = kernel_split.count_level_cases(torch.device("cpu"))
+    assert len(cases) == 4
+    for (name, fn, counters, lib_name, lib), x in zip(cases, [t for t in tiles.values()
+                                                             for _ in range(2)]):
+        got = fn()
+        assert torch.equal(lib().values.reshape(-1)[:x.numel()], got), name
+        assert lib_name.startswith("torch.sort(dim=1)")
+        assert "merge_partition" in counters
+        assert any(c.startswith("merge_level_i") for c in counters), name
+        if name.startswith("sort_runs"):
+            assert any(c.startswith("sort_tiles_i") for c in counters)
+        else:
+            assert torch.equal(got, bigsort.merge_level_plain(
+                bigsort.sort_tiles_plain(x, bigsort.TILE_LOG), bigsort.TILE_LOG))
+
+
+def test_compact_cases_hold_kernels_and_yardsticks(monkeypatch):
+    """#9's cases on small planes: the kernel (here its plain version)
+    against its yardstick `planes[:, mask]`, which gives the kept rows
+    alone."""
+    import numpy as np
+    import torch
+
+    from ccve_tpu_torch.kernels import compact
+
+    rng = np.random.default_rng(9)
+    inputs = {f"C={c}": (torch.from_numpy(rng.integers(-9, 9, (c, 30_001)).astype(np.int32)),
+                         torch.from_numpy(rng.random(30_001) < 0.6)) for c in (2, 3)}
+    monkeypatch.setattr(kernel_split, "compact_inputs", lambda device: inputs)
+    cases = kernel_split.compact_cases(torch.device("cpu"))
+    assert [c for _, _, c, _, _ in cases] == [compact.compact_i32] * 2
+    for (name, fn, _, lib_name, lib), (planes, mask) in zip(cases, inputs.values()):
+        out, count = fn()
+        kept = lib()
+        assert kept.shape == (planes.shape[0], int(mask.sum())) == (planes.shape[0], int(count))
+        assert torch.equal(out[:, :int(count)], kept) and not out[:, int(count):].any()
+        assert lib_name.startswith("planes[:, mask]")
+
+
+def test_kernel_split_refuses_unknown_groups():
+    with pytest.raises(SystemExit):
+        kernel_split.main(["--only", "tile_sort,nonesuch"])
+
+
+def test_tile_sweep_copies_apply_to_the_sources():
+    """Every copy of `bench.tile_sweep` finds each text it rewrites exactly
+    once, and ptxas' lines of the kernels it reads parse into resources."""
+    from ccve_tpu_torch.bench import tile_sweep
+
+    for copy in tile_sweep.COPIES:
+        tile_sweep.sources(copy)
+    assert tile_sweep.INEXACT <= set(tile_sweep.COPIES)
+    lines = [
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__x_14_merge_multi_cu_y12"
+        "merge_kernelIiLi0ENS_5LevelEEEvPKT_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN47",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__x_10_compact_cu_y14"
+        "compact_kernelEPKi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 2160 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN47_other_kernelEv' for 'sm_90a'",
+        "ptxas info    : Used 200 registers",
+    ]
+    got = tile_sweep.resources(lines, tile_sweep._block_threads("source"))
+    assert len(got) == 2
+    assert got[0].startswith("merge_kernel<int, 0, Level>: Used 32 registers")
+    assert got[0].endswith("8 blocks of 256 an SM by registers and static smem")
+    assert got[1].startswith("compact_kernel: Used 128 registers")
+    assert "2 blocks of 256" in got[1]
