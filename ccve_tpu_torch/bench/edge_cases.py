@@ -1,10 +1,12 @@
-"""Inputs that hold two kernels at the edges of their designs, as numpy
+"""Inputs that hold kernels at the edges of their designs, as numpy
 arrays made from a seeded generator: `chunk_rank_cases` for #11
-(`kernels.chunk_probe.chunk_rank`, csrc/chunk_rank.cu) and
+(`kernels.chunk_probe.chunk_rank`, csrc/chunk_rank.cu),
 `dense_counts_cases` for #4 (`kernels.merge_scan.merge_scan_build_counts`,
-csrc/dense_counts.cu). `chip_smoke.py` and tests/test_torch_cuda.py hold
-each kernel against its plain version on them, exactly; the CPU tests
-hold the plain versions against numpy.
+csrc/dense_counts.cu) and `merge_counts_case` for #3 and #14
+(`kernels.merge_scan.merge_counts_i32` / `_i64`, csrc/merge_counts.cu).
+`chip_smoke.py` and tests/test_torch_cuda.py hold each kernel against its
+plain version on them, exactly; the CPU tests hold the plain versions
+against numpy, or a model of the kernel against its plain version.
 """
 
 from __future__ import annotations
@@ -132,3 +134,90 @@ def dense_counts_cases(rng, tile: int = DENSE_TILE, big: bool = True) -> list:
         L = 300 * tile + 7
         cases.append((f"L={L}", _stream(rng, L // 5, L - L // 5, L // 4), L // 5))
     return cases
+
+
+MERGE_COUNTS_TILE = 1024  # csrc/merge_counts.cu: kTile, the build rows a block
+# #3 and #14's cases, keys in [0, 2^62) or [0, 2^30) before packing: an
+# int64 case's keys lie near 2^61, so that packed they come near 2^62
+MERGE_COUNTS_KINDS = (
+    "unique", "repeated", "key across a tile boundary", "a tile of one key",
+    "one key holds most probes", "n_real inside a run", "runs past n_real", "runs of 2^11",
+    "a single run", "m > n", "m = 1", "n = 0", "extremes",
+)
+_KEY_BASE = {np.dtype(np.int32): 0, np.dtype(np.int64): 2**61 - 10**6}
+
+
+def probe_runs(probes: np.ndarray, run_log: int, dtype) -> np.ndarray:
+    """Packed probes (`key' << 1`) padded with the key type's maximum to a
+    multiple of 2^11, as the count side pads them, and sorted into runs of
+    2^run_log (the last one possibly shorter)."""
+    n_pad = probes.size + (-probes.size) % 2048
+    pad = np.full(n_pad - probes.size, np.iinfo(dtype).max, np.int64)
+    p = np.concatenate([probes.astype(np.int64), pad]).astype(dtype)
+    step = 1 << run_log
+    return np.concatenate([np.sort(p[lo:lo + step]) for lo in range(0, n_pad, step)] or [p])
+
+
+def _merge_counts_keys(rng, kind: str, tile: int):
+    """(probe keys, build keys, run_log, n_real or None) of a case."""
+    if kind == "unique":
+        return rng.integers(0, 5000, 60_000), rng.choice(5000, 3000, replace=False), 13, None
+    if kind == "repeated":
+        return rng.integers(0, 3000, 40_000), rng.integers(0, 3000, 7000), 12, None
+    if kind == "key across a tile boundary":
+        # the key of rows tile - 50 .. tile + 50 straddles the first two tiles
+        builds = np.concatenate([np.arange(tile - 50), np.full(100, tile),
+                                 tile + 1 + np.arange(500)])
+        probes = rng.integers(0, builds.max() + 2, 30_000)
+        probes[:4000] = tile
+        return probes, builds, 12, None
+    if kind == "a tile of one key":
+        # two whole tiles of key 100, which holds 70 % of the probes: its
+        # slice in each run is longer than the stage
+        builds = np.concatenate([rng.integers(0, 100, 300), np.full(2 * tile + 7, 100),
+                                 100 + rng.integers(1, 400, 300)])
+        probes = rng.integers(0, 500, 50_000)
+        probes[rng.random(50_000) < 0.7] = 100
+        return probes, builds, 13, None
+    if kind == "one key holds most probes":
+        probes = rng.integers(0, 3000, 80_000)
+        probes[rng.random(80_000) < 0.8] = 1234
+        return probes, np.union1d(rng.choice(3000, 2500, replace=False), [1234]), 14, None
+    if kind == "n_real inside a run":
+        return rng.integers(0, 800, 9000), rng.integers(0, 800, 500), 11, 5000
+    if kind == "runs past n_real":
+        return rng.integers(0, 800, 20_000), rng.integers(0, 800, 500), 11, 3000
+    if kind == "runs of 2^11":
+        return rng.integers(0, 600, 2**19 - 100), rng.integers(0, 600, 400), 11, None
+    if kind == "a single run":
+        return rng.integers(0, 4000, 30_000), rng.integers(0, 4000, 2000), 15, None
+    if kind == "m > n":
+        return rng.integers(0, 20_000, 3000), rng.integers(0, 20_000, 9000), 11, None
+    if kind == "m = 1":
+        return rng.integers(0, 3, 5000), np.array([1]), 11, None
+    if kind == "n = 0":
+        return np.zeros(0, np.int64), np.arange(50), 11, None
+    raise ValueError(f"unknown merge counts case {kind!r}")
+
+
+def merge_counts_case(rng, dtype, kind: str, tile: int = MERGE_COUNTS_TILE) -> tuple:
+    """(runs, run_len, n_real, b) of one of MERGE_COUNTS_KINDS for the key
+    type `dtype`: the probe runs as `probe_runs` leaves them and the packed
+    ascending build stream (`key' << 1 | 1`). `tile` places the cases that
+    straddle or fill tiles. "extremes": builds at the top of the key range
+    (the last packed build is the type's maximum, as the padding is),
+    probes on it and clamped to the bottom (0)."""
+    dtype = np.dtype(dtype)
+    if kind == "extremes":
+        top = np.iinfo(dtype).max // 2  # the largest key'
+        probes = rng.integers(top - 600, top + 1, 8000)
+        probes[:300] = 0
+        probes[300:900] = top
+        builds = np.concatenate([rng.integers(top - 600, top + 1, 400), [top, top]])
+        return (probe_runs(probes * 2, 11, dtype), 2048, probes.size,
+                (np.sort(builds) * 2 + 1).astype(dtype))
+    probes, builds, run_log, n_real = _merge_counts_keys(rng, kind, tile)
+    base = _KEY_BASE[dtype]
+    return (probe_runs((base + probes) * 2, run_log, dtype), 1 << run_log,
+            probes.size if n_real is None else n_real,
+            ((base + np.sort(builds)) * 2 + 1).astype(dtype))

@@ -36,14 +36,18 @@ shapes, for #2 and #13's count-side merge level (`merge_level_i32`,
 `merge_level_i64`) one line for the ladder's first level beside one
 `torch.sort(dim=1)` of the run pairs, and one for the whole ladder
 (`sort_runs`: the tile sort and every level `count_side_plan` keeps)
-beside one `torch.sort(dim=1)` of the runs (`count_level_cases`). For #9
+beside one `torch.sort(dim=1)` of the runs (`count_level_cases`). For #3
+and #14 (`merge_counts_i32`, `merge_counts_i64`) at the same two shapes,
+over the runs that ladder leaves, one line each beside `torch.searchsorted`
+of the build keys in the runs, right minus left, summed over the runs
+(`merge_counts_cases`). For #9
 (`compact_i32`) at config 1 materialized's candidates (three planes) and
 at the LP ladder's first stage on config 1 (two planes, the lanes live
 after step 0), one line each beside the one library call `planes[:,
 mask]` alone, without the plain version's zeros and copy
 (`compact_cases`). `--only` names the groups to read (rank, counts,
-merge_two, probe_sort, stats, tile_sort, count_levels, compact, drain;
-all by default). Every line gives:
+merge_two, probe_sort, stats, tile_sort, count_levels, merge_counts,
+compact, drain; all by default). Every line gives:
 
 - `call_ms`: CUDA events around one eager call, median (min, max) of
   2 * REPS calls: what a caller pays, the larger of the host's enqueue
@@ -597,11 +601,11 @@ def stats_splits(device) -> dict:
 
 
 @functools.lru_cache(maxsize=1)
-def count_tiles(device) -> dict:
-    """{shape: padded probe stream} that the count side's tile sort gets:
-    config 1's 16M int32 probes (#1, `sort_tiles_i32`) and config 1 wide's
-    2^24 int64 probes (#13's count-side build, `sort_tiles_i64`), packed
-    and padded to whole tiles with the key type's maximum."""
+def count_streams(device) -> dict:
+    """{shape: (padded probe stream, real probes n, build stream b)} of the
+    count side: config 1's 16M int32 probes and config 1 wide's 2^24 int64
+    probes, packed (`pack32_streams`, `pack64_streams`) and padded to whole
+    tiles with the key type's maximum."""
     from ccve_tpu_torch.bench.configs import config1_wide_host
 
     out = {}
@@ -611,10 +615,18 @@ def count_tiles(device) -> dict:
              sm.pack64_streams)):
         table = sm.build_sorted(k, pay, device=device)
         col = col[:, 0] if col.ndim == 2 else col
-        p, _ = pack(table, torch.from_numpy(col).to(device))
+        p, b = pack(table, torch.from_numpy(col).to(device))
         n_pad = -(-p.numel() >> bigsort.TILE_LOG) << bigsort.TILE_LOG
-        out[shape] = torch.cat([p, p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])])
+        out[shape] = (torch.cat([p, p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])]),
+                      p.numel(), b)
     return out
+
+
+def count_tiles(device) -> dict:
+    """{shape: padded probe stream} that the count side's tile sort gets:
+    `count_streams`' config 1 (#1, `sort_tiles_i32`) and config 1 wide
+    (#13's count-side build, `sort_tiles_i64`)."""
+    return {shape: x for shape, (x, _, _) in count_streams(device).items()}
 
 
 def tile_sort_cases(device) -> list:
@@ -688,6 +700,41 @@ def count_level_cases(device) -> list:
     return out
 
 
+def merge_counts_cases(device) -> list:
+    """[(name, fn, counter, yardstick name, yardstick fn)] of #3 and #14 at
+    `count_streams`' shapes, over the runs the count side's ladder leaves
+    (`sort_runs` at `count_side_plan`'s run_log for COUNT_BUILD_ROWS build
+    rows), each first held against its plain version. The yardstick is
+    `torch.searchsorted` of b - 1 in the [R, run_len] runs (padded with the
+    key type's maximum, which is odd and never equals an even b - 1), right
+    minus left, summed over the runs: the plain version's function in one
+    batch, without its batching loop, zeros or cast."""
+    tl = bigsort.TILE_LOG
+    out = []
+    for shape, (x, n, b) in count_streams(device).items():
+        m = b.numel()
+        run_log = sm.count_side_plan(n, m, tl)[1]
+        runs = bigsort.sort_runs(x, run_log, tl)
+        wrapper = merge_scan.MERGE_COUNTS[x.dtype]
+        rows = _padded_view(runs, 1 << run_log)
+        want = (b - 1).expand(rows.shape[0], -1).contiguous()
+
+        def library(rows=rows, want=want):
+            return (torch.searchsorted(rows, want, right=True)
+                    - torch.searchsorted(rows, want)).sum(0)
+
+        got = wrapper(runs, 1 << run_log, n, b, m)
+        if not (torch.equal(got, merge_scan.merge_counts_plain(runs, 1 << run_log, n, b, m))
+                and torch.equal(library(), got.long())):
+            raise AssertionError(f"{wrapper.__name__} {shape}: disagrees with its plain version "
+                                 f"or its yardstick")
+        out.append((f"{wrapper.__name__}, {shape} ({rows.shape[0]} runs of 2^{run_log}, "
+                    f"m = {m})", lambda f=wrapper, a=(runs, 1 << run_log, n, b, m): f(*a),
+                    wrapper, f"torch.searchsorted of the {rows.shape[0]} runs, {shape}",
+                    library))
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def compact_inputs(device) -> dict:
     """{shape: (planes, mask)} that #9 gets: config 1 materialized's
@@ -757,7 +804,7 @@ def counted_splits(cases) -> dict:
 
 
 GROUPS = ("rank", "counts", "merge_two", "probe_sort", "stats", "tile_sort", "count_levels",
-          "compact", "drain")
+          "merge_counts", "compact", "drain")
 
 
 def _print_splits(splits: dict) -> None:
@@ -848,6 +895,11 @@ def main(argv=None) -> int:
         print(f"#2 and #13's count-side merge level and ladder at config 1's 16M and config 1 "
               f"wide's 2^24 probes, on [{card}]:")
         _print_splits(levels)
+    if "merge_counts" in groups:
+        counts = counted_splits(merge_counts_cases(device))
+        print(f"#3 and #14, the count side's merge counts, at config 1's 16M and config 1 "
+              f"wide's 2^24 probes against 1M build rows, on [{card}]:")
+        _print_splits(counts)
     if "compact" in groups:
         compactions = counted_splits(compact_cases(device))
         print(f"#9 at config 1 materialized's candidates and the LP ladder's first stage, on "

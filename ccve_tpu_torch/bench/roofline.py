@@ -28,9 +28,9 @@ reads its bounds from this module):
                 on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit
                 (0.5002 and 0.5017 ps in two runs; PERF.md)
 
-What the model does not price: the merge counts' latency (each build row
-makes 2·log2(run_len) dependent loads a run; csrc/merge_counts.cu), so
-that row's speed-of-light is its bytes alone; and the small-probe route
+The merge counts are one streaming read of each run's slices, staged in
+shared memory (csrc/merge_counts.cu), so their row is priced by its bytes
+like the levels'. What the model does not price: the small-probe route
 (n_probe <= 2^SMALL_PROBE_LOG), for which `count_side_model` raises.
 
 Run `python -m ccve_tpu_torch.cli roofline [--n-build N --n-probe N]
@@ -127,8 +127,8 @@ def count_side_model(n_build: int, n_probe: int, tile_log: int | None = None) ->
     load of every key in shared memory and a barrier: priced as a stage
     pass apiece), merge-path levels (one read and one write of the stream
     a level, no stage work), the merge counts over every run (one read of
-    the run buffer and of b, one write of bc; its binary searches' latency
-    is not modelled), and the payload dot."""
+    the run buffer and of b, one write of bc: each run's slices are read
+    once into shared memory and counted there), and the payload dot."""
     plan = count_side_plan(n_build, n_probe, tile_log)
     n_pad, m, tl = plan.n_pad, n_build, plan.tile_log
     rounds = merge_rounds(tl)
@@ -139,9 +139,8 @@ def count_side_model(n_build: int, n_probe: int, tile_log: int | None = None) ->
                 2 * I32 * n_pad, rounds * n_pad),
         OpModel(f"merge-path levels x{plan.n_levels} (-> {plan.n_runs} runs of "
                 f"2^{plan.run_log})", 2 * I32 * n_pad * plan.n_levels, 0),
-        OpModel(f"merge counts x{plan.n_runs} runs (2·{plan.run_log} dependent loads a "
-                "build row a run: latency not modelled)",
-                I32 * (n_pad + 2 * m), 0),
+        OpModel(f"merge counts x{plan.n_runs} runs (each run's slices staged and counted "
+                "in shared memory)", I32 * (n_pad + 2 * m), 0),
         OpModel("payload dot (bc . payloads)", (I32 + 8) * m, 0),
     ]
 

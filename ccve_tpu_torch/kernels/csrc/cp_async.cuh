@@ -1,6 +1,6 @@
 // Asynchronous copies from device memory into shared memory (cp.async),
-// shared by the staged merge (merge_multi.cu) and the compaction
-// (compact.cu). The copies are PTX under __CUDA_ARCH__, with a memcpy in
+// shared by the staged merge (merge_multi.cu), the compaction (compact.cu)
+// and the merge counts (merge_counts.cu). The copies are PTX under __CUDA_ARCH__, with a memcpy in
 // their place elsewhere, so that a host emulation of a kernel runs the same
 // staging arithmetic.
 #pragma once
@@ -37,6 +37,22 @@ __device__ __forceinline__ void copy_small(void* dst, const void* src) {
 __device__ __forceinline__ void wait_all() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Closes this thread's copies issued since the last commit into a group.
+__device__ __forceinline__ void commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// This thread's committed groups are complete but the newest kPending
+// (then a barrier makes every thread's visible to the block).
+template <int kPending>
+__device__ __forceinline__ void wait_group() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 #endif
 }
 

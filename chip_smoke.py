@@ -7,7 +7,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
  2. Builds the kernels of `ccve_tpu_torch/kernels/csrc` with nvcc (sm_90a).
  3. Holds each kernel of the config-1 path against its plain PyTorch
     version on the card, at small ragged shapes: exact integer equality
-    (tolerance 0, the outputs are integers).
+    (tolerance 0, the outputs are integers). Times the merge counts on
+    5,000 builds clustered on 500 keys beside 5,000 spread ones.
  4. Drives the config-1 join (1M build rows against 16M probe rows) once
     through `build_sorted` and `bulk_count`, with every launch counter set
     to 0 just before; checks that each kernel launched, a merge-path
@@ -353,14 +354,25 @@ HASH_OPS_PER_KEY = 10  # three shifts and xors, two 64-bit multiplies
 PROFILED_CALLS = 5  # back-to-back calls in each idle-share trace
 LADDER_HIT_PCTS = (5, 25, 50)  # hit rates of phase 22's probes, in percent
 WIDE_COUNT = ("sort_tiles_i64", "merge_level_i64", "merge_counts_i64")
+# the cases of `bench.edge_cases.merge_counts_case` whose slices outgrow
+# #3 and #14's stage: a heavy key, and two tiles of one repeated key
+SKEWED_COUNTS = ("one key holds most probes", "a tile of one key")
 WIDE_STATS = ("sort_tiles_multi_i64", "merge_multi_i64", "merge_stats_i64")
 # kernels whose plain version is itself the one PyTorch call that computes
 # the same function (torch.sort per tile or run pair, torch.searchsorted):
 # their library time is the plain time, not taken twice
-LIBRARY_IS_PLAIN = {
-    "sort_tiles_i32", "merge_level_i32", "merge_counts_i32",
-    "sort_tiles_i64", "merge_level_i64", "merge_counts_i64",
-}
+LIBRARY_IS_PLAIN = {"sort_tiles_i32", "merge_level_i32", "sort_tiles_i64", "merge_level_i64"}
+
+
+def counts_library(runs, run_len: int, b):
+    """The merge counts' one-batch library yardstick: `torch.searchsorted`
+    of b - 1 in the runs as [R, run_len] rows (padded with the key type's
+    maximum, odd, so never equal to an even b - 1), right minus left,
+    summed over the runs (`bench.kernel_split.merge_counts_cases`)."""
+    rows = kernel_split._padded_view(runs, run_len)
+    want = (b - 1).expand(rows.shape[0], -1).contiguous()
+    return lambda: (torch.searchsorted(rows, want, right=True)
+                    - torch.searchsorted(rows, want)).sum(0)
 
 
 def zero_counters(wrappers: dict) -> None:
@@ -485,6 +497,14 @@ def main() -> int:
                  bigsort.sort_runs_plain(x, run_log),
                  f"sort_runs nt={nt} run_log={run_log}")
 
+    def counts_edge(name, dtype, kind):
+        """#3 or #14 on a case of `bench.edge_cases.merge_counts_case`."""
+        runs_e, run_len_e, n_e, b_e = (
+            torch.from_numpy(a).cuda() if isinstance(a, np.ndarray) else a
+            for a in edge_cases.merge_counts_case(rng, dtype, kind))
+        same(name, merge_scan.MERGE_COUNTS[runs_e.dtype](runs_e, run_len_e, n_e, b_e, b_e.numel()),
+             merge_scan.merge_counts_plain(runs_e, run_len_e, n_e, b_e, b_e.numel()), kind)
+
     def counts_case(n, m, run_log, dom, builds, what):
         probes = rng.integers(0, dom + 8, n).astype(np.int64) * 2  # some above every build
         probes[: min(n, 5)] = 0  # clamped-low probes
@@ -498,14 +518,25 @@ def main() -> int:
         same("merge_counts_i32",
              merge_scan.merge_counts_i32(runs, 1 << run_log, n, b32, m),
              merge_scan.merge_counts_plain(runs, 1 << run_log, n, b32, m), what)
+        return runs, 1 << run_log, n, b32, m
 
     counts_case(100_000, 30_000, 11, 40_000, rng.choice(40_000, 30_000, replace=False), "many runs")
     counts_case(40_000, 70_000, 13, 50_000, rng.integers(0, 50_000, 70_000), "dup builds, m > n")
     counts_case(33_333, 100, 14, 1000, rng.integers(0, 1000, 100), "ragged n")
-    counts_case(300_000, 5_000, 16, 200_000, rng.integers(40_000, 40_500, 5_000), "clustered builds")
+    clustered = counts_case(300_000, 5_000, 16, 200_000, rng.integers(40_000, 40_500, 5_000),
+                            "clustered builds")
+    uniform = counts_case(300_000, 5_000, 16, 200_000, rng.choice(200_000, 5_000, replace=False),
+                          "uniform builds")
     counts_case(0, 10, 11, 50, np.arange(10), "no probes")
     counts_case(4096, 1, 11, 3, np.array([1]), "one build")
+    for kind in SKEWED_COUNTS:
+        counts_edge("merge_counts_i32", np.int32, kind)
     torch.cuda.synchronize()
+    skew_ms = {what: med(cuda_ms(lambda a=a: merge_scan.merge_counts_i32(*a)))
+               for what, a in (("clustered", clustered), ("uniform", uniform))}
+    log(f"merge_counts_i32 at 300,000 probes in 5 runs and 5,000 builds on [{card}], CUDA "
+        f"events, median of {REPS}: builds clustered on 500 keys {skew_ms['clustered']:.4f} ms, "
+        f"spread over 200,000 keys {skew_ms['uniform']:.4f} ms")
     log(f"phase kernels (small shapes): ok, max |kernel - plain| {max_err}")
 
     # ---- 4. the config-1 slice through bulk_count --------------------------
@@ -592,16 +623,18 @@ def main() -> int:
         "merge_counts_i32": (
             med(cuda_ms(lambda: merge_scan.merge_counts_i32(runs, 1 << run_log, n, b32, m))),
             med(cuda_ms(lambda: merge_scan.merge_counts_plain(runs, 1 << run_log, n, b32, m))),
+            med(cuda_ms(counts_library(runs, 1 << run_log, b32))),
         ),
     }
     # (bytes, operations) of each kernel's work in one bulk_count: keys read
     # and written once per launch; tile_log compares per key in the tile
-    # sort, one per key and level in the merges, two binary searches per
-    # build row and run in the counts
+    # sort, one per key and level in the merges; in the counts, the real
+    # probes and b read once and bc written once, a compare a probe and two
+    # a build row and run (its two bounds)
     work = {
         "sort_tiles_i32": (8 * n_pad, n_pad * tile_log),
         "merge_level_i32": (8 * n_pad * len(levels), n_pad * len(levels)),
-        "merge_counts_i32": (4 * (n + 2 * m), 2 * m * n_runs * log2_ceil(1 << run_log)),
+        "merge_counts_i32": (4 * (n + 2 * m), n + 2 * m * n_runs),
     }
     # config 1's count-side shape, for phase 40's model
     plan1 = roofline.CountSidePlan(n_pad, tile_log, run_log, len(levels), n_runs)
@@ -623,10 +656,11 @@ def main() -> int:
         f"peak extra device memory {peak_mib:.1f} MiB")
     log(f"  all-plain torch path: {p_ms:.4f} ms = {N_PROBE / p_ms / 1e3:.1f}M probe rows/s "
         f"(min {min(e2e['plain']):.4f}, max {max(e2e['plain']):.4f})")
-    for name, (kt, pt) in kernel_ms.items():
-        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
-            f"({launches[name]} launch(es) per bulk_count)")
-    glue = k_ms - sum(kt for kt, _ in kernel_ms.values())
+    for name, (kt, pt, *lib) in kernel_ms.items():
+        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms"
+            + (f", library {lib[0]:.4f} ms" if lib else "")
+            + f" ({launches[name]} launch(es) per bulk_count)")
+    glue = k_ms - sum(t[0] for t in kernel_ms.values())
     log(f"  outside the kernels (pack, pad, sums, allocation): {glue:.4f} ms")
 
     # ---- 6. the benchmark entry point --------------------------------------
@@ -1062,6 +1096,8 @@ def main() -> int:
     counts64_case(33_333, 100, 14, 1000, rng.integers(0, 1000, 100), "ragged n")
     counts64_case(0, 10, 11, 50, np.arange(10), "no probes")
     counts64_case(4096, 1, 11, 3, np.array([1]), "one build")
+    for kind in SKEWED_COUNTS:
+        counts_edge("merge_counts_i64", np.int64, kind)
 
     for tile_log_w in (pairsort.TILE_LOG, 11, 4, 1):
         for n_planes in (1, 2, 3):
@@ -1178,7 +1214,7 @@ def main() -> int:
          merge_scan.merge_counts_plain(runs_w, 1 << run_log_w, n_w, b64, m_w), "config1_wide")
     torch.cuda.synchronize()
     log(f"phase kernels (config1_wide shapes): ok, max |kernel - plain| {max_err}")
-    for name, (kt, pt) in {
+    for name, times in {
         "sort_tiles_i64": (
             med(cuda_ms(lambda: bigsort.sort_tiles_i64(padded_w))),
             med(cuda_ms(lambda: bigsort.sort_tiles_plain(padded_w, bigsort.TILE_LOG))),
@@ -1190,22 +1226,23 @@ def main() -> int:
         "merge_counts_i64": (
             med(cuda_ms(lambda: merge_scan.merge_counts_i64(runs_w, 1 << run_log_w, n_w, b64, m_w))),
             med(cuda_ms(lambda: merge_scan.merge_counts_plain(runs_w, 1 << run_log_w, n_w, b64, m_w))),
+            med(cuda_ms(counts_library(runs_w, 1 << run_log_w, b64))),
         ),
     }.items():
-        kernel_ms[name] = (kt, pt)
+        kernel_ms[name] = times
     work["sort_tiles_i64"] = (16 * n_pad_w, n_pad_w * bigsort.TILE_LOG)
     work["merge_level_i64"] = (16 * n_pad_w * len(levels_w), n_pad_w * len(levels_w))
-    work["merge_counts_i64"] = (8 * (n_w + m_w) + 4 * m_w,
-                                2 * m_w * n_runs_w * log2_ceil(1 << run_log_w))
+    work["merge_counts_i64"] = (8 * (n_w + m_w) + 4 * m_w, n_w + 2 * m_w * n_runs_w)
     ew = in_turns(lambda: bulk_count([table_w], col_w.view(-1, 1)), plain_totals_w)
     log(f"times on [{card}], CUDA events, medians:")
     log(f"  bulk_count config1_wide (1M build x 2^24 probe, span 2^40), kernel path: "
         f"{spread(ew['kernel'])} = {N_PROBE_WIDE / med(ew['kernel']) / 1e3:.1f}M probe rows/s")
     log(f"  all-plain torch path: {spread(ew['plain'])}")
     for name in WIDE_COUNT:
-        kt, pt = kernel_ms[name]
-        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms ({launches_w[name]} launch(es) "
-            f"per bulk_count)")
+        kt, pt, *lib = kernel_ms[name]
+        log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms"
+            + (f", library {lib[0]:.4f} ms" if lib else "")
+            + f" ({launches_w[name]} launch(es) per bulk_count)")
 
     # ---- 14. the wide stats side on phase 13's data ------------------------
     t0 = time.perf_counter()

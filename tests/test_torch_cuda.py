@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ccve_tpu_torch.bench.edge_cases import MERGE_COUNTS_KINDS, merge_counts_case, probe_runs
 from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
 from ccve_tpu_torch.ops import sort_merge as sm
 
@@ -285,6 +286,76 @@ def test_merge_counts_i64_kernel(cuda, n, m, dup):
     b64 = _i64((base + np.sort(builds)) * 2 + 1, cuda)
     got = merge_scan.merge_counts_i64(runs, 2048, n, b64, m)
     assert torch.equal(got, merge_scan.merge_counts_plain(runs, 2048, n, b64, m))
+
+
+def _counts_on(runs, run_len, n_real, b, device, offset=0):
+    """(runs, b) on the card; with `offset`, each a view that starts
+    `offset` elements into its allocation (so that the staging's 16-byte
+    copies start past a misaligned head)."""
+    def put(a):
+        t = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype), a])).to(device)
+        return t[offset:]
+    return put(runs), put(b)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("kind", MERGE_COUNTS_KINDS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_merge_counts_edge_cases(cuda, dtype, kind, offset):
+    """#3 and #14 on `bench.edge_cases.merge_counts_case`: repeated keys,
+    one across a tile boundary and two tiles of one key, one key holding
+    most probes (slices past the stage, counted in device memory), n_real
+    inside a run and runs past it, 256 runs of 2^11 and a single run, m > n,
+    m = 1, n = 0 and the key type's extremes; exact."""
+    rng = np.random.default_rng(MERGE_COUNTS_KINDS.index(kind))
+    runs_np, run_len, n_real, b_np = merge_counts_case(rng, dtype, kind)
+    runs, b = _counts_on(runs_np, run_len, n_real, b_np, cuda, offset)
+    wrapper = merge_scan.MERGE_COUNTS[runs.dtype]
+    launches = wrapper.launches
+    got = wrapper(runs, run_len, n_real, b, b.numel())
+    assert wrapper.launches == launches + 1
+    assert torch.equal(got, merge_scan.merge_counts_plain(runs, run_len, n_real, b, b.numel()))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("run_log", [11, 14, 17, 20])
+def test_merge_counts_at_config_1_density(cuda, dtype, run_log):
+    """2^20 probes against 2^16 builds (config 1's 16 probes a build row)
+    in runs of 2^11 to 2^20: from 512 runs (four run batches) to one, a
+    few slices of each tile past the stage where a key's probes bunch."""
+    rng = np.random.default_rng(run_log)
+    keys = np.sort(rng.choice(1 << 22, 1 << 16, replace=False))
+    probes = rng.choice(keys, (1 << 20) - 77)
+    probes[:3000] = keys[5000]
+    runs_np = probe_runs(probes * 2, run_log, dtype)
+    runs, b = _counts_on(runs_np, 1 << run_log, probes.size, (keys * 2 + 1).astype(dtype), cuda)
+    got = merge_scan.MERGE_COUNTS[runs.dtype](runs, 1 << run_log, probes.size, b, b.numel())
+    want = merge_scan.merge_counts_plain(runs, 1 << run_log, probes.size, b, b.numel())
+    assert torch.equal(got, want) and int(want.sum()) == probes.size
+
+
+def test_merge_counts_again_and_again(cuda):
+    """Twenty calls of each entry on each of four streams at once (uniform
+    and one-heavy-key inputs of both key types), each equal to the plain
+    version: no block depends on another's work or on launch order."""
+    rng = np.random.default_rng(14)
+    inputs = []
+    for dtype in (np.int32, np.int64):
+        for kind in ("repeated", "one key holds most probes"):
+            runs_np, run_len, n_real, b_np = merge_counts_case(rng, dtype, kind)
+            inputs.append((*_counts_on(runs_np, run_len, n_real, b_np, cuda), run_len, n_real))
+    wants = [merge_scan.merge_counts_plain(r, rl, nr, b, b.numel()) for r, b, rl, nr in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    results = [[] for _ in inputs]
+    for _ in range(20):
+        for s, (r, b, rl, nr), out in zip(streams, inputs, results):
+            with torch.cuda.stream(s):
+                out.append(merge_scan.MERGE_COUNTS[r.dtype](r, rl, nr, b, b.numel()))
+    torch.cuda.synchronize()
+    for want, out in zip(wants, results):
+        for got in out:
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("tile_log", [1, 4, 11, pairsort.TILE_LOG])

@@ -199,6 +199,36 @@ def test_count_level_cases_hold_kernels_and_yardsticks(monkeypatch):
                 bigsort.sort_tiles_plain(x, bigsort.TILE_LOG), bigsort.TILE_LOG))
 
 
+def test_merge_counts_cases_hold_kernels_and_yardsticks(monkeypatch):
+    """#3 and #14's cases on small count streams of both key types (on the
+    CPU the wrappers run their plain versions): the runs the ladder leaves,
+    the kernel held against its plain version and the searchsorted
+    yardstick over the padded [R, run_len] runs, which gives the same
+    counts; each case names its wrapper."""
+    import numpy as np
+    import torch
+
+    from ccve_tpu_torch.kernels import bigsort
+
+    rng = np.random.default_rng(12)
+    T = 1 << bigsort.TILE_LOG
+    streams = {}
+    for shape, dtype, n, hi in (("small i32", torch.int32, 5 * T - 100, 3000),
+                                ("small i64", torch.int64, 3 * T - 7, 2**61)):
+        keys = np.sort(rng.choice(hi, 700, replace=False))
+        p = torch.from_numpy(rng.choice(keys, n) * 2).to(dtype)
+        x = torch.cat([p, p.new_full((-n % T,), bigsort.PAD[dtype])])
+        streams[shape] = (x, n, torch.from_numpy(keys * 2 + 1).to(dtype))
+    monkeypatch.setattr(kernel_split, "count_streams", lambda device: streams)
+    cases = kernel_split.merge_counts_cases(torch.device("cpu"))
+    assert [c.__name__ for _, _, c, _, _ in cases] == ["merge_counts_i32", "merge_counts_i64"]
+    for (name, fn, _, lib_name, lib), (x, n, b) in zip(cases, streams.values()):
+        got = fn()
+        assert got.dtype == torch.int32 and got.numel() == b.numel()
+        assert int(got.sum()) == n and torch.equal(lib(), got.long()), name
+        assert lib_name.startswith("torch.searchsorted")
+
+
 def test_compact_cases_hold_kernels_and_yardsticks(monkeypatch):
     """#9's cases on small planes: the kernel (here its plain version)
     against its yardstick `planes[:, mask]`, which gives the kept rows
@@ -247,10 +277,32 @@ def test_tile_sweep_copies_apply_to_the_sources():
         "ptxas info    : Used 128 registers, used 1 barriers, 2160 bytes smem",
         "ptxas info    : Compiling entry function '_ZN47_other_kernelEv' for 'sm_90a'",
         "ptxas info    : Used 200 registers",
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__x_15_merge_counts_cu_y19"
+        "merge_counts_kernelIxEEvPKT_xiS3_iPi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 1024 bytes smem",
     ]
-    got = tile_sweep.resources(lines, tile_sweep._block_threads("source"))
-    assert len(got) == 2
+    got = tile_sweep.resources(lines, tile_sweep._block_threads("counts 512 x 4"))
+    assert len(got) == 3
     assert got[0].startswith("merge_kernel<int, 0, Level>: Used 32 registers")
     assert got[0].endswith("8 blocks of 256 an SM by registers and static smem")
     assert got[1].startswith("compact_kernel: Used 128 registers")
     assert "2 blocks of 256" in got[1]
+    assert got[2].startswith("merge_counts_kernel<long long>: Used 64 registers")
+    assert "2 blocks of 512" in got[2]
+
+
+def test_tile_sweep_copies_build_their_own_sources():
+    """Each copy builds the sources of the kernel it rewrites (with
+    status.cu), `source` all of them, and every source a copy rewrites is
+    among those it builds."""
+    from ccve_tpu_torch.bench import tile_sweep
+    from ccve_tpu_torch.kernels import _build
+
+    every = {f.name for f in _build.CSRC.glob("*.cu")}
+    assert set(tile_sweep.units("source")) <= every
+    assert {"merge_multi.cu", "compact.cu", "merge_counts.cu"} <= set(tile_sweep.units("source"))
+    for copy, subs in tile_sweep.COPIES.items():
+        assert tile_sweep.group(copy) in (None, "merge", "compact", "counts"), copy
+        assert {target for target, _, _ in subs} <= set(tile_sweep.units(copy)), copy
+    assert tile_sweep.units("counts stage x2") == ["merge_counts.cu", "status.cu"]
