@@ -1,27 +1,37 @@
-"""Command line of the port: `python -m ccve_tpu_torch.cli pipeline|baseline|roofline`.
+"""Command line of the port: `python -m ccve_tpu_torch.cli <command>`, one of
+`pipeline`, `strategy-matrix`, `microbench`, `baseline` and `roofline`.
 
  - `pipeline` is the reference's main executable (`simd_compaction_sevector`,
    main.cpp:37-117), with the JAX CLI's flags and defaults plus `--device`:
    the N-way join of a generated probe table against `--join-num` build
-   tables, on the sorted-chunk executor (`--table sorted --executor
-   sorted`, strategies none, full, binary and dynamic, the last with the
-   host bandit as in the JAX CLI) or the bulk engine (`--executor bulk`,
-   any table kind). `--record-occupancy` keeps the per-level Zebra
+   tables, on the cursor executor (`--executor pipeline`, the default, over
+   `--table lp|csr`), the sorted-chunk executor (`--table sorted --executor
+   sorted`) or the bulk engine (`--executor bulk`, any table kind).
+   Strategies none, full, binary and dynamic, the last with the host bandit
+   as in the JAX CLI. `--record-occupancy` keeps the per-level Zebra
    histograms of emitted-chunk occupancy; `--zebra-profile` (which implies
    it) also times each segment and writes the histograms as CSV files to
    `./zebra_log_0x<random>/`. Its stderr lines are the JAX CLI's:
    [Settings], the [Bee] timings on the host clock, [Total Time],
-   [Throughput], [Result Rows] and, with `--zebra-profile`, [Zebra]. The
-   cursor executor (`--executor pipeline`, ROADMAP Queue 1, slice 6) exits
-   2 with "not ported yet".
+   [Throughput], [Result Rows] and, with `--zebra-profile`, [Zebra].
+ - `strategy-matrix` runs `pipeline` on the cursor executor under every
+   strategy (the reference's one binary a strategy, build_versions.sh:17-43,
+   as a runtime sweep).
+ - `microbench` is the reference's probe micro-benchmark
+   (`simd_bench_sevector`, simd_micro_bench.cpp:35-73; `bench/micro.py`):
+   the bulk, staged and phased variants over LP and CSR, in ns a key with
+   each variant's tuple count, on stderr.
  - `baseline --config N` runs a benchmark configuration and prints one JSON
    line: config 1 (counting on the sort-merge engine or, with `--engine
    hash_lp|hash_csr`, on a hash table; on the sort-merge engine, with
    `--materialize`, emitting every matched triple, or with `--wide-span
-   BITS` counting over int64 keys spread over 2^BITS), config 3 (the bulk
-   engine and the sorted-chunk executor) and config 7 (the sorted-chunk
-   executor's static compaction policies and its device tuner). Other
-   configurations exit non-zero with "not ported yet".
+   BITS` counting over int64 keys spread over 2^BITS), config 2 (the
+   filtered chaining join on the cursor and sorted-chunk executors),
+   config 3 (the bulk engine, the cursor executor over CSR and the
+   sorted-chunk executor), config 6 (phase-alternating selectivity on the
+   cursor executor and both tuners) and config 7 (the sorted-chunk
+   executor's static compaction policies and its device tuner). Configs 4
+   and 5 exit non-zero with "not ported yet".
  - `roofline` prints the per-operator roofline of the count-side join on
    the H100 (`bench/roofline.py`) at `--n-build` x `--n-probe`; with
    `--measured-ms` also the percent of the model's speed-of-light, and with
@@ -45,7 +55,9 @@ import time
 # the JAX CLI's --tiny sizes
 TINY_KWARGS = {
     1: dict(n_build=4096, n_probe=65536),
+    2: dict(lhs=5000, rhs=512, block=256),
     3: dict(lhs=4000, rhs=256, block=256),
+    6: dict(lhs=65536, rhs=2048, block=256, phase_chunks=32, segment_chunks=4),
     7: dict(lhs=16384, rhs=512, block=256, segment_chunks=4),
 }
 TINY_WIDE_KWARGS = dict(n_build=4096, n_probe=1 << 15)
@@ -90,9 +102,6 @@ def _refusal(args) -> str | None:
                 "executor's ScanStructure is a hash-table cursor)")
     if args.executor == "sorted" and args.table != "sorted":
         return "--executor sorted requires --table sorted"
-    if args.executor == "pipeline":
-        return ("--executor pipeline (the cursor executor, ROADMAP Queue 1, slice 6): "
-                "not ported yet")
     return None
 
 
@@ -149,9 +158,11 @@ def cmd_pipeline(args) -> int:
         count = int(bulk_count(tables, probe).count)  # reading the count syncs
         elapsed = time.perf_counter() - t0
     else:
-        from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline
-
-        out = SortedPipeline(tables, cfg).run(
+        if args.executor == "sorted":
+            from ccve_tpu_torch.exec.sorted_pipeline import SortedPipeline as Executor
+        else:
+            from ccve_tpu_torch.exec.pipeline import JoinPipeline as Executor
+        out = Executor(tables, cfg).run(
             probe, segment_chunks=args.segment_chunks, preload=args.preload,
             zebra_profile=args.zebra_profile)
         count, elapsed = out["count"], out["seconds"]
@@ -169,6 +180,33 @@ def cmd_pipeline(args) -> int:
     print(f" [Throughput] {cfg.lhs_size / elapsed / 1e6:.2f}M probe rows/s", file=sys.stderr)
     print(f" [Result Rows] {count}", file=sys.stderr)
     bee.end_profiling()
+    return 0
+
+
+def cmd_matrix(args) -> int:
+    """`pipeline` on the cursor executor under each strategy in turn; exits
+    non-zero if any run did."""
+    rcs = []
+    for strategy in ("none", "full", "binary", "dynamic"):
+        sub_args = argparse.Namespace(
+            join_num=args.join_num, chunk_factor=args.chunk_factor, lhs_size=args.lhs_size,
+            rhs_size=args.rhs_size, block_size=args.block_size, strategy=strategy,
+            table=args.table, executor="pipeline", payload="reference",
+            collect_tuples=False, record_occupancy=False, segment_chunks=64, preload=False,
+            zebra_profile=False, device=args.device,
+        )
+        print(f"\n==== strategy: {strategy} ====", file=sys.stderr)
+        rcs.append(cmd_pipeline(sub_args))
+    return max(rcs)
+
+
+def cmd_micro(args) -> int:
+    from ccve_tpu_torch.bench.micro import report, run_micro_bench
+
+    results = run_micro_bench(scale=args.scale, hit_freq=args.hit_frequency,
+                              chunk_factor=args.chunk_factor, n_keys=args.n_keys,
+                              variants=tuple(args.variants.split(",")), device=args.device)
+    print(report(results), file=sys.stderr)
     return 0
 
 
@@ -206,10 +244,9 @@ def _add_pipeline(sub):
     )
     p.add_argument(
         "--executor", choices=["pipeline", "bulk", "sorted"], default="pipeline",
-        help="'pipeline': the chunk-at-a-time cursor executor (not ported yet, "
-        "ROADMAP Queue 1, slice 6); 'bulk': operator-at-a-time; 'sorted': "
-        "chunk-at-a-time over sorted tables with the fused drain kernel "
-        "(exec/sorted_pipeline.py)",
+        help="'pipeline': the chunk-at-a-time cursor executor over LP or CSR tables "
+        "(exec/pipeline.py); 'bulk': operator-at-a-time; 'sorted': chunk-at-a-time "
+        "over sorted tables with the fused drain kernel (exec/sorted_pipeline.py)",
     )
     p.add_argument("--payload", choices=["reference", "full"], default="reference")
     p.add_argument("--collect-tuples", action="store_true")
@@ -226,6 +263,32 @@ def _add_pipeline(sub):
                    "CSVs go to ./zebra_log_0x<random>/")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(func=cmd_pipeline)
+
+
+def _add_matrix(sub):
+    p = sub.add_parser("strategy-matrix",
+                       help="the pipeline benchmark on the cursor executor under every "
+                       "compaction strategy")
+    p.add_argument("--join-num", type=int, default=3)
+    p.add_argument("--chunk-factor", type=int, default=2)
+    p.add_argument("--lhs-size", type=int, default=1_000_000)
+    p.add_argument("--rhs-size", type=int, default=100_000)
+    p.add_argument("--block-size", type=int, default=2048)
+    p.add_argument("--table", choices=["lp", "csr"], default="csr")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(func=cmd_matrix)
+
+
+def _add_micro(sub):
+    p = sub.add_parser("microbench", help="single-join probe micro-benchmark")
+    p.add_argument("--scale", type=int, default=0)
+    p.add_argument("--hit-frequency", type=int, default=1)
+    p.add_argument("--chunk-factor", type=int, default=1)
+    p.add_argument("--n-keys", type=int, default=1 << 24)
+    p.add_argument("--variants", default="bulk,staged,phased",
+                   help="comma list from {bulk,staged,phased}")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(func=cmd_micro)
 
 
 def _add_baseline(sub):
@@ -278,6 +341,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ccve_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_pipeline(sub)
+    _add_micro(sub)
+    _add_matrix(sub)
     _add_baseline(sub)
     _add_roofline(sub)
     args = parser.parse_args(argv)

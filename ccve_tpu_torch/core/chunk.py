@@ -141,7 +141,7 @@ def append_into(
     block = src.block_size
     dst_count = int(dst_count)
     n = src.count if limit is None else min(src.count, int(limit))
-    dense = src.cols if src_dense else gather_rows(src)
+    dense = src.cols if src_dense else src.cols.index_select(1, src.sel[:n].long())
     take = max(min(n, block - dst_count), 0)
     new_dst = dst_cols.clone()
     new_dst[:, dst_count : dst_count + take] = dense[:, :take]

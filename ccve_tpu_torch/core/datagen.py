@@ -116,3 +116,67 @@ def gen_rhs_table(n_rhs: int, chunk_factor: int) -> tuple[np.ndarray, np.ndarray
     keys = (np.arange(n_rhs, dtype=np.int64) // chunk_factor) * stride
     payloads = np.arange(n_rhs, dtype=np.int64) + 10_000_000
     return keys, payloads
+
+
+# ---------------------------------------------------------------------------
+# glibc rand() (TYPE_3 additive feedback): the micro-benchmark's key stream
+# ---------------------------------------------------------------------------
+
+_GLIBC_BLOCK = 1024  # outputs drawn a matrix product at a time
+
+
+def _glibc_coefficients(n: int) -> np.ndarray:
+    """uint64[n, 31]: output j after a state of 31 words as a linear
+    combination of them, wrapping mod 2^64 (so exact mod 2^32):
+    r[i] = r[i - 31] + r[i - 3]."""
+    c = np.zeros((31 + n, 31), dtype=np.uint64)
+    c[:31] = np.eye(31, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for i in range(31, 31 + n):
+            c[i] = c[i - 31] + c[i - 3]
+    return c[31:]
+
+
+class GlibcRand:
+    """glibc `rand()` after `srand(seed)` (default seed 1): the 31-word
+    additive feedback generator r[i] = r[i - 31] + r[i - 3] (mod 2^32),
+    output r[i] >> 1, after glibc's 310 discarded outputs. Bit-exact with
+    the JAX package's `GlibcRand`, whose numpy path steps one output at a
+    time in Python; here each block of outputs is one matrix product of
+    the recurrence's coefficients with the last 31 words."""
+
+    def __init__(self, seed: int = 1):
+        r = [seed]
+        word = seed
+        for _ in range(1, 31):
+            # word = (16807 * word) % 2147483647 by Schrage, as glibc does
+            hi, lo = divmod(word, 127773)
+            word = 16807 * lo - 2836 * hi
+            if word < 0:
+                word += 2147483647
+            r.append(word)
+        buf = [w & 0xFFFFFFFF for w in r] + [w & 0xFFFFFFFF for w in r[:3]]
+        for i in range(34, 344):
+            buf.append((buf[i - 31] + buf[i - 3]) & 0xFFFFFFFF)
+        self._state = np.asarray(buf[-31:], dtype=np.uint64)  # the last 31 words
+        self._coef = _glibc_coefficients(_GLIBC_BLOCK)
+
+    def draw(self, n: int) -> np.ndarray:
+        """The next n outputs as int64[n] (values in [0, 2^31))."""
+        out = np.empty(n, dtype=np.int64)
+        mask = np.uint64(0xFFFFFFFF)
+        with np.errstate(over="ignore"):
+            for start in range(0, n, _GLIBC_BLOCK):
+                words = (self._coef @ self._state) & mask
+                take = min(_GLIBC_BLOCK, n - start)
+                out[start : start + take] = (words[:take] >> np.uint64(1)).astype(np.int64)
+                # the stream goes on from the last 31 words actually drawn
+                self._state = np.concatenate([self._state, words[:take]])[-31:]
+        return out
+
+
+def gen_microbench_keys(n_keys: int, rhs_tuples: int, hit_freq: int) -> np.ndarray:
+    """The micro-benchmark's probe keys (simd_micro_bench.cpp:78-79):
+    rand() & (rhs_tuples * hit_freq - 1), glibc rand with its default
+    seed."""
+    return GlibcRand(1).draw(n_keys) & (rhs_tuples * hit_freq - 1)

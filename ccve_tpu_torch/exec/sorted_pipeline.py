@@ -102,9 +102,6 @@ class SortedPipeline(JoinPipeline):
         self.use_kernel = use_kernel
         self.rank_mode = rank_mode
         self._fanout = [max(t.max_mult, 1) for t in self.tables]
-        if config.strategy is CompactionStrategy.DYNAMIC:  # the device tuner's arms
-            self._arms = torch.tensor(config.resolved_threshold_arms, dtype=torch.int32,
-                                      device=self.device)
         if rank_mode == "batched":
             # levels that share one table object (configs 3 and 7 join the
             # same table at every level) share one rank pass over their keys

@@ -18,14 +18,34 @@ package's array for array. Tables default to the GPU and raise without
 one, as `build_sorted` does. A key's slot or bucket is `murmurhash64(key)
 & (size - 1)`, kernel #12 on the card.
 
+Probing comes in two forms. The bulk executor drains every key at once
+through a bounded candidate grid (`lp_expand_grid`, `csr_expand_grid`).
+The chunk-at-a-time cursor executor (`exec.pipeline.JoinPipeline`) steps a
+`ScanState` through the reference's phases (chaining_ht.cpp:38-173,
+linear_probing_ht.cpp:39-153): `lp_probe` / `csr_probe` hash the selected
+keys and drop rows whose slot or bucket is empty; `scan_next` is one Next,
+match + gather + advance fused as `InOneNext`; `scan_match`,
+`scan_gather` and `scan_advance` are those phases alone, for the
+micro-benchmark's attribution (`bench.micro`). The per-row `std::list`
+iterator is an int64 cursor, the compressstoreu a mask compaction
+(cumsum and a scatter). Torch indexing and scatters take the place of the
+JAX module's one-hot matmuls (`mxu_move.take1`, `put1`, `take_cols`,
+`put_cols`).
+
+Counts follow the caller: a scan given a host int count returns host int
+counts, reading the card once a call (both counts of a `scan_next` in one
+read), which the host-driven executor needs to steer its loop; a scan
+given a count tensor (a batch of chunks, [..., block]) returns count
+tensors and reads nothing.
+
 Not ported here: the device CSR build `build_csr_device` (the distributed
-tier, ROADMAP slice 9) and the staged scan of the chunk-at-a-time executor
-(`ScanState`, `lp_probe`, `csr_probe`, `scan_*`; slice 6).
+tier, ROADMAP slice 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -207,4 +227,241 @@ def csr_expand_grid(table: CSRTable, probe_keys: torch.Tensor) -> MatchGrid:
         match=live & (cand == probe_keys[:, None]),
         keys=cand,
         payloads=table.entry_payloads[safe],
+    )
+
+
+# ---------------------------------------------------------------------------
+# Probe: staged scan (chunk-at-a-time cursor executor)
+# ---------------------------------------------------------------------------
+
+
+class ScanState(NamedTuple):
+    """Per-row probe cursor: the reference's ScanStructure, a `std::list`
+    iterator a row (chaining_ht.h:29-42) or a slot id
+    (linear_probing_ht.h:19-31) plus its compacted `bucket_sel_vector_`.
+    Cursor and end are dense over the input rows; the live rows are
+    (sel, count). Entries of sel past count are stale: they are valid row
+    indices, but mark no live row.
+
+    LP: `cursor` is the slot id; `end` is -1 and unused (a chain ends at the
+    first empty slot). CSR: `cursor` is the entry index, `end` the bucket's
+    end offset."""
+
+    cursor: torch.Tensor  # int64[..., block] current slot / entry index
+    end: torch.Tensor  # int64[..., block] CSR end offset (LP: -1)
+    sel: torch.Tensor  # int64[..., block] live rows, compacted (JAX: int32)
+    count: int | torch.Tensor  # live rows: a host int, or int32[...]
+
+
+class NextResult(NamedTuple):
+    result_vector: torch.Tensor  # int64[..., block] matching input rows, compacted
+    result_count: int | torch.Tensor  # as ScanState.count
+    matched_keys: torch.Tensor | None  # int64[..., block] build keys, in result order
+    matched_payloads: torch.Tensor | None  # int64[..., block] build payloads, likewise
+    state: ScanState  # the advanced cursors
+
+
+@functools.lru_cache(maxsize=32)
+def _iota(n: int, device: torch.device, dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    return torch.arange(n, dtype=dtype, device=device)
+
+
+def _compress(masks: torch.Tensor, like):
+    """Stream compaction of bool[..., n] masks (the reference's
+    `_mm256_mask_compressstoreu_epi32`, chaining_ht.cpp:248): (sel, count)
+    with sel[..., j] the j-th set index for j < count and 0 above, as JAX's
+    `compress_indices`, but int64 (torch's index type: no conversion
+    before the gathers and scatters that take it). Each set lane scatters
+    its index to its inclusive rank; the others to a sink at 0, cut off.
+    The counts come in the kind of the caller's count `like`: host ints (a
+    list for a stack of masks), one read for all of them; else int32
+    tensors."""
+    n = masks.shape[-1]
+    rank = torch.cumsum(masks, -1)  # int64
+    out = torch.zeros(masks.shape[:-1] + (n + 1,), dtype=torch.int64, device=masks.device)
+    out.scatter_(-1, rank * masks, _iota(n, masks.device).expand(masks.shape))
+    count = rank[..., -1] if n else rank.new_zeros(masks.shape[:-1])
+    return out[..., 1:], (count.tolist() if _is_host(like) else count.to(torch.int32))
+
+
+def _is_host(count) -> bool:
+    return isinstance(count, int)
+
+
+def _lanes_below(count, n: int, device) -> torch.Tensor:
+    """bool[..., n]: lane i < count (a host int or a count tensor)."""
+    iota = _iota(n, device, torch.int32)
+    return iota < (count if _is_host(count) else count.unsqueeze(-1))
+
+
+def _lookup(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values[idx] for a 1-D table and int64 indices of any shape, as one
+    `index_select` (far less host time a call than advanced indexing)."""
+    return values.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+
+
+def _hash_bits(keys: torch.Tensor, size: int) -> torch.Tensor:
+    """`murmurhash64(key) & (size - 1)` of int64 keys of any shape (kernel
+    #12 on a CUDA tensor)."""
+    return (murmurhash64(keys.reshape(-1)) & (size - 1)).reshape(keys.shape)
+
+
+def _selected(keys: torch.Tensor, sel):
+    """(the selected keys in sel's order, sel as int64); sel None is the
+    identity: every row in order, with no gather."""
+    if sel is None:
+        return keys, None
+    sel64 = sel.long()
+    return keys.gather(-1, sel64), sel64
+
+
+def _to_rows(values: torch.Tensor, sel64) -> torch.Tensor:
+    """Values in sel's order scattered back to input rows (0 at the rows
+    sel does not name). A stale sel entry repeats a live row's index or
+    names a dead row, with the value that row's own key gives."""
+    if sel64 is None:
+        return values
+    return torch.zeros_like(values).scatter_(-1, sel64, values)
+
+
+def _probe_out(cursor, end, live, sel, sel64, count) -> ScanState:
+    pos, new_count = _compress(live, count)
+    # positions into sel's order, mapped back to input rows
+    return ScanState(cursor=cursor, end=end,
+                     sel=pos if sel64 is None else sel64.gather(-1, pos), count=new_count)
+
+
+def lp_probe(table: LPTable, keys: torch.Tensor, sel, count) -> ScanState:
+    """LPHashTable::Probe (linear_probing_ht.cpp:39-66): hash each selected
+    key (keys int64[..., block] through sel, or every row when sel is
+    None) to its slot and drop the rows whose first slot is empty."""
+    picked, sel64 = _selected(keys, sel)
+    slots = _hash_bits(picked, table.n_slots)
+    cursor = _to_rows(slots, sel64)
+    live = (_lanes_below(count, keys.shape[-1], keys.device)
+            & (_lookup(table.slot_keys, slots) != EMPTY))
+    return _probe_out(cursor, torch.full_like(cursor, -1), live, sel, sel64, count)
+
+
+def csr_probe(table: CSRTable, keys: torch.Tensor, sel, count) -> ScanState:
+    """HashTable::Probe (chaining_ht.cpp:38-58): hash each selected key to
+    its bucket, take the bucket's begin and end, and drop the rows whose
+    bucket is empty."""
+    picked, sel64 = _selected(keys, sel)
+    b = _hash_bits(picked, table.n_buckets)
+    begin, endv = _lookup(table.offsets, torch.stack((b, b + 1))).long()
+    live = _lanes_below(count, keys.shape[-1], keys.device) & (endv > begin)
+    return _probe_out(_to_rows(begin, sel64), _to_rows(endv, sel64), live, sel, sel64, count)
+
+
+def _scan_live_mask(state: ScanState, block: int) -> torch.Tensor:
+    """bool[..., block]: True exactly at the live input rows, scattered
+    through the first `count` entries of sel; the stale entries past count
+    go to a sink column (JAX routes them to the dropped row `block`)."""
+    sel = state.sel.long()
+    live = torch.zeros(sel.shape[:-1] + (block + 1,), dtype=torch.bool, device=sel.device)
+    at = (sel[..., : state.count] if _is_host(state.count) else
+          torch.where(_lanes_below(state.count, block, sel.device), sel, block))
+    return live.scatter_(-1, at, True)[..., :block]
+
+
+def _entry(table, cursor: torch.Tensor):
+    """(the key at each cursor, whether the cursor holds an entry, the
+    index to gather payloads at). CSR cursors are clipped to
+    max(n_entries, 1) - 1 before the gather; an empty table gathers
+    nothing."""
+    if isinstance(table, LPTable):
+        cand = _lookup(table.slot_keys, cursor)
+        return cand, cand != EMPTY, cursor
+    n_entries = table.entry_keys.shape[0]
+    if not n_entries:
+        return torch.zeros_like(cursor), torch.zeros_like(cursor, dtype=torch.bool), None
+    safe = cursor.clamp(0, n_entries - 1)
+    return _lookup(table.entry_keys, safe), None, safe
+
+
+def _payloads(table, at) -> torch.Tensor:
+    if at is None:  # an empty CSR table
+        return None
+    return _lookup(table.slot_payloads if isinstance(table, LPTable) else table.entry_payloads,
+                   at)
+
+
+def _advance(table, state: ScanState, live: torch.Tensor):
+    """AdvancePointers (chaining_ht.cpp:109-124,
+    linear_probing_ht.cpp:96-112): the next cursor, and the live rows that
+    still have an entry there. LP cursors wrap with `& (n_slots - 1)`."""
+    if isinstance(table, LPTable):
+        nxt = (state.cursor + 1) & (table.n_slots - 1)
+        return nxt, live & (_lookup(table.slot_keys, nxt) != EMPTY)
+    nxt = state.cursor + 1
+    return nxt, live & (nxt < state.end)
+
+
+def scan_match(table, keys: torch.Tensor, state: ScanState):
+    """Match phase alone, ScanInnerJoin (CycleProfiler slot 1,
+    chaining_ht.cpp:82-107, linear_probing_ht.cpp:69-82): compare each live
+    row's current entry with its key and compress the matching rows.
+    Returns (result_vector, result_count). For the micro-benchmark's
+    attribution (`bench.micro.run_phased_variant`); the executor uses
+    `scan_next`."""
+    live = _scan_live_mask(state, keys.shape[-1])
+    cand, has_entry, _ = _entry(table, state.cursor)
+    if has_entry is None:
+        has_entry = state.cursor < state.end
+    return _compress(live & has_entry & (cand == keys), state.count)
+
+
+def scan_gather(table, state: ScanState, result_vector: torch.Tensor):
+    """Gather phase alone, GatherResult (CycleProfiler slot 2,
+    chaining_ht.cpp:126-136): the build keys and payloads at the matched
+    rows' cursors."""
+    cur = state.cursor.gather(-1, result_vector.long())
+    cand, _, at = _entry(table, cur)
+    pay = _payloads(table, at)
+    return cand, (torch.zeros_like(cand) if pay is None else pay)
+
+
+def scan_advance(table, state: ScanState) -> ScanState:
+    """Advance phase alone, AdvancePointers (CycleProfiler slot 3,
+    chaining_ht.cpp:109-124): step the cursors, drop exhausted rows."""
+    live = _scan_live_mask(state, state.sel.shape[-1])
+    nxt, still = _advance(table, state, live)
+    sel, count = _compress(still, state.count)
+    return ScanState(cursor=nxt, end=state.end, sel=sel, count=count)
+
+
+def scan_next(table, keys: torch.Tensor, state: ScanState,
+              want_matches: bool = True) -> NextResult:
+    """One Next: match, gather and advance fused, as `InOneNext`
+    (chaining_ht.cpp:138-173, linear_probing_ht.cpp:117-153). Each live row
+    tests the entry at its cursor, emits at most one match and advances.
+    The two compactions (matches, survivors) run as one over a stack of
+    both masks, and with a host count read both counts at once.
+
+    As in JAX, there is no inner retry on zero matches (ScanInnerJoin's
+    `while (true)`, chaining_ht.cpp:82-107): such a step emits count 0,
+    which the executor skips; the emitted multiset is the same.
+    `want_matches=False` (count-only executors) skips the gathers of the
+    matched keys and payloads, which are then None (JAX returns zeros)."""
+    live = _scan_live_mask(state, keys.shape[-1])
+    cand, has_entry, at = _entry(table, state.cursor)
+    if has_entry is None:
+        has_entry = state.cursor < state.end
+    match = live & has_entry & (cand == keys)
+    nxt, still = _advance(table, state, live)
+    sels, counts = _compress(torch.stack((match, still)), state.count)
+    result_vector, new_sel = sels[0], sels[1]
+    matched_keys = matched_payloads = None
+    if want_matches:
+        pay = _payloads(table, at)
+        matched_keys = cand.gather(-1, result_vector)
+        matched_payloads = (torch.zeros_like(cand) if pay is None
+                            else pay.gather(-1, result_vector))
+    return NextResult(
+        result_vector=result_vector,
+        result_count=counts[0],
+        matched_keys=matched_keys,
+        matched_payloads=matched_payloads,
+        state=ScanState(cursor=nxt, end=state.end, sel=new_sel, count=counts[1]),
     )

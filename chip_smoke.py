@@ -194,6 +194,34 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     `fetch_chunk(..., device="cuda")` and `append_chunk`, chunk by chunk and
     through a selection vector, equal to the table.
 
+41. #12 against its plain version, exactly, at the cursor probe's shape:
+    2048 of config 3's keys gathered through a sparse selection vector
+    (stale zeros past its count).
+42. Config 3 on the cursor executor (`config3_four_way` with `table_kind`
+    csr, then lp: `JoinPipeline`, 1M x 4 levels, block 2048, count only,
+    streamed), NONE and FULL, each case read apart by the config's
+    `timer`: its first run counted (#12's counter zeroed just before it,
+    read just after), its count held to every timed run's and the
+    oracle's 62,667; run() seconds (the median of 3 after that run where
+    it took under 10 s, else that run itself), the steps a level, #12's
+    launches, then the host syncs a step over the first 16 chunks
+    (`torch.cuda.set_sync_debug_mode`) and the device idle share over the
+    first 4 (torch.profiler); the sorted executor's times from the same
+    call beside them.
+43. Config 2 (`config2_filtered_join`, read apart as in phase 42): FULL,
+    DYNAMIC (host tuner) and `sorted_full` against the numpy oracle over
+    the kept rows.
+44. Config 6 (`config6_mixed_selectivity`, read apart as in phase 42):
+    NONE, FULL, DYNAMIC on the host and the device tuner against the
+    oracle, the device tuner's greedy thresholds and commits.
+45. The CLI: the known-good `pipeline` command on the cursor executor over
+    CSR and LP (`[Result Rows] 2992`), `strategy-matrix` at 200K x 2
+    levels (every strategy at the oracle's count) and `microbench` at 2^20
+    keys (every variant's tuples equal to numpy's count): a check of its
+    answers, not its measurement; at this size its times are mostly
+    launches and host syncs (the measurement is `cli microbench` at its
+    default 2^24 keys).
+
 Prints the per-kernel JSON line (22 kernels: each kernel's launches on its main path,
 max |kernel - plain|, its time, its plain version's, its bound and the
 library call's), then the card line, then, only when every phase passed,
@@ -220,15 +248,20 @@ import torch  # noqa: E402
 # The port comes from the checkout this script sits in; without it the
 # script stops here, before any device work.
 from ccve_tpu_torch.bench.configs import (  # noqa: E402
+    TIME_REPS,
     check_sampled_triples,
     config1_materialize,
     config1_full_range_host,
     config1_single_join,
     config1_wide_host,
+    config2_filtered_join,
     config3_data,
     config3_four_way,
+    config6_data,
+    config6_mixed_selectivity,
     config7_data,
     config7_heterogeneous_levels,
+    median_run,
     numpy_totals,
 )
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode  # noqa: E402
@@ -265,6 +298,7 @@ from ccve_tpu_torch.kernels.drain import (  # noqa: E402
 )
 from ccve_tpu_torch.kernels.drain import grid as drain_grid  # noqa: E402
 from ccve_tpu_torch.utils.profiler import ZebraProfiler  # noqa: E402
+from ccve_tpu_torch.core.datagen import gen_microbench_keys  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
 from ccve_tpu_torch.ops.hash_table import build_csr, build_lp  # noqa: E402
 from ccve_tpu_torch.ops.hashing import murmurhash64_np  # noqa: E402
@@ -413,6 +447,210 @@ def idle_share(fn) -> tuple[float, int]:
         raise AssertionError("torch.profiler recorded no device events")
     busy, window = busy_window(events)
     return 1 - busy / window, len(events)
+
+
+SYNC_PREFIX_CHUNKS = 16  # chunks of a cursor run read under the sync debug mode
+IDLE_PREFIX_CHUNKS = 4  # chunks of a cursor run traced for the idle share
+
+
+def syncs_a_step(fn) -> tuple[int, int]:
+    """(host syncs, work-loop steps) of one run `fn()` (a run's result),
+    counted by `torch.cuda.set_sync_debug_mode`'s warnings."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return (sum("synchroniz" in str(w.message) for w in caught),
+            int(r["level_steps"].sum()))
+
+
+def cursor_timer(cells: dict):
+    """A `timer` for the config functions (`median_run`'s signature) that
+    reads each cursor case apart into `cells[name]`: its first run counted,
+    #12's counter zeroed just before it and read just after (that run is
+    also `median_run`'s warm-up, so its count is held to every timed run's
+    and, by the config, to the oracle's); the timed runs (the median of 3
+    after it where it took under 10 s, else that run itself); then, not
+    counted, the host syncs a step over the stream's first
+    SYNC_PREFIX_CHUNKS chunks (`torch.cuda.set_sync_debug_mode`) and the
+    device idle share over its first IDLE_PREFIX_CHUNKS (torch.profiler)."""
+
+    def timer(pipe, probe: np.ndarray, name: str = "", **run_kw) -> dict:
+        murmur.murmurhash64_i64.launches = 0
+        first = pipe.run(probe, **run_kw)
+        launches = murmur.murmurhash64_i64.launches
+        if not launches:
+            raise AssertionError(f"{name}: #12 was not launched")
+        r = median_run(pipe, probe, name=name, first=first, **run_kw)
+        block = pipe.block
+        syncs, steps = syncs_a_step(
+            lambda: pipe.run(probe[: SYNC_PREFIX_CHUNKS * block], **run_kw))
+        idle, n_ev = idle_share(lambda: pipe.run(probe[: IDLE_PREFIX_CHUNKS * block], **run_kw))
+        cells[name] = {"first": first, "launches": launches, "times": r["all_seconds"],
+                       "syncs": syncs, "sync_steps": steps, "idle": idle, "events": n_ev}
+        return r
+
+    return timer
+
+
+def seconds_line(times) -> str:
+    return (f"run() {med(times):.4f} s (median of {len(times)}: "
+            f"{', '.join(f'{x:.4f}' for x in times)})")
+
+
+def cursor_line(c: dict) -> str:
+    """A `cursor_timer` cell's readings: its timed runs, steps and #12
+    launches in its counted run, then its syncs and idle share."""
+    steps = c["first"]["level_steps"].tolist()
+    return (f"{seconds_line(c['times'])}; steps a level {steps} ({sum(steps)}), "
+            f"{c['first']['seconds'] / max(sum(steps), 1) * 1e3:.4f} ms a step (counted run "
+            f"{c['first']['seconds']:.4f} s); #12 launches {c['launches']}; host syncs a step "
+            f"{c['syncs'] / c['sync_steps']:.3f} ({c['syncs']} in {c['sync_steps']} steps of the "
+            f"first {SYNC_PREFIX_CHUNKS} chunks); device idle share {c['idle']:.4f} "
+            f"({c['events']} device events in {PROFILED_CALLS} runs of the first "
+            f"{IDLE_PREFIX_CHUNKS} chunks)")
+
+
+def cursor_phases(card: str, same, host3: np.ndarray, want3: int) -> int:
+    """Phases 41-44, slice 6's cursor executor (the module docstring says
+    what each reads), on config 3's host probe table and oracle count.
+    `same` holds a kernel against its plain version. Returns #12's
+    launches in the counted runs: one run of each cursor case."""
+    # ---- 41. #12 at the cursor probe's shape: 2048 keys through a sparse sel ---------
+    rng41 = np.random.default_rng(41)
+    n_sel41 = 700
+    sel41 = np.concatenate([np.sort(rng41.choice(2048, n_sel41, replace=False)),
+                            np.zeros(2048 - n_sel41, np.int64)])  # stale zeros past count
+    picked41 = torch.from_numpy(host3[:2048, 0].copy()).cuda().gather(
+        0, torch.from_numpy(sel41).cuda())
+    same("murmurhash64_i64", murmur.murmurhash64_i64(picked41),
+         murmur.murmurhash64_plain(picked41), "2048 keys through a sparse sel")
+    log(f"phase #12 at the cursor probe's shape: ok, config 3's first 2048 level-0 keys "
+        f"through a sel of {n_sel41} rows (stale zeros past count), equal to the plain version")
+
+    cursor_launches = 0
+
+    def cells_log(cells: dict, config: dict, extra=lambda entry: "") -> list[str]:
+        nonlocal cursor_launches
+        lines = []
+        for name, c in cells.items():
+            cursor_launches += c["launches"]
+            case = name.split()[-1]
+            lines.append(f"  {name}: {cursor_line(c)}{extra(config[case])}")
+        return lines
+
+    # ---- 42. config 3 on the cursor executor: CSR and LP, NONE and FULL --------------
+    t0 = time.perf_counter()
+    c42_log = []
+    for kind in ("csr", "lp"):
+        cells42: dict = {}
+        config3 = config3_four_way(table_kind=kind, device="cuda", timer=cursor_timer(cells42))
+        if config3["expected"] != want3:
+            raise AssertionError(f"config 3: expected {config3['expected']}, oracle {want3}")
+        c42_log += cells_log(cells42, config3)
+    for strategy in (CompactionStrategy.NONE, CompactionStrategy.FULL):
+        e = config3[f"sorted_{strategy.value}"]
+        c42_log.append(f"  sorted executor {strategy.value}: streamed {e['seconds']:.4f} s, "
+                       f"preloaded {e['preloaded_seconds']:.4f} s (best of {TIME_REPS})")
+    log(f"phase config 3 cursor executor: ok ({time.perf_counter() - t0:.1f} s), 1M x 4 levels "
+        f"x 50K, block 2048, count only, streamed: CSR and LP tables, NONE and FULL, count "
+        f"{want3} each (the oracle's)")
+    log(f"on [{card}], host clock around run() (synced):")
+    for line in c42_log:
+        log(line)
+
+    # ---- 43. config 2: the filtered chaining join -----------------------------------
+    t0 = time.perf_counter()
+    host2 = gen_probe_table(1_000_000, 1, 100_000)
+    keys2, pay2 = gen_rhs_table(100_000, 2)
+    kept2 = host2[host2[:, 0] % 10 == 0]
+    want2 = oracle_pipeline(kept2, [OracleBuildTable(keys2, pay2)], PayloadMode.REFERENCE).shape[0]
+    cells43: dict = {}
+    config2 = config2_filtered_join(device="cuda", timer=cursor_timer(cells43))
+    if config2["expected"] != want2:
+        raise AssertionError(f"config 2: expected {config2['expected']}, oracle {want2}")
+    e = config2["sorted_full"]
+    log(f"phase config 2: ok ({time.perf_counter() - t0:.1f} s), 1M probes behind key % 10 == 0 "
+        f"x 100K builds (chunk factor 2), block 2048: FULL, DYNAMIC (host tuner) and "
+        f"sorted_full count {want2} (the oracle's)")
+    log(f"on [{card}], host clock around run() (synced):")
+    for line in cells_log(cells43, config2):
+        log(line)
+    log(f"  sorted_full: streamed {e['seconds']:.4f} s, preloaded {e['preloaded_seconds']:.4f} s "
+        f"(best of {TIME_REPS})")
+
+    # ---- 44. config 6: phase-alternating selectivity ----------------------------------
+    t0 = time.perf_counter()
+    want6 = config6_data(2_000_000, 50_000, 2048, 128, 10)[3]
+    cells44: dict = {}
+    config6 = config6_mixed_selectivity(device="cuda", timer=cursor_timer(cells44))
+    if config6["expected"] != want6:
+        raise AssertionError(f"config 6: expected {config6['expected']}, oracle {want6}")
+
+    def tuner_line(entry: dict) -> str:
+        if "greedy_thresholds" not in entry:
+            return ""
+        return (f"; greedy thresholds {entry['greedy_thresholds']}, committed "
+                f"{entry['bandit_committed']} at round {entry['bandit_commit_round']}")
+
+    log(f"phase config 6: ok ({time.perf_counter() - t0:.1f} s), 2M x 2 levels x 50K behind key "
+        f"% 10 == 0 in phases of 128 chunks, block 2048: NONE, FULL, DYNAMIC on the host and "
+        f"the device tuner count {want6} (the oracle's); dynamic_vs_best_static "
+        f"{config6['dynamic_vs_best_static']:.4f}")
+    log(f"on [{card}], host clock around run() (synced):")
+    for line in cells_log(cells44, config6, tuner_line):
+        log(line)
+    return cursor_launches
+
+
+def cli_cursor_phase(card: str, known_good: tuple, cli_pipeline, repo_root: str) -> None:
+    """Phase 45, the cursor executor through the CLI."""
+    # ---- 45. the CLI: pipeline --executor pipeline, strategy-matrix, microbench -------
+    t0 = time.perf_counter()
+    cli45 = []
+    for table in ("csr", "lp"):
+        lines = cli_pipeline(*[a if a != "sorted" else table for a in known_good[:-2]],
+                             "--strategy", "full")
+        if " [Result Rows] 2992" not in lines or f"table: {table}, executor: pipeline" not in lines[0]:
+            raise AssertionError(f"cli pipeline --table {table} --executor pipeline:\n"
+                                 + "\n".join(lines))
+        cli45.append(f"{table}: " + "; ".join(x.strip() for x in lines
+                                              if "[Result Rows]" in x or "[Total Time]" in x))
+    env45 = dict(os.environ, PYTHONPATH=repo_root)
+    matrix_args = ("--join-num", "2", "--lhs-size", "200000", "--rhs-size", "20000")
+    proc = subprocess.run([sys.executable, "-m", "ccve_tpu_torch.cli", "strategy-matrix",
+                           *matrix_args], capture_output=True, text=True, timeout=600,
+                          cwd=repo_root, env=env45)
+    want45 = oracle_pipeline(gen_probe_table(200_000, 2, 20_000),
+                             [OracleBuildTable(*gen_rhs_table(20_000, 2))] * 2).shape[0]
+    lines = proc.stderr.splitlines()
+    if proc.returncode != 0 or lines.count(f" [Result Rows] {want45}") != 4:
+        raise AssertionError(f"cli strategy-matrix: rc {proc.returncode}\n{proc.stderr}")
+    cli45.append("strategy-matrix " + " ".join(matrix_args) + ": " + "; ".join(
+        x.strip() for x in lines if "==== strategy" in x or "[Total Time]" in x))
+    n_micro = 1 << 20
+    proc = subprocess.run([sys.executable, "-m", "ccve_tpu_torch.cli", "microbench",
+                           "--n-keys", str(n_micro)], capture_output=True, text=True,
+                          timeout=600, cwd=repo_root, env=env45)
+    micro_keys = gen_microbench_keys(n_micro, 128, 1)
+    micro_build = gen_rhs_table(128, 1)[0]
+    want_micro = int(np.searchsorted(np.sort(micro_build), micro_keys, side="right").sum()
+                     - np.searchsorted(np.sort(micro_build), micro_keys, side="left").sum())
+    lines = [x for x in proc.stderr.splitlines() if "#tuples" in x]
+    if proc.returncode != 0 or len(lines) != 6 or any(
+            x.split("#tuples")[1].split()[0] != str(want_micro) for x in lines):
+        raise AssertionError(f"cli microbench: rc {proc.returncode}, numpy {want_micro}\n"
+                             f"{proc.stderr}")
+    cli45.append(f"microbench --n-keys {n_micro} (numpy {want_micro} tuples; a check, its "
+                 f"times mostly launches and host syncs at this size):\n"
+                 + "\n".join(proc.stderr.rstrip().splitlines()))
+    log(f"phase cli cursor executor: ok ({time.perf_counter() - t0:.1f} s) on [{card}]:\n  "
+        + "\n  ".join(cli45))
 
 
 def main() -> int:
@@ -1039,8 +1277,9 @@ def main() -> int:
         f"launches {launches_d}")
 
     # ---- 11. the benchmark entry points ------------------------------------
-    # (config3_four_way also runs the sorted-chunk executor, phase 24's)
-    result = config3_four_way(device="cuda")
+    # (config3_four_way also runs the sorted-chunk executor, phase 24's; its
+    # cursor entries are phase 42's)
+    result = config3_four_way(table_kind=None, device="cuda")
     log(f"phase config3_four_way: ok {json.dumps(result)}")
     result = config1_materialize(device="cuda")
     log(f"phase config1_materialize: ok {json.dumps(result)}")
@@ -2511,6 +2750,10 @@ def main() -> int:
         f"append_chunk in {-(-host3.shape[0] // 2048)} chunks of 2048, and {n_picked} rows of "
         "one chunk through a selection vector, equal to the table")
 
+    # ---- 41-45. slice 6: the cursor executor over hash tables -----------------------
+    cursor_launches = cursor_phases(card, same, host3, want3)
+    cli_cursor_phase(card, known_good, cli_pipeline, repo_root)
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -2573,6 +2816,9 @@ def main() -> int:
     # slice 4: the hash's launches in phase 17's two bulk_count runs; the
     # compaction's on the LP drain add to its slice-2 launches
     launches["murmurhash64_i64"] = sum(lc["murmurhash64_i64"] for lc in launches_h.values())
+    # slice 6: and its launches in the counted runs of the cursor executor
+    # (phases 42-44: one a probe, a chunk's and each descend's)
+    launches["murmurhash64_i64"] += cursor_launches
     launches["compact_i32"] += launches_h["hash_lp"]["compact_i32"]
     # slice 7: #10's launches in phase 24's counted runs (one a preloaded
     # run, one a segment streamed)

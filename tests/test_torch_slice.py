@@ -135,15 +135,28 @@ def test_cli_pipeline_known_good(extra, tmp_path):
             "level0_full_compaction.csv", "level1_full_compaction.csv"]
 
 
-@pytest.mark.parametrize("args, message", [
-    (["--table", "csr", "--executor", "pipeline"], "not ported yet"),
-    (["--table", "lp", "--executor", "sorted"], "requires --table sorted"),
-])
-def test_cli_pipeline_unported_exits_2(args, message):
-    proc = _run(["-m", "ccve_tpu_torch.cli", "pipeline", "--lhs-size", "1000", "--rhs-size",
-                 "100", "--device", "cpu", *args])
-    assert proc.returncode == 2
-    assert message in proc.stderr
+@pytest.mark.parametrize("table", ["csr", "lp"])
+def test_cli_pipeline_unported_exits_2(table):
+    """The cursor executor (`--executor pipeline`, the default), which
+    exited 2 before slice 6, runs the known-good command to the oracle's
+    count over either hash table; the flag combinations no executor takes
+    still exit 2."""
+    from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
+
+    args = [a if a != "sorted" else table for a in KNOWN_GOOD]
+    proc = _run(["-m", "ccve_tpu_torch.cli", *args, "--strategy", "full"])
+    assert proc.returncode == 0, proc.stderr
+    assert f"table: {table}, executor: pipeline" in proc.stderr
+    want = oracle_pipeline(gen_probe_table(3000, 2, 256),
+                           [OracleBuildTable(*gen_rhs_table(256, 2))] * 2).shape[0]
+    assert " [Result Rows] 2992" in proc.stderr.splitlines() and want == 2992
+    for refused, message in ((["--table", "sorted", "--executor", "pipeline"], "pairs with"),
+                             (["--table", table, "--executor", "sorted"],
+                              "requires --table sorted")):
+        proc = _run(["-m", "ccve_tpu_torch.cli", "pipeline", "--lhs-size", "1000",
+                     "--rhs-size", "100", "--device", "cpu", *refused])
+        assert proc.returncode == 2 and message in proc.stderr
 
 
 def test_cli_tiny_materialize_matches_jax():
@@ -171,7 +184,7 @@ def test_cli_tiny_materialize_matches_jax():
 @pytest.mark.parametrize(
     "args, message",
     [
-        (["--config", "2"], "not ported yet"),
+        (["--config", "5"], "not ported yet"),
         (["--config", "4"], "not ported yet"),
         (["--config", "3", "--materialize"], "--config 1 only"),
     ],
@@ -210,7 +223,8 @@ def test_port_imports_no_jax():
                  "ops.compactor", "ops.filter", "kernels.drain", "exec.pipeline",
                  "exec.sorted_pipeline", "control.bandit", "control.device_bandit",
                  "utils.profiler", "kernels.chunk_probe", "device", "bench.small_probe",
-                 "bench.roofline", "kernels.ce_stages", "core.collection"):
+                 "bench.roofline", "kernels.ce_stages", "core.collection", "bench.micro",
+                 "bench.configs"):
         assert f"ccve_tpu_torch.{name}" in names.split()
 
 

@@ -196,9 +196,10 @@ def test_wide_keys(collect):
 
 
 def test_unported_parts_raise():
-    """Only the cursor executor (slice 6) still raises. DYNAMIC, the
-    occupancy histograms, the chunk rank mode and zebra_profile, which
-    raised before the tuner slice, now run to the oracle's count."""
+    """Nothing of the executors raises any more: DYNAMIC, the occupancy
+    histograms, the chunk rank mode and zebra_profile (the tuner slice)
+    and the cursor executor over hash tables (slice 6) run to the oracle's
+    count; a sorted executor still refuses hash tables."""
     cfg, probe, tables, expected, (keys, payloads) = _setup(2, 300, 64, 1,
                                                             CompactionStrategy.FULL,
                                                             collect=False)
@@ -213,8 +214,15 @@ def test_unported_parts_raise():
     assert zebra["count"] == want and zebra["zebra_segments"] >= 1
     from ccve_tpu_torch.ops.hash_table import build_csr
 
-    with pytest.raises(NotImplementedError, match="cursor"):
-        JoinPipeline([build_csr(keys, payloads, device="cpu")] * 2, cfg).run(probe)
+    # the CLI's known-good command (join 2, cf 2, lhs 3000, rhs 256, block
+    # 256, csr, full) on the cursor executor
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+
+    known_cfg = EngineConfig(block_size=256, n_joins=2, lhs_size=3000, rhs_size=256,
+                             chunk_factor=2, strategy=CompactionStrategy.FULL)
+    known = gen_rhs_table(256, 2)
+    cursor = JoinPipeline([build_csr(*known, device="cpu")] * 2, known_cfg)
+    assert cursor.run(gen_probe_table(3000, 2, 256))["count"] == 2992
     with pytest.raises(TypeError):
         SortedPipeline([build_csr(keys, payloads, device="cpu")] * 2, cfg)
 
