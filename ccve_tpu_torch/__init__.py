@@ -12,8 +12,7 @@ so that each counterpart is easy to find. This package never imports JAX
 nor `ccve_tpu` (whose `__init__` imports JAX); the host code it needs from
 there is carried as numpy code.
 
-Ported so far (ROADMAP Queue 1, slices 1 to 4, slice 5's bulk path and
-slices 7 and 7b, the sorted executor with its tuners):
+Ported so far (every slice of ROADMAP Queue 1 but slice 9):
 the count-side join (`exec.bulk.bulk_count` over one
 `ops.sort_merge.SortedTable`), per-probe stats and ranks
 (`sorted_match_stats`, `sorted_match_ranks`), N-level `bulk_count`, and
@@ -26,5 +25,12 @@ chunk compaction over sorted tables (`core.chunk`, `ops.compactor`,
 `ops.filter`, `exec.pipeline`, `exec.sorted_pipeline.SortedPipeline`, the
 fused drain `kernels.drain`), with DYNAMIC compaction on the host and
 device bandits (`control`), the Zebra occupancy histograms and profilers
-(`utils.profiler`) and the per-chunk rank mode (`kernels.chunk_probe`).
+(`utils.profiler`) and the per-chunk rank mode (`kernels.chunk_probe`);
+the cursor executor over hash tables (`exec.pipeline.JoinPipeline`); and
+slice 8, config 4's group-by and sort: `ops.aggregate` (hash, dense and
+join-pushed aggregates, the partition histogram), `ops.sort` (the LSD
+radix sort), the Zipf key generator, the hash partition
+(`parallel.distributed._owner`) and the device CSR build
+(`ops.hash_table.build_csr_device`). The distributed tier (slice 9) is
+all that is left.
 """

@@ -28,10 +28,11 @@
    BITS` counting over int64 keys spread over 2^BITS), config 2 (the
    filtered chaining join on the cursor and sorted-chunk executors),
    config 3 (the bulk engine, the cursor executor over CSR and the
-   sorted-chunk executor), config 6 (phase-alternating selectivity on the
-   cursor executor and both tuners) and config 7 (the sorted-chunk
-   executor's static compaction policies and its device tuner). Configs 4
-   and 5 exit non-zero with "not ported yet".
+   sorted-chunk executor), config 4 (the Zipf join's pushed-down GROUP BY
+   and ORDER BY, and its partition skew), config 6 (phase-alternating
+   selectivity on the cursor executor and both tuners) and config 7 (the
+   sorted-chunk executor's static compaction policies and its device
+   tuner). Config 5 exits non-zero with "not ported yet".
  - `roofline` prints the per-operator roofline of the count-side join on
    the H100 (`bench/roofline.py`) at `--n-build` x `--n-probe`; with
    `--measured-ms` also the percent of the model's speed-of-light, and with
@@ -57,6 +58,7 @@ TINY_KWARGS = {
     1: dict(n_build=4096, n_probe=65536),
     2: dict(lhs=5000, rhs=512, block=256),
     3: dict(lhs=4000, rhs=256, block=256),
+    4: dict(n_probe=50_000, domain=1024),
     6: dict(lhs=65536, rhs=2048, block=256, phase_chunks=32, segment_chunks=4),
     7: dict(lhs=16384, rhs=512, block=256, segment_chunks=4),
 }
@@ -67,7 +69,7 @@ def cmd_baseline(args) -> int:
     from ccve_tpu_torch.bench.configs import ALL_CONFIGS, config1_materialize, config1_wide
 
     if args.config not in ALL_CONFIGS:
-        print(f"baseline --config {args.config}: not ported yet", file=sys.stderr)
+        print(f"baseline --config {args.config}: not ported yet (slice 9)", file=sys.stderr)
         return 2
     kwargs = dict(TINY_KWARGS[args.config]) if args.tiny else {}
     if args.engine is not None or args.materialize or args.wide_span is not None:

@@ -5,6 +5,9 @@
  - Build (RHS) table: `ceil(n_rhs / chunk_factor)` distinct keys
    `i * (n_rhs // num_unique)`, each repeated `chunk_factor` times, with
    payload = row index + 10_000_000.
+ - Zipf keys (config 4): `np.random.default_rng(seed)`'s draws in the JAX
+   package's order, `random(n)` then `permutation(domain)`.
+ - The micro-benchmark's keys: glibc `rand()`.
 
 NumPy only: the JAX package's ctypes generator is not carried over (the
 NumPy MT19937 draws the 16M-row config-1 probe table in a few seconds),
@@ -116,6 +119,21 @@ def gen_rhs_table(n_rhs: int, chunk_factor: int) -> tuple[np.ndarray, np.ndarray
     keys = (np.arange(n_rhs, dtype=np.int64) // chunk_factor) * stride
     payloads = np.arange(n_rhs, dtype=np.int64) + 10_000_000
     return keys, payloads
+
+
+def gen_zipf_keys(n: int, domain: int, alpha: float = 1.1, seed: int = 7) -> np.ndarray:
+    """Zipf-skewed int64[n] keys in [0, domain): config 4's heavy hitters.
+    A rank r is drawn with probability proportional to 1 / r^alpha by
+    inverse-CDF sampling of `default_rng(seed).random(n)`, then the ranks
+    go through one `permutation(domain)` of the same generator, so that
+    hot keys do not cluster in key space."""
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(np.arange(1, domain + 1, dtype=np.float64) ** -alpha)
+    cdf /= cdf[-1]
+    u = rng.random(n)
+    r = np.searchsorted(cdf, u)  # 0-based rank
+    perm = rng.permutation(domain)
+    return perm[r].astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -38,8 +38,10 @@ read), which the host-driven executor needs to steer its loop; a scan
 given a count tensor (a batch of chunks, [..., block]) returns count
 tensors and reads nothing.
 
-Not ported here: the device CSR build `build_csr_device` (the distributed
-tier, ROADMAP slice 9).
+`build_csr_device` builds a CSR table from key and payload tensors on
+their device (hash, stable sort by bucket, bucket sizes, offsets), equal to
+`build_csr` entry for entry; the distributed tier (ROADMAP slice 9) builds
+its per-part tables with it.
 """
 
 from __future__ import annotations
@@ -175,6 +177,33 @@ def build_csr(keys, payloads=None, device="cuda") -> CSRTable:
         entry_keys=torch.from_numpy(keys[order]).to(device),
         entry_payloads=torch.from_numpy(payloads[order]).to(device),
         max_len=int(counts.max(initial=0)),
+    )
+
+
+def build_csr_device(keys: torch.Tensor, payloads: torch.Tensor, n_buckets: int,
+                     max_len: int) -> CSRTable:
+    """A CSR table built on the keys' device: murmur64 (kernel #12 on the
+    card) masked to `n_buckets` (a power of two), a stable sort by bucket,
+    the bucket sizes (an `index_add_`) and their cumsum as offsets.
+    Insertion order holds within a bucket, as in `build_csr`. `max_len` is
+    the caller's bound on the longest bucket (nothing is read back to find
+    it)."""
+    if n_buckets & (n_buckets - 1) or n_buckets < 1:
+        raise ValueError(f"n_buckets must be a power of two, got {n_buckets}")
+    if keys.dim() != 1 or payloads.shape != keys.shape:
+        raise ValueError(f"keys and payloads must be 1-D of one length, got "
+                         f"{tuple(keys.shape)} and {tuple(payloads.shape)}")
+    keys = keys.to(torch.int64)
+    bucket = murmurhash64(keys) & (n_buckets - 1)
+    order = torch.sort(bucket, stable=True).indices
+    counts = bucket.new_zeros(n_buckets).index_add_(0, bucket, torch.ones_like(bucket))
+    offsets = torch.zeros(n_buckets + 1, dtype=torch.int32, device=keys.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return CSRTable(
+        offsets=offsets,
+        entry_keys=keys[order],
+        entry_payloads=payloads.to(torch.int64)[order],
+        max_len=int(max_len),
     )
 
 

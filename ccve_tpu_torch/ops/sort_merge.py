@@ -69,7 +69,9 @@ class SortedTable:
     branches, `max_mult` is the largest key multiplicity, `span62` says the
     key span is below 2^62, and `span_bits` is the bit width of the tagged
     packed key. `pay62`, the port's own, says every payload lies in
-    [-2^62, 2^62), where the full-range totals' tag `pay * 2 + 1` holds it."""
+    [-2^62, 2^62), where the full-range totals' tag `pay * 2 + 1` holds it.
+    `key_range`, also the port's own, is (smallest, largest key) as host
+    ints, None for an empty table."""
 
     keys: torch.Tensor  # int64[m], ascending
     payloads: torch.Tensor  # int64[m], aligned with keys
@@ -81,6 +83,7 @@ class SortedTable:
     wide_ok: bool = False
     span_bits: int | None = None
     pay62: bool = True
+    key_range: tuple | None = None
 
     @property
     def device(self) -> torch.device:
@@ -146,7 +149,12 @@ def build_sorted(keys, payloads=None, device="cuda") -> SortedTable:
         ),
         span_bits=span.bit_length() + 1 if span is not None else None,
         pay62=_pay62(payloads),
+        key_range=_key_range(keys),
     )
+
+
+def _key_range(keys: np.ndarray) -> tuple | None:
+    return (int(keys.min()), int(keys.max())) if keys.size else None
 
 
 def _pay62(payloads: np.ndarray) -> bool:
@@ -159,7 +167,7 @@ def table_from_arrays(arrays: dict, meta: dict, device) -> SortedTable:
     static fields (META_FIELDS). This is how a `ccve_tpu` table crosses
     over: `{"keys": np.asarray(t.keys), "payloads": np.asarray(t.payloads)}`
     and `{f: getattr(t, f) for f in META_FIELDS}`. `pay62` is computed
-    from the payloads."""
+    from the payloads and `key_range` from the keys."""
     if set(arrays) != {"keys", "payloads"}:
         raise ValueError(f"arrays needs keys and payloads, got {sorted(arrays)}")
     if set(meta) != set(META_FIELDS):
@@ -169,7 +177,8 @@ def table_from_arrays(arrays: dict, meta: dict, device) -> SortedTable:
         for name, arr in arrays.items()
     }
     return SortedTable(**cols, **meta,
-                       pay62=_pay62(np.asarray(arrays["payloads"], dtype=np.int64)))
+                       pay62=_pay62(np.asarray(arrays["payloads"], dtype=np.int64)),
+                       key_range=_key_range(np.asarray(arrays["keys"], dtype=np.int64)))
 
 
 I64_MIN = -(2**63)
@@ -538,6 +547,7 @@ def rank_table(table: SortedTable) -> SortedTable:
         span62=table.span62,
         wide_ok=table.span62 and m < 2**31,
         span_bits=table.span_bits,
+        key_range=table.key_range,
     )
 
 

@@ -221,8 +221,35 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     answers, not its measurement; at this size its times are mostly
     launches and host syncs (the measurement is `cli microbench` at its
     default 2^24 keys).
+46. Config 4 at full size (`config4_zipf_pipeline`: 4M Zipf keys, alpha
+    1.1, against the unique keys 0 .. 99,999): matches 4,000,000, n_groups
+    94,963, the ORDER BY's last (sum, key) (5,450,084,928,405, 93,591), the
+    16-way histogram and partition_skew_16 3.378732, each also asserted
+    against numpy inside the config; then one counted query and histogram
+    (#1, #2, #3 and #12's counters and the partitions' zeroed just before,
+    every one launched, a partition a merge level), its answer equal to the
+    CPU path's on the same inputs; the same kernels at the run's shapes
+    (#1 on the packed probes, #2 at each level and as `sort_runs`, #3
+    against the 100K builds, #12 on the 4M keys) held exactly against their
+    plain versions, into the kernels line's max |kernel - plain|; the
+    histogram making no host sync; `run()`, its join aggregate, its
+    `sorted_build_counts`, its ORDER BY and the histogram timed, and the
+    device idle share of `run()`.
+47. The aggregates on the card at the 4M Zipf keys with random values:
+    `hash_aggregate` and `dense_aggregate` equal numpy's count, sum, min and
+    max of every group, with the padding past n_groups; the card's
+    `join_dense_aggregate` equal to the CPU path's field by field; times.
+48. The LSD radix sort (`radix_sort_pairs`) at config 4's 100,000 (sum,
+    key) pairs (bits 64) and at the 4M Zipf keys with row ids (bits 17),
+    equal to a stable `torch.sort`; both timed.
+49. `build_csr_device` on config 3's and config 2's build tables, equal to
+    `build_csr` entry for entry, with no host sync; timed beside the host
+    build.
+50. `python -m ccve_tpu_torch.cli baseline --config 4` in a process of its
+    own: rc 0, matches and n_groups as in phase 46.
 
-Prints the per-kernel JSON line (22 kernels: each kernel's launches on its main path,
+Prints the per-kernel JSON line (22 kernels: each kernel's launches on its main paths,
+#1-#3 and #12 with config 4's counted run among them,
 max |kernel - plain|, its time, its plain version's, its bound and the
 library call's), then the card line, then, only when every phase passed,
 the last line `{"ok": true, "device": {...}}`. Any failure raises and
@@ -250,6 +277,9 @@ import torch  # noqa: E402
 from ccve_tpu_torch.bench.configs import (  # noqa: E402
     TIME_REPS,
     check_sampled_triples,
+    config4_data,
+    config4_run,
+    config4_zipf_pipeline,
     config1_materialize,
     config1_full_range_host,
     config1_single_join,
@@ -299,9 +329,12 @@ from ccve_tpu_torch.kernels.drain import (  # noqa: E402
 from ccve_tpu_torch.kernels.drain import grid as drain_grid  # noqa: E402
 from ccve_tpu_torch.utils.profiler import ZebraProfiler  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_microbench_keys  # noqa: E402
+from ccve_tpu_torch.ops import aggregate  # noqa: E402
+from ccve_tpu_torch.ops import sort as radix  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
-from ccve_tpu_torch.ops.hash_table import build_csr, build_lp  # noqa: E402
+from ccve_tpu_torch.ops.hash_table import build_csr, build_csr_device, build_lp  # noqa: E402
 from ccve_tpu_torch.ops.hashing import murmurhash64_np  # noqa: E402
+from ccve_tpu_torch.parallel.distributed import _owner  # noqa: E402
 
 N_BUILD = 1_000_000
 N_PROBE = 16_000_000
@@ -453,9 +486,9 @@ SYNC_PREFIX_CHUNKS = 16  # chunks of a cursor run read under the sync debug mode
 IDLE_PREFIX_CHUNKS = 4  # chunks of a cursor run traced for the idle share
 
 
-def syncs_a_step(fn) -> tuple[int, int]:
-    """(host syncs, work-loop steps) of one run `fn()` (a run's result),
-    counted by `torch.cuda.set_sync_debug_mode`'s warnings."""
+def host_syncs(fn):
+    """(host syncs, result) of one call `fn()`, counted by
+    `torch.cuda.set_sync_debug_mode`'s warnings."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -465,8 +498,14 @@ def syncs_a_step(fn) -> tuple[int, int]:
             r = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return (sum("synchroniz" in str(w.message) for w in caught),
-            int(r["level_steps"].sum()))
+    # the mode's one-time "prototype feature" notice is no sync
+    return sum("called a synchronizing" in str(w.message) for w in caught), r
+
+
+def syncs_a_step(fn) -> tuple[int, int]:
+    """(host syncs, work-loop steps) of one run `fn()` (a run's result)."""
+    syncs, r = host_syncs(fn)
+    return syncs, int(r["level_steps"].sum())
 
 
 def cursor_timer(cells: dict):
@@ -651,6 +690,240 @@ def cli_cursor_phase(card: str, known_good: tuple, cli_pipeline, repo_root: str)
                  + "\n".join(proc.stderr.rstrip().splitlines()))
     log(f"phase cli cursor executor: ok ({time.perf_counter() - t0:.1f} s) on [{card}]:\n  "
         + "\n  ".join(cli45))
+
+
+# config 4 at its full size (BASELINE.json configs[3]) and the answers
+# numpy gives for the JAX package's generators there
+CONFIG4 = dict(n_probe=4_000_000, domain=100_000, alpha=1.1)
+CONFIG4_WANT = {
+    "matches": 4_000_000,
+    "n_groups": 94_963,
+    "top_group": [5_450_084_928_405, 93_591],
+    "partition_hist_16": [240025, 128817, 186030, 190337, 130254, 165008, 844683, 160400,
+                          164349, 251715, 196425, 430685, 201314, 174876, 151089, 383993],
+}
+CONFIG4_SKEW = 3.378732  # partition_skew_16, to 6 decimals
+# the kernels config 4's query and histogram launch: the count side (#1-#3)
+# through `sorted_build_counts` and #12 through `partition_histogram`
+CONFIG4_WRAPPERS = {
+    "sort_tiles_i32": (bigsort.sort_tiles_i32,),
+    "merge_level_i32": (bigsort.merge_level_i32,),
+    "merge_counts_i32": (merge_scan.merge_counts_i32,),
+    "murmurhash64_i64": (murmur.murmurhash64_i64,),
+}
+
+
+def groups_numpy(keys: np.ndarray, vals: np.ndarray):
+    """(group keys, count, sum, min, max) of a group-by in numpy."""
+    order = np.argsort(keys, kind="stable")
+    sk, sv = keys[order], vals[order]
+    uniq, starts = np.unique(sk, return_index=True)
+    counts = np.diff(np.append(starts, sk.size))
+    return (uniq, counts, np.add.reduceat(sv, starts), np.minimum.reduceat(sv, starts),
+            np.maximum.reduceat(sv, starts))
+
+
+def config4_phases(card: str, repo_root: str, same) -> dict:
+    """Phases 46-50, slice 8 (the module docstring says what each reads).
+    Returns the launches of #1, #2, #3 and #12 in config 4's counted run
+    (one query and one histogram). `same` holds a kernel's output against
+    its plain version's and records the error on the kernels line."""
+    cuda = torch.device("cuda")
+    domain = CONFIG4["domain"]
+
+    # ---- 46. config 4 at full size ------------------------------------------------------
+    t0 = time.perf_counter()
+    c4 = config4_zipf_pipeline(device="cuda", **CONFIG4)
+    got = {key: c4[key] for key in CONFIG4_WANT}
+    if got != CONFIG4_WANT or round(c4["partition_skew_16"], 6) != CONFIG4_SKEW:
+        raise AssertionError(f"config 4: {got}, skew {c4['partition_skew_16']}; "
+                             f"want {CONFIG4_WANT}, {CONFIG4_SKEW}")
+    table4, probe4, host4 = config4_data(device=cuda, **CONFIG4)
+    torch.cuda.synchronize()
+    zero_counters(CONFIG4_WRAPPERS)
+    zero_counters(PARTITION)
+    out4 = config4_run(table4, probe4, domain)
+    hist4 = aggregate.partition_histogram(probe4, 16)
+    torch.cuda.synchronize()
+    launches4 = read_counters(CONFIG4_WRAPPERS)
+    parts4 = check_partitions(launches4["merge_level_i32"], "config 4 run()")
+    idle4 = [name for name, k in launches4.items() if k == 0]
+    if idle4:
+        raise AssertionError(f"kernels not launched by config 4's run and histogram: {idle4}")
+    got4 = [int(x) for x in out4]
+    want4 = [CONFIG4_WANT["matches"], CONFIG4_WANT["n_groups"], *CONFIG4_WANT["top_group"]]
+    if got4 != want4 or hist4.tolist() != CONFIG4_WANT["partition_hist_16"]:
+        raise AssertionError(f"config 4's counted run: {got4}, {hist4.tolist()}")
+    # the counted run's kernels at its shapes, each against its plain version
+    p4, b4 = sm.pack32_streams(table4, probe4)
+    n4, m4 = p4.numel(), b4.numel()
+    n_pad4, run_log4 = sm.count_side_plan(n4, m4, bigsort.TILE_LOG)
+    padded4 = torch.cat([p4, p4.new_full((n_pad4 - n4,), I32_MAX)])
+    runs4 = bigsort.sort_tiles_i32(padded4, bigsort.TILE_LOG)
+    same("sort_tiles_i32", runs4, bigsort.sort_tiles_plain(padded4, bigsort.TILE_LOG),
+         "config 4")
+    levels4 = range(bigsort.TILE_LOG, bigsort.TILE_LOG + launches4["merge_level_i32"])
+    for lv in levels4:
+        out = bigsort.merge_level_i32(runs4, lv)
+        same("merge_level_i32", out, bigsort.merge_level_plain(runs4, lv),
+             f"config 4 run_log={lv}")
+        runs4 = out
+    same("merge_level_i32", bigsort.sort_runs(padded4, run_log4),
+         bigsort.sort_runs_plain(padded4, run_log4), "config 4 sort_runs")
+    bc4 = merge_scan.merge_counts_i32(runs4, 1 << run_log4, n4, b4, m4)
+    same("merge_counts_i32", bc4,
+         merge_scan.merge_counts_plain(runs4, 1 << run_log4, n4, b4, m4), "config 4")
+    same("murmurhash64_i64", murmur.murmurhash64_i64(probe4), murmur.murmurhash64_plain(probe4),
+         "config 4's probe keys")
+    if int(bc4.sum()) != CONFIG4_WANT["matches"]:
+        raise AssertionError(f"config 4's counts at its shapes sum to {int(bc4.sum())}")
+    hist_syncs, _ = host_syncs(lambda: aggregate.partition_histogram(probe4, 16))
+    if hist_syncs:
+        raise AssertionError(f"partition_histogram read back from the card {hist_syncs} times")
+    log(f"phase config 4 kernels at its shapes: ok, equal to their plain versions: "
+        f"sort_tiles_i32 on {n_pad4} packed probes, merge_level_i32 at run_log "
+        f"{list(levels4)} and sort_runs to runs of 2^{run_log4}, merge_counts_i32 against "
+        f"{m4} builds, murmurhash64_i64 on {probe4.numel()} keys; partition_histogram "
+        f"reads nothing back")
+    run_ms = cuda_ms(lambda: config4_run(table4, probe4, domain))
+    agg_ms = cuda_ms(lambda: aggregate.join_dense_aggregate(table4, probe4, domain))
+    bc_ms = cuda_ms(lambda: sm.sorted_build_counts(table4, probe4))
+    agg4, _ = aggregate.join_dense_aggregate(table4, probe4, domain)
+    order_ms = cuda_ms(lambda: radix.xla_sort_pairs(agg4.sum, agg4.keys))
+    hist_ms = cuda_ms(lambda: aggregate.partition_histogram(probe4, 16))
+    owner4 = _owner(probe4, 16)
+    bincount_ms = cuda_ms(lambda: torch.bincount(owner4, minlength=16))  # reads back
+    idle_run4, ev4 = idle_share(lambda: config4_run(table4, probe4, domain))
+    table4_cpu = sm.build_sorted(*gen_rhs_table(domain, 1), device="cpu")
+    probe4_cpu = torch.from_numpy(host4)
+    t_plain = time.perf_counter()
+    plain4 = [int(x) for x in config4_run(table4_cpu, probe4_cpu, domain)]
+    plain4_s = time.perf_counter() - t_plain
+    if plain4 != want4:
+        raise AssertionError(f"config 4 on the CPU path: {plain4}")
+    log(f"phase config 4: ok ({time.perf_counter() - t0:.1f} s), {json.dumps(c4)}")
+    log(f"  config4_zipf_pipeline on [{card}]: seconds {c4['seconds']!r} (CUDA events, best of "
+        f"{TIME_REPS} after a warm-up), rows_per_s {c4['rows_per_s']!r}; counted run (one "
+        f"query, one histogram): launches {launches4}, partitions {parts4}; matches, n_groups "
+        f"and the ORDER BY's last (sum, key) {got4}, the histogram and the CPU path's answer "
+        f"{plain4} ({plain4_s:.3f} s on the host) equal numpy's")
+    log(f"  CUDA events, median (min, max) of {REPS}: run() {med(run_ms):.4f} ms "
+        f"({min(run_ms):.4f}, {max(run_ms):.4f}); join_dense_aggregate {med(agg_ms):.4f}, "
+        f"of it sorted_build_counts {med(bc_ms):.4f}; ORDER BY (xla_sort_pairs of "
+        f"{domain} pairs) {med(order_ms):.4f}; partition_histogram(16) {med(hist_ms):.4f} "
+        f"(a bincount of its owners alone, with its read-back, {med(bincount_ms):.4f}); "
+        f"device idle share of run() {idle_run4:.4f} ({ev4} device events in "
+        f"{PROFILED_CALLS} calls)")
+
+    # ---- 47. the aggregates on the card at 4M Zipf keys ------------------------------
+    t0 = time.perf_counter()
+    vals47 = np.random.default_rng(47).integers(-(2**40), 2**40, host4.size, dtype=np.int64)
+    vals47_d = torch.from_numpy(vals47).to(cuda)
+    gk, gc, gs, gmn, gmx = groups_numpy(host4, vals47)
+    ng = gk.size
+    if ng != CONFIG4_WANT["n_groups"]:
+        raise AssertionError(f"numpy's groups {ng}")
+    pad = host4.size - ng
+    want_h = (np.concatenate([gk, np.zeros(pad, np.int64)]),
+              np.concatenate([gc, np.zeros(pad, np.int64)]),
+              np.concatenate([gs, np.zeros(pad, np.int64)]),
+              np.concatenate([gmn, np.full(pad, I64_MAX, np.int64)]),
+              np.concatenate([gmx, np.full(pad, -I64_MAX - 1, np.int64)]))
+    dense = [np.zeros(domain, np.int64), np.zeros(domain, np.int64),
+             np.full(domain, I64_MAX, np.int64), np.full(domain, -I64_MAX - 1, np.int64)]
+    for col, v in zip(dense, (gc, gs, gmn, gmx)):
+        col[gk] = v
+    want_d = (np.arange(domain, dtype=np.int64), *dense)
+    fields = ("keys", "count", "sum", "min", "max")
+    for name, res, want in (
+            ("hash_aggregate", aggregate.hash_aggregate(probe4, vals47_d), want_h),
+            ("dense_aggregate", aggregate.dense_aggregate(probe4, vals47_d, domain), want_d)):
+        for field, w in zip(fields, want):
+            if not np.array_equal(getattr(res, field).cpu().numpy(), w):
+                raise AssertionError(f"{name}.{field} differs from numpy's")
+        if int(res.n_groups) != ng:
+            raise AssertionError(f"{name}.n_groups {int(res.n_groups)}, numpy {ng}")
+    jd, jd_total = aggregate.join_dense_aggregate(table4, probe4, domain)
+    jp, jp_total = aggregate.join_dense_aggregate(table4_cpu, probe4_cpu, domain)
+    for field in (*fields, "n_groups"):
+        if not torch.equal(getattr(jd, field).cpu(), getattr(jp, field)):
+            raise AssertionError(f"join_dense_aggregate.{field}: the card's differs from "
+                                 "the CPU path's")
+    if int(jd_total) != int(jp_total):
+        raise AssertionError(f"join_dense_aggregate: matches {int(jd_total)}, CPU {int(jp_total)}")
+    hash_ms = cuda_ms(lambda: aggregate.hash_aggregate(probe4, vals47_d))
+    dense_ms = cuda_ms(lambda: aggregate.dense_aggregate(probe4, vals47_d, domain))
+    log(f"phase aggregates at 4M Zipf keys: ok ({time.perf_counter() - t0:.1f} s), "
+        f"hash_aggregate and dense_aggregate equal numpy's count, sum, min and max of each of "
+        f"{ng} groups, with the padding; join_dense_aggregate equal to the CPU path field by "
+        f"field")
+    log(f"  on [{card}], CUDA events, median (min, max) of {REPS}: hash_aggregate "
+        f"{med(hash_ms):.4f} ms ({min(hash_ms):.4f}, {max(hash_ms):.4f}), dense_aggregate "
+        f"{med(dense_ms):.4f} ({min(dense_ms):.4f}, {max(dense_ms):.4f}), "
+        f"join_dense_aggregate {med(agg_ms):.4f} (phase 46)")
+
+    # ---- 48. the LSD radix sort on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    radix_log = []
+    for what, keys48, vals48, bits in (
+            (f"config 4's {domain} (sum, key) pairs", agg4.sum, agg4.keys, 64),
+            (f"{host4.size} Zipf keys with their row ids", probe4,
+             torch.arange(host4.size, device=cuda), 17)):
+        got48 = radix.radix_sort_pairs(keys48, vals48, bits=bits)
+        want48 = radix.xla_sort_pairs(keys48, vals48)
+        if not all(torch.equal(g, w) for g, w in zip(got48, want48)):
+            raise AssertionError(f"radix_sort_pairs on {what} differs from a stable torch.sort")
+        r_ms = cuda_ms(lambda: radix.radix_sort_pairs(keys48, vals48, bits=bits))
+        t_ms = cuda_ms(lambda: radix.xla_sort_pairs(keys48, vals48))
+        radix_log.append(f"  {what}, bits {bits}: radix_sort_pairs {med(r_ms):.4f} ms "
+                         f"({min(r_ms):.4f}, {max(r_ms):.4f}), stable torch.sort and a gather "
+                         f"{med(t_ms):.4f} ({min(t_ms):.4f}, {max(t_ms):.4f})")
+    log(f"phase radix_sort_pairs: ok ({time.perf_counter() - t0:.1f} s), equal to a stable "
+        f"torch.sort on both inputs; on [{card}], CUDA events, median (min, max) of {REPS}:")
+    for line in radix_log:
+        log(line)
+
+    # ---- 49. build_csr_device on the card -------------------------------------------------
+    t0 = time.perf_counter()
+    csr_log = []
+    for what, (keys49, pays49) in (("config 3's build table (50K unique keys)",
+                                    gen_rhs_table(50_000, 1)),
+                                   ("config 2's (100K rows, 2 a key)", gen_rhs_table(100_000, 2))):
+        t_host = time.perf_counter()
+        host49 = build_csr(keys49, pays49, device="cuda")
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t_host
+        k49, p49 = torch.from_numpy(keys49).to(cuda), torch.from_numpy(pays49).to(cuda)
+        syncs49, dev49 = host_syncs(
+            lambda: build_csr_device(k49, p49, host49.n_buckets, host49.max_len))
+        if syncs49:
+            raise AssertionError(f"build_csr_device on {what} read back {syncs49} times")
+        for field in ("offsets", "entry_keys", "entry_payloads"):
+            if not torch.equal(getattr(dev49, field), getattr(host49, field)):
+                raise AssertionError(f"build_csr_device.{field} on {what} differs from build_csr")
+        c_ms = cuda_ms(lambda: build_csr_device(k49, p49, host49.n_buckets, host49.max_len))
+        csr_log.append(f"  {what}: build_csr_device {med(c_ms):.4f} ms ({min(c_ms):.4f}, "
+                       f"{max(c_ms):.4f}); build_csr on the host and its upload "
+                       f"{host_s * 1e3:.1f} ms (host clock, one call)")
+    log(f"phase build_csr_device: ok ({time.perf_counter() - t0:.1f} s), equal to build_csr "
+        f"entry for entry, nothing read back; on [{card}], CUDA events, median (min, max) "
+        f"of {REPS}:")
+    for line in csr_log:
+        log(line)
+
+    # ---- 50. the CLI: baseline --config 4 -------------------------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ccve_tpu_torch.cli", "baseline", "--config",
+                           "4"], capture_output=True, text=True, timeout=600, cwd=repo_root,
+                          env=dict(os.environ, PYTHONPATH=repo_root))
+    if proc.returncode != 0:
+        raise AssertionError(f"cli baseline --config 4: rc {proc.returncode}\n{proc.stderr}")
+    cli4 = json.loads(proc.stdout.strip().splitlines()[-1])
+    if (cli4["matches"], cli4["n_groups"]) != (c4["matches"], c4["n_groups"]):
+        raise AssertionError(f"cli baseline --config 4: {cli4}")
+    log(f"phase cli baseline --config 4: ok ({time.perf_counter() - t0:.1f} s), "
+        f"{json.dumps(cli4)}")
+    return launches4
 
 
 def main() -> int:
@@ -2754,6 +3027,9 @@ def main() -> int:
     cursor_launches = cursor_phases(card, same, host3, want3)
     cli_cursor_phase(card, known_good, cli_pipeline, repo_root)
 
+    # ---- 46-50. slice 8: config 4, the aggregates, the radix sort, the CSR build ---
+    launches4 = config4_phases(card, repo_root, same)
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -2831,6 +3107,10 @@ def main() -> int:
     # #4 in phase 37's counted small-probe calls, #16 (on no path) in phase
     # 38's counted call of the packed totals
     launches.update(launches_3b)
+    # slice 8: config 4's counted query and histogram (phase 46) launch the
+    # count side (#1-#3) and #12
+    for name, k in launches4.items():
+        launches[name] += k
     entries = []
     for name in sources:
         bound_ms, bound_by = bound(*work[name])

@@ -124,6 +124,7 @@ def test_build_sorted_static_fields_match_jax(keys, payloads):
     np.testing.assert_array_equal(got.payloads.numpy(), np.asarray(want.payloads))
     crossed = _crossed(want)
     assert all(getattr(crossed, f) == getattr(got, f) for f in sm.META_FIELDS)
+    assert got.key_range == crossed.key_range == (int(np.min(keys)), int(np.max(keys)))
 
 
 def test_unported_branches_raise():
