@@ -12,7 +12,7 @@ so that each counterpart is easy to find. This package never imports JAX
 nor `ccve_tpu` (whose `__init__` imports JAX); the host code it needs from
 there is carried as numpy code.
 
-Ported so far (every slice of ROADMAP Queue 1 but slice 9):
+Ported (every slice of ROADMAP Queue 1):
 the count-side join (`exec.bulk.bulk_count` over one
 `ops.sort_merge.SortedTable`), per-probe stats and ranks
 (`sorted_match_stats`, `sorted_match_ranks`), N-level `bulk_count`, and
@@ -31,6 +31,8 @@ slice 8, config 4's group-by and sort: `ops.aggregate` (hash, dense and
 join-pushed aggregates, the partition histogram), `ops.sort` (the LSD
 radix sort), the Zipf key generator, the hash partition
 (`parallel.distributed._owner`) and the device CSR build
-(`ops.hash_table.build_csr_device`). The distributed tier (slice 9) is
-all that is left.
+(`ops.hash_table.build_csr_device`); and slice 9, the distributed tier
+(`parallel`: the flat, ring, hierarchical, broadcast and PRPD joins, the
+materializing joins and the aggregate on `torch.distributed`, the
+bootstrap, the cost model `bench.dist_model`, config 5 and `cli dist`).
 """

@@ -24,7 +24,10 @@ executors on host probe tables):
  - config 7, per-level heterogeneous compaction on the sorted-chunk
    executor (`config7_heterogeneous_levels`), its three static policies.
 
-Config 5 waits on its slice (ROADMAP Queue 1, slice 9).
+Config 5, the distributed join (`config5_distributed`): the one-device
+`bulk_count`, the flat shuffle and the broadcast join over every rank of
+the process group, or over one rank when there is none, with the cost
+model's predictions (`bench.dist_model`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ccve_tpu_torch.device import require_device
 
@@ -782,6 +786,96 @@ def config4_zipf_pipeline(n_probe: int = 4_000_000, domain: int = 100_000,
     }
 
 
+def config5_distributed(n_build: int = 100_000, n_probe: int = 1_000_000,
+                        n_devices: int | None = None, device="cuda") -> dict:
+    """Config 5: the distributed join of 1M probe rows against 100K build
+    rows over the process group's ranks (`n_devices`, default all of them;
+    one rank, on a group of its own, when there is none). Times, as
+    `time_call` gives them on `device` (CUDA events on the card, best of
+    TIME_REPS after a warm-up): the one-device `bulk_count` on
+    `build_sorted`, `dist_bulk_count` on sorted partitions, and
+    `dist_bulk_count_bcast` on replicated tables; both counts are asserted
+    equal to the one-device count. `scaling_efficiency` = the plan's rate /
+    (ranks x the one-device rate), with the model's prediction beside it;
+    it is structural, not a multi-GPU measurement, when the world has one
+    rank or the ranks share a card."""
+    from ccve_tpu_torch.bench.dist_model import predict
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu_torch.exec.bulk import bulk_count
+    from ccve_tpu_torch.ops.sort_merge import build_sorted
+    from ccve_tpu_torch.parallel import distributed as pd
+
+    keys, payloads = gen_rhs_table(n_build, 1)
+    probe = gen_probe_table(n_probe, 1, n_build)
+    with pd.make_join_mesh(n_devices, device) as mesh:
+        n_devices = mesh.size
+        dev = mesh.device
+        probe_dev = torch.from_numpy(probe).to(dev)
+        table = build_sorted(keys, payloads, device=dev)
+        t1, ref = time_call(lambda: bulk_count([table], probe_dev), dev)
+        ptables = [pd.partition_tables(keys, payloads, n_devices, "sorted", mesh)]
+        tp, res = time_call(lambda: pd.dist_bulk_count(mesh, ptables, probe_dev), dev)
+        rtables = [pd.replicate_tables(keys, payloads, "sorted", mesh)]
+        tb, resb = time_call(lambda: pd.dist_bulk_count_bcast(mesh, rtables, probe_dev), dev)
+        want = (int(ref.count), ref.payload_checksums.tolist())
+        for name, r in (("dist_bulk_count", res), ("dist_bulk_count_bcast", resb)):
+            if (int(r.count), r.payload_checksums.tolist()) != want:
+                raise AssertionError(f"config 5 {name}: count {int(r.count)}, checksums "
+                                     f"{r.payload_checksums.tolist()}; one device {want}")
+        structural = n_devices == 1 or dev.type != "cuda" or _shares_card(mesh)
+        def model(topology, plan="auto"):
+            """The model's prediction, None where a GPU's probe share takes
+            the small-probe route, which the roofline does not price."""
+            try:
+                return predict(n_build, n_probe, topologies=(topology,), shuffle=plan,
+                               n_batches=8 if plan == "bcast" else 1)[0]
+            except ValueError:
+                return None
+
+        pred = model((1, n_devices))
+        pred_dcn = {f"{d}x{i}_{s}": getattr(model((d, i), s), "efficiency", None)
+                    for (d, i) in ((2, 8), (4, 8)) for s in ("hier", "bcast")}
+        return {
+            "name": "config5_distributed",
+            "device": _device_name(dev),
+            "timer": _timer(dev),
+            "n_devices": n_devices,
+            "backend": torch.distributed.get_backend(),
+            "n_build": n_build,
+            "n_probe": n_probe,
+            "count": want[0],
+            "payload_checksums": want[1],
+            "seconds": tp,
+            "rows_per_s": n_probe / tp,
+            "single_device_seconds": t1,
+            "single_device_rows_per_s": n_probe / t1,
+            "scaling_efficiency": (n_probe / tp) / (n_devices * (n_probe / t1)),
+            "scaling_efficiency_note": ("structural (one rank, the CPU, or ranks sharing a "
+                                        "card)" if structural else "measured"),
+            "bcast_seconds": tb,
+            "bcast_rows_per_s": n_probe / tb,
+            "bcast_scaling_efficiency": (n_probe / tb) / (n_devices * (n_probe / t1)),
+            "model_predicted_efficiency": getattr(pred, "efficiency", None),
+            "model_predicted_rows_per_s": getattr(pred, "rows_per_s", None),
+            "model_shuffle": getattr(pred, "shuffle", None),
+            "model_predicted_efficiency_dcn": pred_dcn,
+            "skew": float(res.skew),
+            "overflow": bool(res.overflow),
+        }
+
+
+def _shares_card(mesh) -> bool:
+    """Whether two ranks of `mesh` compute on one card (gloo ranks on one
+    GPU): an all-gather of each rank's device index and host name."""
+    import socket
+    import zlib
+
+    here = torch.tensor([mesh.device.index or 0, zlib.crc32(socket.gethostname().encode())],
+                        dtype=torch.int64, device=mesh.device)
+    seen = mesh.all_gather(here).tolist()
+    return len({tuple(x) for x in seen}) < len(seen)
+
+
 def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -791,5 +885,5 @@ def _timer(device: torch.device) -> str:
 
 
 ALL_CONFIGS = {1: config1_single_join, 2: config2_filtered_join, 3: config3_four_way,
-               4: config4_zipf_pipeline, 6: config6_mixed_selectivity,
+               4: config4_zipf_pipeline, 5: config5_distributed, 6: config6_mixed_selectivity,
                7: config7_heterogeneous_levels}

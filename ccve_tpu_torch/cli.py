@@ -1,5 +1,6 @@
 """Command line of the port: `python -m ccve_tpu_torch.cli <command>`, one of
-`pipeline`, `strategy-matrix`, `microbench`, `baseline` and `roofline`.
+`pipeline`, `strategy-matrix`, `microbench`, `baseline`, `roofline` and
+`dist`.
 
  - `pipeline` is the reference's main executable (`simd_compaction_sevector`,
    main.cpp:37-117), with the JAX CLI's flags and defaults plus `--device`:
@@ -29,17 +30,26 @@
    filtered chaining join on the cursor and sorted-chunk executors),
    config 3 (the bulk engine, the cursor executor over CSR and the
    sorted-chunk executor), config 4 (the Zipf join's pushed-down GROUP BY
-   and ORDER BY, and its partition skew), config 6 (phase-alternating
-   selectivity on the cursor executor and both tuners) and config 7 (the
-   sorted-chunk executor's static compaction policies and its device
-   tuner). Config 5 exits non-zero with "not ported yet".
+   and ORDER BY, and its partition skew), config 5 (the distributed join:
+   the one-device count, the flat shuffle and the broadcast join over the
+   process group's ranks, or one rank; with the cost model's
+   predictions), config 6 (phase-alternating selectivity on the cursor
+   executor and both tuners) and config 7 (the sorted-chunk executor's
+   static compaction policies and its device tuner).
  - `roofline` prints the per-operator roofline of the count-side join on
    the H100 (`bench/roofline.py`) at `--n-build` x `--n-probe`; with
    `--measured-ms` also the percent of the model's speed-of-light, and with
    `--anchor` the two STAGE_COST anchors measured on the card (the
-   compare-exchange kernel's K-slope and the library sort). `--dist` and
-   `--n-levels` (the distributed cost model, ROADMAP Queue 1, slice 9) exit
-   2 with "not ported yet".
+   compare-exchange kernel's K-slope and the library sort); with `--dist`
+   also the distributed cost model (`bench/dist_model.py`) at `--n-levels`
+   levels.
+ - `dist` is the distributed join harness (`parallel/bootstrap.py`), one
+   command a process: the JAX CLI's flags (`--coordinator`,
+   `--num-processes`, `--process-id`, or CCVE_COORDINATOR /
+   CCVE_NUM_PROCESSES / CCVE_PROCESS_ID, or torchrun's variables; none of
+   them for a one-rank run) plus `--device` and `--backend` (default: NCCL
+   on the card, gloo on the CPU; `--backend gloo` runs several ranks on
+   one card). It prints one JSON line a process.
 
 The run goes to `--device` (default `cuda`); without a GPU it fails unless
 `--device cpu` asks for the plain CPU path. `roofline` without `--anchor`
@@ -59,6 +69,7 @@ TINY_KWARGS = {
     2: dict(lhs=5000, rhs=512, block=256),
     3: dict(lhs=4000, rhs=256, block=256),
     4: dict(n_probe=50_000, domain=1024),
+    5: dict(n_build=2048, n_probe=20_000),
     6: dict(lhs=65536, rhs=2048, block=256, phase_chunks=32, segment_chunks=4),
     7: dict(lhs=16384, rhs=512, block=256, segment_chunks=4),
 }
@@ -68,9 +79,6 @@ TINY_WIDE_KWARGS = dict(n_build=4096, n_probe=1 << 15)
 def cmd_baseline(args) -> int:
     from ccve_tpu_torch.bench.configs import ALL_CONFIGS, config1_materialize, config1_wide
 
-    if args.config not in ALL_CONFIGS:
-        print(f"baseline --config {args.config}: not ported yet (slice 9)", file=sys.stderr)
-        return 2
     kwargs = dict(TINY_KWARGS[args.config]) if args.tiny else {}
     if args.engine is not None or args.materialize or args.wide_span is not None:
         if args.config != 1:
@@ -213,10 +221,6 @@ def cmd_micro(args) -> int:
 
 
 def cmd_roofline(args) -> int:
-    if args.dist or args.n_levels is not None:
-        print("--dist and --n-levels (the distributed cost model, ROADMAP Queue 1): "
-              "not ported yet (slice 9)", file=sys.stderr)
-        return 2
     from ccve_tpu_torch.bench.roofline import measure_anchors, report
     from ccve_tpu_torch.device import require_device
 
@@ -225,6 +229,42 @@ def cmd_roofline(args) -> int:
     print(report(args.n_build, args.n_probe, measured))
     if args.anchor:
         print(measure_anchors(device=device))
+    if args.dist:
+        from ccve_tpu_torch.bench.dist_model import report_dist
+
+        print()
+        print(report_dist(args.n_build, args.n_probe, args.n_levels))
+    return 0
+
+
+def cmd_dist(args) -> int:
+    from ccve_tpu_torch.parallel.bootstrap import init_distributed, run_dist_join
+
+    if args.zipf_alpha is not None and args.shuffle == "hier":
+        print("--shuffle hier cannot be combined with --zipf-alpha: the PRPD skew path runs "
+              "on the flat shuffle only. Drop one of the two flags (--shuffle auto maps to "
+              "flat under --zipf-alpha).", file=sys.stderr)
+        return 2
+    info = init_distributed(coordinator=args.coordinator, num_processes=args.num_processes,
+                            process_id=args.process_id, device=args.device,
+                            backend=args.backend)
+    try:
+        out = run_dist_join(
+            n_build=args.n_build, n_probe=args.n_probe, n_joins=args.n_joins, kind=args.kind,
+            pipeline_levels=args.pipeline_levels,
+            hierarchical=(None if args.shuffle == "auto" else args.shuffle == "hier")
+            if args.zipf_alpha is None else False,
+            zipf_alpha=args.zipf_alpha, shuffle=args.shuffle if args.shuffle != "auto" else None,
+            device=info["device"], backend=info["backend"],
+            local_world_size=info["local_world_size"],
+        )
+    finally:
+        if info["initialized"]:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    out["initialized"] = info["initialized"]
+    print(json.dumps(out))
     return 0
 
 
@@ -331,12 +371,46 @@ def _add_roofline(sub):
         "kernel that is not the engine's, and torch.sort) against the model constant",
     )
     p.add_argument("--dist", action="store_true",
-                   help="the distributed cost model: not ported yet (slice 9)")
-    p.add_argument("--n-levels", type=int, default=None,
-                   help="join levels for --dist: not ported yet (slice 9)")
+                   help="also print the distributed cost model (bench/dist_model.py): bytes a "
+                   "level of each plan, flat against hier against bcast, predicted scaling "
+                   "efficiency over GPUs and nodes, at nominal H100 link rates")
+    p.add_argument("--n-levels", type=int, default=1, help="join levels for --dist")
     p.add_argument("--device", default="cuda",
                    help="torch device of --anchor (default cuda)")
     p.set_defaults(func=cmd_roofline)
+
+
+def _add_dist(sub):
+    p = sub.add_parser(
+        "dist",
+        help="distributed join on torch.distributed, one command a process: the process "
+        "identity from flags, CCVE_COORDINATOR / CCVE_NUM_PROCESSES / CCVE_PROCESS_ID or "
+        "torchrun's variables (none of them for a one-rank run)",
+    )
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0, or an init-method URL (tcp://, file://)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--n-build", type=int, default=100_000)
+    p.add_argument("--n-probe", type=int, default=1_000_000)
+    p.add_argument("--n-joins", type=int, default=1)
+    p.add_argument("--kind", choices=["sorted", "lp", "csr"], default="sorted")
+    p.add_argument("--pipeline-levels", type=int, default=0,
+                   help="also run the materializing dist_pipeline_expand over this many "
+                   "levels on the first 8192 probe rows")
+    p.add_argument("--zipf-alpha", type=float, default=None,
+                   help="Zipf-skewed probe keys with this exponent and PRPD: the detected "
+                   "hot keys are replicated to every rank and kept out of the shuffle (flat "
+                   "shuffle only)")
+    p.add_argument("--shuffle", choices=["auto", "flat", "hier", "bcast"], default="auto",
+                   help="the plan: 'hier' = 2D (node, local GPU) mesh with the two-hop "
+                   "shuffle (keys cross nodes once, node-aggregated); 'bcast' = replicated "
+                   "builds, no per-key traffic; 'auto' picks hier for more than one node of "
+                   "more than one GPU")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="process-group backend (default: nccl on the card, gloo on the CPU)")
+    p.set_defaults(func=cmd_dist)
 
 
 def main(argv=None) -> int:
@@ -347,6 +421,7 @@ def main(argv=None) -> int:
     _add_matrix(sub)
     _add_baseline(sub)
     _add_roofline(sub)
+    _add_dist(sub)
     args = parser.parse_args(argv)
     return args.func(args)
 

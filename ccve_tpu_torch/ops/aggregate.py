@@ -65,9 +65,12 @@ def _group_min_max(gid: torch.Tensor, values: torch.Tensor, size: int):
     return mn, mx
 
 
-def hash_aggregate(keys: torch.Tensor, values: torch.Tensor) -> GroupByResult:
+def hash_aggregate(keys: torch.Tensor, values: torch.Tensor,
+                   valid: torch.Tensor | None = None) -> GroupByResult:
     """Group-by of int64 (or int32) `keys` over `values`, sorted by key:
-    arrays of length n = len(keys) with the groups at the front."""
+    arrays of length n = len(keys) with the groups at the front. Rows where
+    `valid` (bool[n], default all) is False join no group: the distributed
+    aggregate's empty grid slots, which no key value could mark."""
     _check(keys, values)
     n = keys.numel()
     keys = keys.to(torch.int64)
@@ -75,16 +78,27 @@ def hash_aggregate(keys: torch.Tensor, values: torch.Tensor) -> GroupByResult:
         empty = keys.new_zeros(0)
         return GroupByResult(empty, empty, empty, empty, empty, keys.new_zeros(()))
     sk, order = keys.sort(stable=True)
-    sv = values.to(torch.int64)[order]
     is_start = torch.ones(n, dtype=torch.bool, device=keys.device)
     is_start[1:] = sk[1:] != sk[:-1]
+    if valid is not None:
+        # a second stable sort moves the left-out rows behind the rest, each
+        # part still in key order; a change of validity starts a group too
+        sval = valid[order]
+        back = (~sval).to(torch.int8).sort(stable=True).indices
+        order, sk, sval = order[back], sk[back], sval[back]
+        is_start[1:] = (sk[1:] != sk[:-1]) | (sval[1:] != sval[:-1])
+    sv = values.to(torch.int64)[order]
     gid = torch.cumsum(is_start, 0) - 1  # int64 group id a row
-    n_groups = gid[-1] + 1
     is_end = torch.ones_like(is_start)
     is_end[:-1] = is_start[1:]
+    sink = torch.full_like(gid, n)
+    if valid is None:
+        n_groups = gid[-1] + 1
+    else:
+        n_groups = (is_start & sval).sum()
+        gid = torch.where(sval, gid, sink)  # left-out rows add to no group
     # run ends scatter their inclusive cumsums (and positions) to their
     # group; every other row goes to the sink at n
-    sink = torch.full_like(gid, n)
     at_end = torch.where(is_end, gid, sink)
     lane = torch.arange(n, device=keys.device)
     live = lane < n_groups
@@ -93,13 +107,13 @@ def hash_aggregate(keys: torch.Tensor, values: torch.Tensor) -> GroupByResult:
     count = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
     total = csum - torch.cat([csum.new_zeros(1), csum[:-1]])
     group_keys = keys.new_zeros(n + 1).scatter_(0, torch.where(is_start, gid, sink), sk)[:n]
-    mn, mx = _group_min_max(gid, sv, n)
+    mn, mx = _group_min_max(gid, sv, n + 1)
     return GroupByResult(
         keys=group_keys,
         count=torch.where(live, count, 0),
         sum=torch.where(live, total, 0),
-        min=mn,
-        max=mx,
+        min=mn[:n],
+        max=mx[:n],
         n_groups=n_groups,
     )
 

@@ -40,8 +40,9 @@ tensors and reads nothing.
 
 `build_csr_device` builds a CSR table from key and payload tensors on
 their device (hash, stable sort by bucket, bucket sizes, offsets), equal to
-`build_csr` entry for entry; the distributed tier (ROADMAP slice 9) builds
-its per-part tables with it.
+`build_csr` entry for entry, for build rows that are on the card already
+(the distributed tier's partitions come from host rows, through
+`build_csr` with the partitions' common `n_buckets`).
 """
 
 from __future__ import annotations
@@ -118,13 +119,25 @@ def _columns(keys, payloads):
     return keys, payloads
 
 
-def build_lp(keys, payloads=None, device="cuda") -> LPTable:
+def _table_size(size, default: int, n_rows: int, what: str) -> int:
+    """`size`, or `default` when None; a power of two above `n_rows`."""
+    size = default if size is None else int(size)
+    if size < 1 or size & (size - 1) or size <= n_rows:
+        raise ValueError(f"{what} must be a power of two above {n_rows} rows, got {size}")
+    return size
+
+
+def build_lp(keys, payloads=None, device="cuda", n_slots: int | None = None) -> LPTable:
     """Sequential first-empty-slot insertion (linear_probing_ht.cpp:27-36)
     on the host, then the table to `device` (default the GPU; raises
-    without one)."""
+    without one). `n_slots` (a power of two above the row count) sizes the
+    table, default next_pow2(4 * rows); the distributed tier sizes every
+    partition by the largest one, as the JAX package's `_rebuild_lp`
+    does."""
     device = require_device(device)
     keys, payloads = _columns(keys, payloads)
-    n_slots = next_pow2(4 * keys.shape[0])  # load factor <= 25 %
+    # load factor <= 25 %
+    n_slots = _table_size(n_slots, next_pow2(4 * keys.shape[0]), keys.shape[0], "n_slots")
     mask = n_slots - 1
     # Each key's slot in insertion order, over Python ints and a bytearray
     # (numpy scalar indexing is several times slower per probe).
@@ -160,13 +173,16 @@ def _longest_circular_run(occ: np.ndarray) -> int:
     return int((ends - starts).max(initial=0))
 
 
-def build_csr(keys, payloads=None, device="cuda") -> CSRTable:
+def build_csr(keys, payloads=None, device="cuda", n_buckets: int | None = None) -> CSRTable:
     """Chaining build (chaining_ht.cpp:4-36) in CSR layout on the host,
     insertion order kept within each bucket (std::list push_back), then
-    the table to `device` (default the GPU; raises without one)."""
+    the table to `device` (default the GPU; raises without one).
+    `n_buckets` (a power of two) sizes the index, default next_pow2(2 *
+    rows), as chaining_ht.cpp:5-6 does; the distributed tier sizes every
+    partition by the largest one."""
     device = require_device(device)
     keys, payloads = _columns(keys, payloads)
-    n_buckets = next_pow2(2 * keys.shape[0])  # chaining_ht.cpp:5-6
+    n_buckets = _table_size(n_buckets, next_pow2(2 * keys.shape[0]), 0, "n_buckets")
     bucket = (murmurhash64_np(keys) & np.uint64(n_buckets - 1)).astype(np.int64)
     counts = np.bincount(bucket, minlength=n_buckets)
     offsets = np.zeros(n_buckets + 1, dtype=np.int64)

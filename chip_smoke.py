@@ -247,9 +247,40 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     build.
 50. `python -m ccve_tpu_torch.cli baseline --config 4` in a process of its
     own: rc 0, matches and n_groups as in phase 46.
+51. Config 5 on one rank (NCCL, world 1, a group of its own) at full size
+    (100K build rows, 1M probe rows): the flat shuffle on sorted, LP and
+    CSR partitions, the ring on block partitions, bcast, PRPD on the Zipf
+    probes (64 hot keys), then hier on a 1x1 mesh, each with the launch
+    counters zeroed just before it: count 999,990 and checksum
+    10,049,810,862,256 (PRPD 1,000,000 and 10,058,256,117,134), equal to
+    numpy and the one-card `bulk_count`, skew 1.0, no overflow; every
+    kernel launch of each counted run (#6-#8 on sorted partitions, #12 and
+    #9 on LP, #12 on CSR) held against its plain version at the shapes of
+    the plan's local probes, recorded in that run (`hold_probes`: the held
+    launches equal the counted ones, kernel by kernel); times.
+52. `dist_bulk_expand` at full size (999,990 triples, Σ payload = the
+    checksum, 4096 sampled triples against numpy), `dist_pipeline_expand`
+    over 2 levels with `level_caps` (total against numpy), each counted,
+    its kernels held as in phase 51; `dist_aggregate` over config 4's 4M
+    Zipf keys (94,963 groups, every group against numpy); times.
+53. 2 and 4 ranks on the one card: `spawn_ranks` over gloo, every rank
+    computing on cuda:0 with the library the parent built: flat, ring,
+    bcast and PRPD at P = 2 and 4, hier at 1x2, 2x1 and 2x2, and
+    `dryrun_multichip(2)`; every rank's counts and checksums equal phase
+    51's, flat's skew equal to numpy's owner histogram (float32), each
+    plan's kernels launched in every rank, and every launch held in its
+    rank as in phase 51 (#12 of `_owner` too), into the kernels line's
+    max |kernel - plain|; flat, hier and bcast's times (the slowest rank's)
+    beside `dist_model`'s prediction and ranking (a record: the ranks share
+    one card and the host's gloo).
+54. The CLI in processes of their own: `baseline --config 5`, `dist
+    --shuffle flat` (one NCCL rank, cross-checked), `dist --shuffle bcast
+    --backend gloo` as two processes on the card (CCVE_* variables, a
+    file:// rendezvous) and `roofline --dist --n-levels 2`.
 
 Prints the per-kernel JSON line (22 kernels: each kernel's launches on its main paths,
-#1-#3 and #12 with config 4's counted run among them,
+#1-#3 and #12 with config 4's counted run among them, #6-#9 and #12 with
+the distributed plans' counted runs (phases 51-53, one a plan),
 max |kernel - plain|, its time, its plain version's, its bound and the
 library call's), then the card line, then, only when every phase passed,
 the last line `{"ok": true, "device": {...}}`. Any failure raises and
@@ -259,6 +290,7 @@ exits non-zero.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -302,6 +334,7 @@ from ccve_tpu_torch.core import chunk as chunklib  # noqa: E402
 from ccve_tpu_torch.core.collection import DataCollection  # noqa: E402
 from ccve_tpu_torch.exec.bulk import (  # noqa: E402
     HASH_PLAIN,
+    HashRoute,
     bulk_count,
     bulk_materialize,
     combine_levels,
@@ -328,12 +361,18 @@ from ccve_tpu_torch.kernels.drain import (  # noqa: E402
 )
 from ccve_tpu_torch.kernels.drain import grid as drain_grid  # noqa: E402
 from ccve_tpu_torch.utils.profiler import ZebraProfiler  # noqa: E402
-from ccve_tpu_torch.core.datagen import gen_microbench_keys  # noqa: E402
+from ccve_tpu_torch.core.datagen import gen_microbench_keys, gen_zipf_keys  # noqa: E402
 from ccve_tpu_torch.ops import aggregate  # noqa: E402
 from ccve_tpu_torch.ops import sort as radix  # noqa: E402
 from ccve_tpu_torch.ops import sort_merge as sm  # noqa: E402
-from ccve_tpu_torch.ops.hash_table import build_csr, build_csr_device, build_lp  # noqa: E402
+from ccve_tpu_torch.ops.hash_table import (  # noqa: E402
+    LPTable,
+    build_csr,
+    build_csr_device,
+    build_lp,
+)
 from ccve_tpu_torch.ops.hashing import murmurhash64_np  # noqa: E402
+from ccve_tpu_torch.parallel import distributed as pd  # noqa: E402
 from ccve_tpu_torch.parallel.distributed import _owner  # noqa: E402
 
 N_BUILD = 1_000_000
@@ -367,6 +406,10 @@ def cuda_ms(fn, reps: int = REPS) -> list[float]:
 
 def med(ts) -> float:
     return float(np.median(ts))
+
+
+def spread_ms(ts) -> str:
+    return f"{med(ts):.4f} ms ({min(ts):.4f}, {max(ts):.4f})"
 
 
 # slice 2's wrappers; #7's two entry points share one kernel source
@@ -450,6 +493,61 @@ def zero_counters(wrappers: dict) -> None:
 
 def read_counters(wrappers: dict) -> dict:
     return {name: sum(fn.launches for fn in fns) for name, fns in wrappers.items()}
+
+
+def exact(max_err: dict):
+    """The check `same`, keeping each kernel's largest difference in
+    `max_err` (0 unless it raises)."""
+
+    def same(name: str, got, want, what: str):
+        """Exact equality of a kernel's output with its plain version's:
+        a tensor, or a (keys, [planes]) / (a, b) structure of them."""
+        if isinstance(want, (tuple, list)):
+            if len(got) != len(want):
+                raise AssertionError(f"{name} {what}: {len(got)} outputs vs {len(want)}")
+            for g, w in zip(got, want):
+                same(name, g, w, what)
+            return
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} {what}: {got.shape}/{got.dtype} "
+                                 f"vs plain {want.shape}/{want.dtype}")
+        err = 0
+        if got.numel():
+            err = int((got.long() - want.long()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if err:
+            raise AssertionError(f"{name} {what}: max |kernel - plain| = {err}")
+
+    return same
+
+
+def stats_path(same, tbl, col, path, key="i32"):
+    """The stats side's kernel route step by step at a path's shapes,
+    on int32 (`key` "i32") or int64 ("i64") keys, each kernel against
+    its plain version on the same input (`same`, from `exact`); returns
+    the inputs, for the times."""
+    tl = pairsort.TILE_LOG
+    n = col.numel()
+    pack = sm.stats_pack32_streams if key == "i32" else sm.stats_pack64_streams
+    sort_tiles = getattr(pairsort, f"sort_tiles_multi_{key}")
+    merge_level = getattr(pairsort, f"merge_level_multi_{key}")
+    merge_two = getattr(pairsort, f"merge_two_multi_{key}")
+    b32, p32 = pack(tbl, col)
+    rows = torch.arange(n, dtype=torch.int32, device=col.device)
+    pk, pv = pairsort.pad_to_tile(p32, [rows], tl)
+    level_in = [sort_tiles(pk, pv, tl)]
+    same(f"sort_tiles_multi_{key}", level_in[0], pairsort.sort_tiles_multi_plain(pk, pv, tl), path)
+    for lv in range(max((pk.numel() >> tl) - 1, 0).bit_length()):
+        k, v = level_in[-1]
+        level_in.append(merge_level(k, v, tl + lv))
+        same(f"merge_multi_{key}", level_in[-1],
+             pairsort.merge_level_multi_plain(k, v, tl + lv), f"{path} level {tl + lv}")
+    sk, sv = level_in.pop()
+    two = (sk[:n], [x[:n] for x in sv], b32, [tbl.payloads.to(torch.int32)])
+    merged = merge_two(*two)
+    same(f"merge_multi_{key}", merged, pairsort.merge_two_multi_plain(*two), f"{path} merge two")
+    return {"probe": (p32, rows), "tile": (pk, pv), "levels": level_in, "two": two,
+            "merged": merged}
 
 
 # (ms, what bounds it) of a kernel's bytes and integer operations, from the
@@ -926,6 +1024,434 @@ def config4_phases(card: str, repo_root: str, same) -> dict:
     return launches4
 
 
+# ---- slice 9: the distributed tier at config 5 ----------------------------------------
+
+# config 5 at its full size (JAX's defaults, none cut) and the answers numpy
+# gives for the generators there: the uniform probes, and the Zipf probes of
+# the PRPD plan (`bootstrap.run_dist_join`'s, seed 11)
+CONFIG5 = dict(n_build=100_000, n_probe=1_000_000)
+CONFIG5_WANT = (999_990, [10_049_810_862_256])
+CONFIG5_PRPD_WANT = (1_000_000, [10_058_256_117_134])
+# the flat plan's skew of the uniform probes: the largest owner's keys over
+# the mean, in float32 (P = 2: [499,973, 500,027]; P = 4: [249,567, 250,406,
+# 249,561, 250,466])
+CONFIG5_SKEW = {1: 1.0, 2: float(np.float32(500_027) / np.float32(500_000)),
+                4: float(np.float32(250_466) / np.float32(250_000))}
+HIER_SHAPES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+# the kernels the distributed plans launch: the stats side (#6-#8) on sorted
+# partitions, #12 in `_owner` (P > 1) and the hash drains, #9 on the LP
+# ladder and in `sorted_expand`
+DIST_WRAPPERS = {
+    "sort_tiles_multi_i32": (pairsort.sort_tiles_multi_i32,),
+    "merge_multi_i32": (pairsort.merge_level_multi_i32, pairsort.merge_two_multi_i32),
+    "merge_stats_i32": (merge_scan.merge_stats_i32,),
+    "compact_i32": (compact.compact_i32,),
+    "murmurhash64_i64": (murmur.murmurhash64_i64,),
+}
+STATS_SIDE = ("sort_tiles_multi_i32", "merge_multi_i32", "merge_stats_i32")
+
+
+def config5_data():
+    """(build keys, payloads, uniform probe [n, 1], Zipf probe [n, 1], its
+    hot keys): config 5's inputs, as `bootstrap.run_dist_join` makes them."""
+    keys, payloads = gen_rhs_table(CONFIG5["n_build"], 1)
+    probe = gen_probe_table(CONFIG5["n_probe"], 1, CONFIG5["n_build"])
+    zipf = gen_zipf_keys(CONFIG5["n_probe"], CONFIG5["n_build"], 1.1, seed=11)[:, None]
+    return keys, payloads, probe, zipf, pd.detect_heavy_hitters(zipf[:262_144])
+
+
+def summary(res) -> tuple:
+    return (int(res.count), res.payload_checksums.tolist(), float(res.skew), bool(res.overflow))
+
+
+def counted_calls(run, names=("match_stats", "sorted_expand", "_owner")):
+    """(run()'s result, its launches of DIST_WRAPPERS, (name, args) of
+    every `names` call it made), all of one run: every counter set to 0
+    just before and read just after; the calls are the plans' local probes
+    and owner hashes, to hold their kernels at these shapes. The recording
+    wraps the names in `parallel.distributed` for this call only."""
+    seen = []
+    real = {name: getattr(pd, name) for name in names}
+
+    def recorder(name):
+        def call(*args, **kw):
+            seen.append((name, args))
+            return real[name](*args, **kw)
+        return call
+
+    torch.cuda.synchronize()
+    zero_counters(DIST_WRAPPERS)
+    try:
+        for name in names:
+            setattr(pd, name, recorder(name))
+        out = run()
+    finally:
+        for name, fn in real.items():
+            setattr(pd, name, fn)
+    torch.cuda.synchronize()
+    return out, read_counters(DIST_WRAPPERS), seen
+
+
+def config5_rank(device: str) -> dict:
+    """Phase 53 on one rank of a gloo group whose ranks all compute on
+    `device` (one card): every plan at config 5's full size, each with the
+    launch counters zeroed just before it, its answer, its launches and
+    its time (`configs.time_call`: CUDA events, best of TIME_REPS after a
+    warm-up); each kernel the plan launched in this rank held against its
+    plain version at the rank's shapes (`hold_probes`); then the dry run.
+    The same on every rank but the launches, the held probes and the
+    kernels' largest differences."""
+    from ccve_tpu_torch.bench.configs import time_call
+    from ccve_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    P = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+    keys, payloads, probe, zipf, hot = config5_data()
+    out, launches, ms, held = {}, {}, {}, {}
+    max_err = dict.fromkeys(DIST_WRAPPERS, 0)
+    same = exact(max_err)
+
+    def run_plan(name, run):
+        res, launches[name], calls = counted_calls(run)
+        out[name] = summary(res)
+        held[name] = hold_probes(calls, launches[name], same, f"P = {P} rank {rank} {name}")
+
+    with pd.make_join_mesh(P, device, "gloo") as mesh:
+        dev = mesh.device
+        probe_d, zipf_d = (torch.from_numpy(x).to(dev) for x in (probe, zipf))
+        parts = [pd.partition_tables(keys, payloads, P, "sorted", mesh)]
+        blocks = [pd.partition_tables_block(keys, payloads, P, "sorted", mesh)]
+        reps = [pd.replicate_tables(keys, payloads, "sorted", mesh)]
+        split = [pd.partition_tables_split(keys, payloads, P, hot, "sorted", mesh)]
+        plans = {
+            "flat": lambda: pd.dist_bulk_count(mesh, parts, probe_d),
+            "ring": lambda: pd.dist_bulk_count_ring(mesh, blocks, probe_d),
+            "bcast": lambda: pd.dist_bulk_count_bcast(mesh, reps, probe_d),
+            "prpd": lambda: pd.dist_bulk_count(mesh, split, zipf_d),
+        }
+        for name, run in plans.items():
+            run_plan(name, run)
+        for name in ("flat", "bcast"):
+            ms[name] = time_call(plans[name], dev)[0] * 1e3
+    for shape in HIER_SHAPES[P]:
+        name = f"hier_{shape[0]}x{shape[1]}"
+        with pd.make_join_mesh_2d(*shape, device, "gloo") as mesh2:
+            tables = [pd.partition_tables(keys, payloads, P, "sorted", mesh2)]
+            probe_d = torch.from_numpy(probe).to(mesh2.device)
+            run = lambda: pd.dist_bulk_count_hier(mesh2, tables, probe_d)  # noqa: E731
+            run_plan(name, run)
+            ms[name] = time_call(run, mesh2.device)[0] * 1e3
+    out["dryrun"] = dryrun_multichip(P, device) if P == 2 else None
+    return {"results": out, "launches": launches, "ms": ms, "held": held, "max_err": max_err}
+
+
+def hold_probes(calls, launches, same, what: str) -> list[int]:
+    """Each kernel launch of a plan's run, against the kernel's plain
+    version at the shapes the plan gave it: the stats side's sort, merges
+    and scan (#6-#8) on sorted tables, #9 of `sorted_expand`, the hash
+    drains' #12 and #9 (replayed on a route that records their inputs),
+    #12 of `_owner` for more than one part. `calls` and `launches` are of
+    one run; the held launches must equal `launches` kernel by kernel, so
+    that none goes unheld. Returns the sizes of the probes held."""
+    held = dict.fromkeys(launches, 0)
+
+    def check(name, got, want, tag):
+        held[name] += 1
+        same(name, got, want, tag)
+
+    probes = [(name, args[0], args[1].contiguous()) for name, args in calls
+              if name != "_owner" and args[1].numel()]
+    owners = [args[0] for name, args in calls
+              if name == "_owner" and args[1] > 1 and args[0].numel()]
+    hashed, stages = [], []
+
+    def hash_rec(keys):
+        hashed.append(keys)
+        return murmur.murmurhash64_i64(keys)
+
+    def compact_rec(planes, mask):
+        stages.append((planes, mask))
+        return compact.compact_i32(planes, mask)
+
+    recording = HashRoute(hash_rec, compact_rec)
+    for name, table, keys in probes:
+        tag = f"{what}: {name} of {keys.numel()} keys"
+        if isinstance(table, sm.SortedTable):
+            if sm.stats_key_type(table) != torch.int32:
+                raise AssertionError(f"{tag}: a config-5 table off the int32 kernel route")
+            inputs = stats_path(check, table, keys, tag)
+            if name == "sorted_expand":
+                planes, valid, _ = sm.expand_candidates(table, keys)
+                check("compact_i32", compact.compact_i32(planes, valid),
+                      compact.compact_plain(planes, valid), tag)
+            else:
+                s, (v,) = inputs["merged"]
+                check("merge_stats_i32", merge_scan.merge_stats_i32(s, v, keys.numel()),
+                      merge_scan.merge_stats_plain(s, v, keys.numel()), tag)
+            continue
+        drain = lp_match_stats if isinstance(table, LPTable) else csr_match_stats
+        drain(table, keys.to(torch.int64), route=recording)
+    for keys in [*owners, *hashed]:
+        k64 = keys.to(torch.int64).contiguous()
+        check("murmurhash64_i64", murmur.murmurhash64_i64(k64), murmur.murmurhash64_plain(k64),
+              f"{what}: the hash of {keys.numel()} keys")
+    for planes, mask in stages:
+        check("compact_i32", compact.compact_i32(planes, mask),
+              compact.compact_plain(planes, mask), f"{what}: a hash drain's stage")
+    if not probes or held != launches:
+        raise AssertionError(f"{what}: launches {launches}, held {held} ({len(probes)} "
+                             f"probes, {len(owners)} owner hashes recorded)")
+    return [keys.numel() for _, _, keys in probes]
+
+
+def dist_phases(card: str, repo_root: str, max_err: dict) -> dict:
+    """Phases 51-54, slice 9 (the module docstring says what each reads).
+    Returns the launches of DIST_WRAPPERS in the counted runs (one a plan;
+    phase 53's summed over its ranks); every one of them is held against
+    its plain version into `max_err`."""
+    from ccve_tpu_torch.bench.dist_model import predict, ranking
+    from ccve_tpu_torch.parallel import bootstrap
+    from ccve_tpu_torch.parallel.dist_aggregate import collect_groups, dist_aggregate
+
+    total = dict.fromkeys(DIST_WRAPPERS, 0)
+    same = exact(max_err)
+
+    def add(launches):
+        for name, k in launches.items():
+            total[name] += k
+
+    # ---- 51. config 5 on one rank (NCCL, world 1) -----------------------------------
+    t0 = time.perf_counter()
+    keys, payloads, probe, zipf, hot = config5_data()
+    want = numpy_totals(keys, payloads, probe[:, 0])
+    want_z = numpy_totals(keys, payloads, zipf[:, 0])
+    if (want[0], [want[1]]) != CONFIG5_WANT or (want_z[0], [want_z[1]]) != CONFIG5_PRPD_WANT:
+        raise AssertionError(f"numpy: {want}, PRPD {want_z}")
+    table = sm.build_sorted(keys, payloads, device="cuda")
+    probe_d = torch.from_numpy(probe).cuda()
+    zipf_d = torch.from_numpy(zipf).cuda()
+    one = bulk_count([table], probe_d)
+    if (int(one.count), one.payload_checksums.tolist()) != CONFIG5_WANT:
+        raise AssertionError(f"config 5's one-card bulk_count: {int(one.count)}")
+    lines51 = []
+    with pd.make_join_mesh(1, "cuda") as mesh:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"phase 51 runs on {torch.distributed.get_backend()}")
+        tables = {kind: [pd.partition_tables(keys, payloads, 1, kind, mesh)]
+                  for kind in ("sorted", "lp", "csr")}
+        blocks = [pd.partition_tables_block(keys, payloads, 1, "sorted", mesh)]
+        reps = [pd.replicate_tables(keys, payloads, "sorted", mesh)]
+        split = [pd.partition_tables_split(keys, payloads, 1, hot, "sorted", mesh)]
+        plans = {
+            **{f"flat {kind}": (lambda t=t: pd.dist_bulk_count(mesh, t, probe_d), CONFIG5_WANT,
+                                STATS_SIDE if kind == "sorted" else
+                                ("murmurhash64_i64", "compact_i32") if kind == "lp" else
+                                ("murmurhash64_i64",))
+               for kind, t in tables.items()},
+            "ring": (lambda: pd.dist_bulk_count_ring(mesh, blocks, probe_d), CONFIG5_WANT,
+                     STATS_SIDE),
+            "bcast": (lambda: pd.dist_bulk_count_bcast(mesh, reps, probe_d), CONFIG5_WANT,
+                      STATS_SIDE),
+            "prpd": (lambda: pd.dist_bulk_count(mesh, split, zipf_d), CONFIG5_PRPD_WANT,
+                     STATS_SIDE),
+        }
+        for name, (run, want_plan, needed) in plans.items():
+            res, launches, calls = counted_calls(run)
+            got = summary(res)
+            if got != (*want_plan, 1.0, False):
+                raise AssertionError(f"config 5 {name} on one rank: {got}")
+            idle = [k for k in needed if not launches[k]]
+            if idle:
+                raise AssertionError(f"config 5 {name}: kernels not launched: {idle}")
+            add(launches)
+            sizes = hold_probes(calls, launches, same, f"config 5 {name}")
+            ms = cuda_ms(run)
+            lines51.append(f"  {name}: {spread_ms(ms)}; launches {launches}; "
+                           f"{len(sizes)} local probe(s) of {sizes} keys")
+    with pd.make_join_mesh_2d(1, 1, "cuda") as mesh2:
+        tables2 = [pd.partition_tables(keys, payloads, 1, "sorted", mesh2)]
+        run = lambda: pd.dist_bulk_count_hier(mesh2, tables2, probe_d)  # noqa: E731
+        res, launches, calls = counted_calls(run)
+        if summary(res) != (*CONFIG5_WANT, 1.0, False):
+            raise AssertionError(f"config 5 hier 1x1: {summary(res)}")
+        if not all(launches[k] for k in STATS_SIDE):
+            raise AssertionError(f"config 5 hier 1x1: launches {launches}")
+        add(launches)
+        sizes = hold_probes(calls, launches, same, "config 5 hier 1x1")
+        lines51.append(f"  hier 1x1: {spread_ms(cuda_ms(run))}; launches {launches}; "
+                       f"local probe of {sizes} keys (caps unclamped, as in JAX)")
+    one_ms = cuda_ms(lambda: bulk_count([table], probe_d))
+    if torch.distributed.is_initialized():
+        raise AssertionError("a one-rank mesh left its process group behind")
+    log(f"phase config 5 on one rank (NCCL, world 1): ok ({time.perf_counter() - t0:.1f} s), "
+        f"count {CONFIG5_WANT[0]} checksum {CONFIG5_WANT[1][0]} on every uniform plan, PRPD "
+        f"({hot.size} hot keys) {CONFIG5_PRPD_WANT[0]} / {CONFIG5_PRPD_WANT[1][0]}, skew 1.0, "
+        f"no overflow, equal to numpy and the one-card bulk_count; every kernel launched held "
+        f"against its plain version at the plan's shapes; on [{card}], CUDA events, median "
+        f"(min, max) of {REPS}, one-card bulk_count {spread_ms(one_ms)}:")
+    for line in lines51:
+        log(line)
+
+    # ---- 52. the expansions and the aggregate on one rank ---------------------------
+    t0 = time.perf_counter()
+    probe2 = gen_probe_table(CONFIG5["n_probe"], 2, CONFIG5["n_build"])
+    lo = np.searchsorted(np.sort(keys), probe2, "left")
+    hi = np.searchsorted(np.sort(keys), probe2, "right")
+    live0 = int((hi[:, 0] - lo[:, 0]).sum())
+    want2 = int(((hi[:, 0] - lo[:, 0]) * (hi[:, 1] - lo[:, 1])).sum())
+    caps2 = [live0 + 4096, want2 + 4096]  # a cardinality estimate with slack
+    vals = np.random.default_rng(52).integers(-(2**40), 2**40, CONFIG4["n_probe"], dtype=np.int64)
+    zipf4 = gen_zipf_keys(CONFIG4["n_probe"], CONFIG4["domain"], CONFIG4["alpha"])
+    with pd.make_join_mesh(1, "cuda") as mesh:
+        part = pd.partition_tables(keys, payloads, 1, "sorted", mesh)
+        run_e = lambda: pd.dist_bulk_expand(mesh, part, probe_d[:, 0])  # noqa: E731
+        res_e, launches_e, calls = counted_calls(run_e)
+        trip = res_e.triples()
+        by_key = dict(zip(keys.tolist(), payloads.tolist()))
+        sample = trip[np.random.default_rng(52).choice(trip.shape[0], 4096, replace=False)]
+        if (int(res_e.total), trip.shape[0], int(trip[:, 2].sum())) != (
+                CONFIG5_WANT[0], CONFIG5_WANT[0], CONFIG5_WANT[1][0]) or bool(res_e.overflow):
+            raise AssertionError(f"dist_bulk_expand: total {int(res_e.total)}, "
+                                 f"{trip.shape[0]} triples, Σ payload {int(trip[:, 2].sum())}")
+        if not all(probe[r, 0] == k and by_key[k] == p for r, k, p in sample.tolist()):
+            raise AssertionError("dist_bulk_expand: a sampled triple differs from numpy's")
+        if not all(launches_e[k] for k in ("sort_tiles_multi_i32", "merge_multi_i32",
+                                           "compact_i32")):
+            raise AssertionError(f"dist_bulk_expand: launches {launches_e}")
+        add(launches_e)
+        hold_probes(calls, launches_e, same, "config 5 dist_bulk_expand")
+        e_ms = cuda_ms(run_e)
+        levels = [pd.partition_tables(keys, payloads, 1, "sorted", mesh) for _ in range(2)]
+        probe2_d = torch.from_numpy(probe2).cuda()
+        run_p = lambda: pd.dist_pipeline_expand(mesh, levels, probe2_d,  # noqa: E731
+                                                level_caps=caps2)
+        res_p, launches_p, calls = counted_calls(run_p)
+        if (int(res_p.total), bool(res_p.overflow)) != (want2, False):
+            raise AssertionError(f"dist_pipeline_expand: {int(res_p.total)}, numpy {want2}")
+        add(launches_p)
+        hold_probes(calls, launches_p, same, "config 5 dist_pipeline_expand")
+        p_ms = cuda_ms(run_p)
+        zipf4_d, vals_d = torch.from_numpy(zipf4).cuda(), torch.from_numpy(vals).cuda()
+        run_a = lambda: dist_aggregate(mesh, zipf4_d, vals_d)  # noqa: E731
+        res_a = run_a()
+        got_a = collect_groups(res_a)
+        want_a = np.stack(groups_numpy(zipf4, vals), axis=1)
+        if int(res_a.n_groups) != CONFIG4_WANT["n_groups"] or not np.array_equal(got_a, want_a):
+            raise AssertionError(f"dist_aggregate: {int(res_a.n_groups)} groups")
+        a_ms = cuda_ms(run_a)
+    log(f"phase config 5 expansions and aggregate on one rank: ok "
+        f"({time.perf_counter() - t0:.1f} s); dist_bulk_expand {trip.shape[0]} triples, "
+        f"Σ payload {int(trip[:, 2].sum())}, 4096 sampled triples equal numpy's, launches "
+        f"{launches_e}; dist_pipeline_expand over 2 levels, level_caps {caps2}: total "
+        f"{int(res_p.total)} (numpy {want2}), launches {launches_p}; dist_aggregate over "
+        f"config 4's {zipf4.size} Zipf keys: {int(res_a.n_groups)} groups equal numpy's; on "
+        f"[{card}], CUDA events, median (min, max) of {REPS}: expand {spread_ms(e_ms)}, "
+        f"pipeline {spread_ms(p_ms)}, aggregate {spread_ms(a_ms)}")
+    del probe2_d, zipf4_d, vals_d, res_e, res_p, res_a
+
+    # ---- 53. 2 and 4 ranks on the one card (gloo) ---------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    store = os.path.join(repo_root, "chiprun_out")
+    os.makedirs(store, exist_ok=True)
+    for P in (2, 4):
+        ranks = bootstrap.spawn_ranks(config5_rank, P, args=("cuda",), store_dir=store,
+                                      timeout=300)
+        res0 = ranks[0]["results"]
+        for rank, r in enumerate(ranks):
+            if r["results"] != res0:
+                raise AssertionError(f"P = {P}: rank {rank} differs: {r['results']}")
+        for name, got in res0.items():
+            if name == "dryrun":
+                continue
+            want_plan = CONFIG5_PRPD_WANT if name == "prpd" else CONFIG5_WANT
+            skew = CONFIG5_SKEW[P] if name == "flat" else None
+            if got[:2] != want_plan or got[3] or (skew is not None and got[2] != skew):
+                raise AssertionError(f"P = {P} {name}: {got}; want {want_plan}, skew {skew}")
+        if P == 2 and (res0["dryrun"] is None or res0["dryrun"]["flat"] !=
+                       res0["dryrun"]["bulk_count"]):
+            raise AssertionError(f"dryrun_multichip(2): {res0['dryrun']}")
+        for name in res0:
+            if name == "dryrun":
+                continue
+            summed = {k: sum(r["launches"][name][k] for r in ranks) for k in DIST_WRAPPERS}
+            needed = (*STATS_SIDE, "murmurhash64_i64") if name != "ring" and name != "bcast" \
+                else STATS_SIDE
+            if any(not all(r["launches"][name][k] for k in needed) for r in ranks):
+                raise AssertionError(f"P = {P} {name}: a rank launched none of a kernel: "
+                                     f"{[r['launches'][name] for r in ranks]}")
+            add(summed)
+        for r in ranks:
+            for k, err in r["max_err"].items():
+                max_err[k] = max(max_err[k], err)
+        held = [sum(len(r["held"][name]) for r in ranks) for name in ranks[0]["held"]]
+        # a collective plan ends when its slowest rank does
+        ms = {k: max(r["ms"][k] for r in ranks) for k in ranks[0]["ms"]}
+        hier = [k for k in ms if k.startswith("hier")][-1]
+        shape = tuple(int(x) for x in hier[5:].split("x"))
+        model = {"flat": predict(*CONFIG5.values(), topologies=((1, P),), shuffle="flat")[0],
+                 "bcast": predict(*CONFIG5.values(), topologies=((1, P),), shuffle="bcast")[0],
+                 hier: predict(*CONFIG5.values(), topologies=(shape,), shuffle="hier")[0]}
+        measured = sorted(model, key=lambda k: ms[k])
+        log(f"phase config 5 on {P} gloo ranks sharing [{card}]: ok, flat, ring, bcast, PRPD "
+            f"and hier {[f'{d}x{i}' for d, i in HIER_SHAPES[P]]} give config 5's counts and "
+            f"checksums on every rank, flat's skew {res0['flat'][2]!r}"
+            + (", dryrun_multichip(2) passed every plan" if P == 2 else "")
+            + f"; every launch held against its plain version in its rank ({sum(held)} "
+            f"probes); launches summed over the ranks {dict(total)} so far")
+        log(f"  times (ranks sharing one card over gloo, CUDA events, best of 3 after a "
+            f"warm-up, the slowest rank): " + ", ".join(f"{k} {ms[k]:.3f} ms" for k in ms)
+            + f"; measured order {measured}; the model's t_total at this P on H100 links "
+            + ", ".join(f"{k} {model[k].t_total * 1e3:.4f} ms" for k in model)
+            + f", its ranking at 1x{P} {ranking(*CONFIG5.values(), 1, P)} (a record, not a "
+            f"pass condition: the ranks share one card and the host's gloo)")
+    log(f"phase config 5 on 2 and 4 ranks: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 54. the CLI as users run it ----------------------------------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=repo_root)
+
+    def cli(*args, extra_env=None):
+        return subprocess.Popen([sys.executable, "-m", "ccve_tpu_torch.cli", *args],
+                                cwd=repo_root, env=dict(env, **(extra_env or {})),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(proc, what):
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what}: rc {proc.returncode}\n{err[-4000:]}")
+        return out
+
+    base = json.loads(result(cli("baseline", "--config", "5"), "cli baseline --config 5")
+                      .strip().splitlines()[-1])
+    if (base["count"], base["payload_checksums"]) != CONFIG5_WANT or base["overflow"]:
+        raise AssertionError(f"cli baseline --config 5: {base}")
+    flat1 = json.loads(result(cli("dist", "--shuffle", "flat"), "cli dist --shuffle flat")
+                       .strip().splitlines()[-1])
+    rendezvous = f"file://{store}/cli-dist-{os.getpid()}"
+    pair = [cli("dist", "--shuffle", "bcast", "--backend", "gloo",
+                extra_env={"CCVE_COORDINATOR": rendezvous, "CCVE_NUM_PROCESSES": "2",
+                           "CCVE_PROCESS_ID": str(rank)}) for rank in (0, 1)]
+    bcast2 = [json.loads(result(p, "cli dist --shuffle bcast").strip().splitlines()[-1])
+              for p in pair]
+    for r in (flat1, *bcast2):
+        if (r["count"], r["payload_checksums"]) != CONFIG5_WANT or r["overflow"]:
+            raise AssertionError(f"cli dist: {r}")
+    if [r["num_processes"] for r in bcast2] != [2, 2] or flat1["cross_checked"] is not True:
+        raise AssertionError(f"cli dist: {flat1}, {bcast2}")
+    roof = result(cli("roofline", "--dist", "--n-levels", "2"), "cli roofline --dist")
+    if "distributed shuffle cost model" not in roof or "x 2 level(s)" not in roof:
+        raise AssertionError(f"cli roofline --dist --n-levels 2:\n{roof}")
+    log(f"phase cli (config 5): ok ({time.perf_counter() - t0:.1f} s); baseline --config 5 "
+        f"{json.dumps(base)}")
+    log(f"  cli dist --shuffle flat (one NCCL rank, cross-checked): {json.dumps(flat1)}")
+    log(f"  cli dist --shuffle bcast --backend gloo, two processes on the card (CCVE_*): "
+        f"{json.dumps(bcast2[0])}")
+    log("  cli roofline --dist --n-levels 2:\n" + roof.rstrip())
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -957,24 +1483,7 @@ def main() -> int:
                              "drain_segment", "drain_segment_occ", "chunk_rank",
                              *SLICE_3B_WRAPPERS, "ce_stages_i32"], 0)
 
-    def same(name: str, got, want, what: str):
-        """Exact equality of a kernel's output with its plain version's:
-        a tensor, or a (keys, [planes]) / (a, b) structure of them."""
-        if isinstance(want, (tuple, list)):
-            if len(got) != len(want):
-                raise AssertionError(f"{name} {what}: {len(got)} outputs vs {len(want)}")
-            for g, w in zip(got, want):
-                same(name, g, w, what)
-            return
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name} {what}: {got.shape}/{got.dtype} "
-                                 f"vs plain {want.shape}/{want.dtype}")
-        err = 0
-        if got.numel():
-            err = int((got.long() - want.long()).abs().max())
-        max_err[name] = max(max_err[name], err)
-        if err:
-            raise AssertionError(f"{name} {what}: max |kernel - plain| = {err}")
+    same = exact(max_err)
 
     # ---- 3. kernels against plain versions, small ragged shapes ------------
     rng = np.random.default_rng(0)
@@ -1249,33 +1758,7 @@ def main() -> int:
     log(f"phase slice-2 kernels (small shapes): ok ({time.perf_counter() - t0:.1f} s), "
         f"max |kernel - plain| {max_err}")
 
-    def path_kernels(tbl, col, path, key="i32"):
-        """The stats side's kernel route step by step at a path's shapes,
-        on int32 (`key` "i32") or int64 ("i64") keys, each kernel against
-        its plain version on the same input; returns the inputs, for the
-        times."""
-        tl = pairsort.TILE_LOG
-        n = col.numel()
-        pack = sm.stats_pack32_streams if key == "i32" else sm.stats_pack64_streams
-        sort_tiles = getattr(pairsort, f"sort_tiles_multi_{key}")
-        merge_level = getattr(pairsort, f"merge_level_multi_{key}")
-        merge_two = getattr(pairsort, f"merge_two_multi_{key}")
-        b32, p32 = pack(tbl, col)
-        rows = torch.arange(n, dtype=torch.int32, device=col.device)
-        pk, pv = pairsort.pad_to_tile(p32, [rows], tl)
-        level_in = [sort_tiles(pk, pv, tl)]
-        same(f"sort_tiles_multi_{key}", level_in[0], pairsort.sort_tiles_multi_plain(pk, pv, tl), path)
-        for lv in range(max((pk.numel() >> tl) - 1, 0).bit_length()):
-            k, v = level_in[-1]
-            level_in.append(merge_level(k, v, tl + lv))
-            same(f"merge_multi_{key}", level_in[-1],
-                 pairsort.merge_level_multi_plain(k, v, tl + lv), f"{path} level {tl + lv}")
-        sk, sv = level_in.pop()
-        two = (sk[:n], [x[:n] for x in sv], b32, [tbl.payloads.to(torch.int32)])
-        merged = merge_two(*two)
-        same(f"merge_multi_{key}", merged, pairsort.merge_two_multi_plain(*two), f"{path} merge two")
-        return {"probe": (p32, rows), "tile": (pk, pv), "levels": level_in, "two": two,
-                "merged": merged}
+    path_kernels = functools.partial(stats_path, same)
 
     def path_ms(inputs, key="i32"):
         """(kernel ms, plain ms) of the sort and merges of one call."""
@@ -3030,6 +3513,9 @@ def main() -> int:
     # ---- 46-50. slice 8: config 4, the aggregates, the radix sort, the CSR build ---
     launches4 = config4_phases(card, repo_root, same)
 
+    # ---- 51-54. slice 9: the distributed tier at config 5 ---------------------------
+    launches9 = dist_phases(card, repo_root, max_err)
+
     sources = {
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
@@ -3110,6 +3596,10 @@ def main() -> int:
     # slice 8: config 4's counted query and histogram (phase 46) launch the
     # count side (#1-#3) and #12
     for name, k in launches4.items():
+        launches[name] += k
+    # slice 9: the distributed plans' counted runs, one a plan (phases 51-52
+    # on one rank; phase 53's summed over its ranks) launch #6-#9 and #12
+    for name, k in launches9.items():
         launches[name] += k
     entries = []
     for name in sources:

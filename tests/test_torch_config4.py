@@ -110,6 +110,17 @@ def test_cli_tiny_config4_matches_jax():
 
 
 def test_cli_config5_still_exits_2():
+    """The name is from before slice 9: `baseline --config 5` runs now,
+    and its tiny run equals the JAX package's count."""
     proc = _cli("baseline", "--config", "5", "--tiny", "--device", "cpu")
-    assert proc.returncode == 2
-    assert "not ported yet (slice 9)" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = jax_configs.config5_distributed(n_build=2048, n_probe=20_000, n_devices=1)
+    assert (got["name"], got["n_devices"], got["n_build"], got["n_probe"]) == (
+        "config5_distributed", 1, 2048, 20_000)
+    assert got["skew"] == want["skew"] == 1.0
+    assert got["overflow"] is want["overflow"] is False
+    keys, payloads = jax_datagen.gen_rhs_table(2048, 1)
+    probe = jax_datagen.gen_probe_table(20_000, 1, 2048)
+    count, checksum = configs.numpy_totals(keys, payloads, probe[:, 0])
+    assert (got["count"], got["payload_checksums"]) == (count, [checksum])

@@ -243,10 +243,24 @@ def test_cli_roofline_prints_the_report():
 
 
 @pytest.mark.parametrize("args", [["--dist"], ["--n-levels", "2"], ["--dist", "--anchor"]])
-def test_cli_roofline_dist_is_not_ported(args, capsys):
-    assert cli.main(["roofline", *args]) == 2
+def test_cli_roofline_dist_is_not_ported(args, capsys, monkeypatch):
+    """The name is from before slice 9: `--dist` and `--n-levels` are ported
+    now. `--dist` adds the distributed cost model to the report,
+    `--n-levels` alone changes nothing (as in the JAX CLI), and `--anchor`
+    still needs the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if "--anchor" in args:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["roofline", *args])
+        return
+    assert cli.main(["roofline", *args]) == 0
     out = capsys.readouterr()
-    assert "not ported yet (slice 9)" in out.err and out.out == ""
+    want = roofline.report(1_000_000, 16_000_000, None)
+    if "--dist" in args:
+        from ccve_tpu_torch.bench.dist_model import report_dist
+
+        want += "\n\n" + report_dist(1_000_000, 16_000_000, 1)
+    assert out.out.strip() == want and out.err == ""
 
 
 def test_cli_roofline_anchor_needs_the_card_unless_asked(monkeypatch, capsys):

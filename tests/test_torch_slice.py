@@ -184,8 +184,12 @@ def test_cli_tiny_materialize_matches_jax():
 @pytest.mark.parametrize(
     "args, message",
     [
-        (["--config", "5"], "not ported yet"),
-        (["--config", "5", "--engine", "hash_lp"], "not ported yet"),
+        # config 5 is ported (slice 9): its cases, whose ids date from before,
+        # now check that it refuses config 1's flags
+        pytest.param(["--config", "5", "--materialize"], "--config 1 only",
+                     id="args0-not ported yet"),
+        pytest.param(["--config", "5", "--engine", "hash_lp"], "--config 1 only",
+                     id="args1-not ported yet"),
         (["--config", "3", "--materialize"], "--config 1 only"),
     ],
 )
@@ -225,7 +229,8 @@ def test_port_imports_no_jax():
                  "utils.profiler", "kernels.chunk_probe", "device", "bench.small_probe",
                  "bench.roofline", "kernels.ce_stages", "core.collection", "bench.micro",
                  "bench.configs", "ops.aggregate", "ops.sort", "parallel",
-                 "parallel.distributed"):
+                 "parallel.distributed", "parallel.dist_aggregate", "parallel.bootstrap",
+                 "parallel.dryrun", "bench.dist_model"):
         assert f"ccve_tpu_torch.{name}" in names.split()
 
 
