@@ -45,9 +45,17 @@ of the build keys in the runs, right minus left, summed over the runs
 at the LP ladder's first stage on config 1 (two planes, the lanes live
 after step 0), one line each beside the one library call `planes[:,
 mask]` alone, without the plain version's zeros and copy
-(`compact_cases`). `--only` names the groups to read (rank, counts,
-merge_two, probe_sort, stats, tile_sort, count_levels, merge_counts,
-compact, drain; all by default). Every line gives:
+(`compact_cases`). For #17 (`ce_stages_i32`, the roofline's calibration)
+over 2^24 keys at K = 16, 32, 48 and 64 it prints one line a K with its
+launches a call, and, with `--parent DIR` (a tree unpacked from a parent
+commit), one for that tree's csrc/ce_stages.cu built beside this tree's
+and launched raw, in turns; then each K's shared-memory floor
+(`roofline.smem_floor_ms` on the card's SMs at its largest SM clock) and
+bound, each tree's K-slope with its times' largest deviation from one
+line, and both builds' ptxas -v lines (`ce_stages_splits`). `--only`
+names the groups to read (rank, counts, merge_two, probe_sort, stats,
+tile_sort, count_levels, merge_counts, compact, drain, ce_stages; all by
+default). Every line gives:
 
 - `call_ms`: CUDA events around one eager call, median (min, max) of
   2 * REPS calls: what a caller pays, the larger of the host's enqueue
@@ -78,8 +86,10 @@ from __future__ import annotations
 import functools
 import json
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -87,7 +97,7 @@ import torch
 from ccve_tpu_torch.bench.configs import config1_host
 from ccve_tpu_torch.bench.profile_config1 import busy_window
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu_torch.kernels import bigsort, drain, merge_scan, pairsort
+from ccve_tpu_torch.kernels import _build, bigsort, drain, merge_scan, pairsort
 from ccve_tpu_torch.kernels.chunk_probe import chunk_rank, chunk_rank_plain
 from ccve_tpu_torch.ops import sort_merge as sm
 
@@ -782,6 +792,108 @@ def compact_cases(device) -> list:
     return out
 
 
+CE_N = 1 << 24  # #17's keys, as `roofline.measure_anchors` times them
+CE_STAGES = (16, 32, 48, 64)
+
+
+def build_ce_stages(src: Path, lib_path: Path):
+    """(ctypes entry `ccve_ce_stages_i32`, ptxas' -v lines) of one copy of
+    csrc/ce_stages.cu (this tree's or a parent tree's), built alone into
+    `lib_path`."""
+    import ctypes
+
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+                           "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    entry = ctypes.CDLL(str(lib_path)).ccve_ce_stages_i32
+    entry.argtypes = _build._ENTRY_POINTS["ccve_ce_stages_i32"]
+    entry.restype = ctypes.c_int
+    return entry, [line.strip() for line in proc.stderr.splitlines() if line.strip()]
+
+
+def ce_stages_splits(device, parent: Path | None) -> dict:
+    """{name: split} of #17 over CE_N keys at each of CE_STAGES: through
+    its wrapper, with its launches a call by counter, and, where `parent`
+    (a tree unpacked from a parent commit) is given, that tree's
+    csrc/ce_stages.cu built beside it and launched raw into one output, in
+    turns this tree, parent, parent, this tree; each first held exactly
+    against the plain version. Prints both builds' ptxas lines (this
+    tree's source built alone, as the parent's)."""
+    from ccve_tpu_torch.kernels import ce_stages
+
+    x = torch.from_numpy(np.random.default_rng(11).integers(0, 2**30, CE_N)
+                         .astype(np.int32)).to(device)
+    y = torch.empty_like(x)
+    trees = {"this tree": _build.CSRC / "ce_stages.cu"}
+    if parent is not None:
+        trees["parent"] = parent / "ccve_tpu_torch" / "kernels" / "csrc" / "ce_stages.cu"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ce_stages_") as tmp:
+        entries = {}
+        for i, (tree, src) in enumerate(trees.items()):
+            entries[tree], lines = build_ce_stages(src, Path(tmp) / f"ce_stages_{i}.so")
+            for line in lines:
+                print(f"PTXAS #17 {tree}: {line}")
+        for k in CE_STAGES:
+            want = ce_stages.ce_stages_plain(x, k)
+            if not torch.equal(ce_stages.ce_stages_i32(x, k), want):
+                raise AssertionError(f"ce_stages_i32 K={k}: disagrees with its plain version")
+            name, calls = f"ce_stages_i32 K={k} (this tree)", [0]
+
+            def wrapper(k=k, calls=calls):
+                calls[0] += 1
+                return ce_stages.ce_stages_i32(x, k)
+
+            fns = {name: wrapper}
+            if parent is not None:
+                def raw(k=k, entry=entries["parent"]):
+                    _build.check(entry(x.data_ptr(), y.data_ptr(), CE_N >> ce_stages.TILE_LOG,
+                                       k, _build.stream(x)), "the parent's ce_stages_i32")
+
+                y.fill_(-1)
+                raw()
+                if not torch.equal(y, want):
+                    raise AssertionError(f"the parent's ce_stages_i32 K={k}: disagrees with "
+                                         "the plain version")
+                fns[f"ce_stages_i32 K={k} (parent)"] = raw
+            before = ce_stages.ce_stages_i32.launches
+            got = in_turns(fns) if parent is not None else {name: split(wrapper)}
+            got[name]["launches"] = {
+                "ce_stages_i32": (ce_stages.ce_stages_i32.launches - before) / calls[0]}
+            out.update(got)
+    return out
+
+
+def print_ce_stages(splits: dict) -> None:
+    """The SPLIT lines of `ce_stages_splits`, each K's shared-memory floor
+    and bound, and each tree's K-slope with its largest deviation from
+    one line, from the chain and the device times."""
+    from ccve_tpu_torch.bench import roofline
+
+    _print_splits(splits)
+    sms, clock_hz = roofline.smem_rate()
+    for k in CE_STAGES:
+        b_ms, b_by = roofline.bound_ms(8 * CE_N, k * CE_N)
+        print(f"FLOOR #17 K={k}: shared-memory floor "
+              f"{roofline.smem_floor_ms(CE_N, k, sms, clock_hz):.4f} ms ({sms} SMs at "
+              f"{clock_hz / 1e9:.3f} GHz, {roofline.SMEM_BYTES_PER_CLOCK} B a clock), bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    for tree in ("this tree", "parent"):
+        rows = [splits.get(f"ce_stages_i32 K={k} ({tree})") for k in CE_STAGES]
+        if None in rows:
+            continue
+        for what, ms in (("chain", [r["chain_ms"] for r in rows]),
+                         ("device", [r["device"]["us"] / 1e3 for r in rows])):
+            slope, intercept, worst = roofline.stage_line(CE_STAGES, ms)
+            print(f"SLOPE #17 {tree} ({what}): {slope / CE_N * 1e9:.4f} ps a key a stage "
+                  f"(intercept {intercept:.4f} ms), (t64 - t16) / 48 / n "
+                  f"{(ms[-1] - ms[0]) / 48 / CE_N * 1e9:.4f} ps, largest deviation from the "
+                  f"line {worst * 100:.2f}%; floor "
+                  f"{roofline.smem_floor_ms(1, 1, sms, clock_hz) * 1e9:.4f} ps")
+
+
 def counted_splits(cases) -> dict:
     """{name: split} of (name, fn, counters, yardstick name, yardstick fn)
     cases, each kernel read in turns with its yardstick, with its launches
@@ -804,7 +916,7 @@ def counted_splits(cases) -> dict:
 
 
 GROUPS = ("rank", "counts", "merge_two", "probe_sort", "stats", "tile_sort", "count_levels",
-          "merge_counts", "compact", "drain")
+          "merge_counts", "compact", "drain", "ce_stages")
 
 
 def _print_splits(splits: dict) -> None:
@@ -819,7 +931,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(GROUPS),
                         help=f"comma-separated groups to read, of {', '.join(GROUPS)}")
-    groups = set(parser.parse_args(argv).only.split(","))
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a tree unpacked from a parent commit: its csrc/ce_stages.cu is "
+                        "built and timed beside this tree's (group ce_stages)")
+    args = parser.parse_args(argv)
+    groups = set(args.only.split(","))
     if groups - set(GROUPS):
         parser.error(f"unknown groups {sorted(groups - set(GROUPS))}")
     if not torch.cuda.is_available():
@@ -912,6 +1028,11 @@ def main(argv=None) -> int:
         for name, r in drains.items():
             print(f"SPLIT {name}: {summary(r)}; launches a call {r['launches']:g}, grid "
                   f"{r['grid']}")
+    if "ce_stages" in groups:
+        ce = ce_stages_splits(device, args.parent)
+        print(f"#17 over 2^24 keys at K = {', '.join(map(str, CE_STAGES))}"
+              f"{', beside the parent tree' if args.parent else ''}, on [{card}]:")
+        print_ce_stages(ce)
     return 0
 
 if __name__ == "__main__":

@@ -22,11 +22,15 @@ reads its bounds from this module):
   ALU_OPS_PER_S 67e12 op/s, its non-tensor float32 rate, taken as the rate
                 of one integer compare or add (the data sheet gives no
                 int32 rate)
-  STAGE_COST    0.5002e-12 s per element per compare-exchange stage of a
-                tile in shared memory: anchor A's K-slope (`measure_anchors`),
-                measured by `python -m ccve_tpu_torch.cli roofline --anchor`
-                on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-                (0.5002 and 0.5017 ps in two runs; PERF.md)
+  STAGE_COST    0.24115e-12 s per element per compare-exchange stage of
+                a tile in shared memory: anchor A's K-slope
+                (`measure_anchors`), the median of two runs of `python -m
+                ccve_tpu_torch.cli roofline --anchor` on an NVIDIA H100 80GB
+                HBM3 at a 700.00 W power limit (0.2420 and 0.2403 ps; PERF.md),
+                with csrc/ce_stages.cu's bank-conflict-free stages: 1.01x
+                the card's shared-memory floor, SMEM_BYTES_PER_CLOCK on 132
+                SMs at 1.98 GHz (`smem_floor_ms`: 0.2391 ps). The first
+                design's 2-way bank conflicts read 0.5002-0.5017 ps.
 
 The merge counts are one streaming read of each run's slices, staged in
 shared memory (csrc/merge_counts.cu), so their row is priced by its bytes
@@ -39,6 +43,7 @@ Run `python -m ccve_tpu_torch.cli roofline [--n-build N --n-probe N]
 
 from __future__ import annotations
 
+import subprocess
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -53,10 +58,11 @@ from ccve_tpu_torch.ops import sort_merge
 
 BW_HBM = 3.35e12  # B/s, H100 SXM HBM3
 ALU_OPS_PER_S = 67e12  # op/s, H100 SXM non-tensor float32, as one integer op
-STAGE_COST = 0.5002e-12  # s per element per CE stage, anchor A on the H100
+STAGE_COST = 0.24115e-12  # s per element per CE stage, anchor A on the H100
 I32 = 4
 ANCHOR_REPEATS = 7  # turns of the anchors' three timed runs
 TILE_ITEMS = 16  # keys a thread of the tile sort sorts in registers (csrc/sort_tiles.cu)
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory: 32 banks of 4 bytes a clock
 
 
 @dataclass
@@ -80,6 +86,37 @@ class OpModel:
     @property
     def bound(self) -> str:
         return "ALU" if self.t_alu > self.t_hbm else "HBM"
+
+
+def smem_rate() -> tuple[int, float]:
+    """(SMs, the largest SM clock in Hz) of the current card: the SMs from
+    `torch.cuda.get_device_properties`, the clock from `nvidia-smi
+    --query-gpu=clocks.max.sm`."""
+    index = torch.cuda.current_device()
+    mhz = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return torch.cuda.get_device_properties(index).multi_processor_count, float(mhz) * 1e6
+
+
+def smem_floor_ms(n: int, n_stages: int, sms: int, clock_hz: float) -> float:
+    """The least ms of `n_stages` passes over n int32 keys in shared memory
+    (one load and one store of each key a pass, as a compare-exchange stage
+    of csrc/ce_stages.cu makes) at SMEM_BYTES_PER_CLOCK a clock on each of
+    `sms` SMs."""
+    return 2 * I32 * n * n_stages / (sms * SMEM_BYTES_PER_CLOCK * clock_hz) * 1e3
+
+
+def stage_line(stages, ms) -> tuple[float, float, float]:
+    """(slope in ms a stage, intercept in ms, the largest |t - line| / t)
+    of the least-squares line through the times `ms` at `stages`: where
+    the times lie on one line, the slope is the cost of a stage alone."""
+    stages, ms = np.asarray(stages, float), np.asarray(ms, float)
+    slope, intercept = np.polyfit(stages, ms, 1)
+    return float(slope), float(intercept), float(np.max(np.abs(ms - (slope * stages + intercept))
+                                                        / ms))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -155,7 +192,7 @@ def report(
     lines = [
         f"count-side join roofline on the H100 SXM @ {n_build / 1e6:.1f}M build / "
         f"{n_probe / 1e6:.1f}M probe (HBM {BW_HBM / 1e9:.0f} GB/s, stage "
-        f"{STAGE_COST * 1e12:.4f} ps/elem)",
+        f"{STAGE_COST * 1e12:.5g} ps/elem)",
         f"{'operator':{w}s} {'MB':>8s} {'t_hbm':>9s} {'t_alu':>9s} {'t_sol':>9s} bound",
     ]
     for op in ops:
@@ -253,7 +290,7 @@ def measure_anchors(n: int = 1 << 24, niter: int = 16, device="cuda") -> str:
              else "the host's CPU, host clock: not a device time")
     return (
         f"STAGE_COST anchors @ n={n / 1e6:.1f}M i32 on {where}, {niter} chained calls, "
-        f"median [min, max] of {ANCHOR_REPEATS} (model constant {STAGE_COST * 1e12:.4f} "
+        f"median [min, max] of {ANCHOR_REPEATS} (model constant {STAGE_COST * 1e12:.5g} "
         f"ps/elem/stage):\n"
         f" A. CE-stage kernel K-slope (t64 {_spread_ms(times['t64'])} / t16 "
         f"{_spread_ms(times['t16'])}): {a_cost * 1e12:.4f} ps/elem/stage "

@@ -182,9 +182,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     8192-probe times.
 39. #17, the compare-exchange stages of the roofline's calibration, against
     its plain version, exactly: n = 8192 and 3 x 8192 at K = 1, 3, 16, and
-    n = 2^24 at K = 16 and 64 (kernel and plain times, and the bound from
-    bench/roofline.py's constants); then `roofline.measure_anchors()` in
-    this process, #17's counter zeroed just before.
+    n = 2^24 at K = 16, 32, 48 and 64 (kernel and plain times, the bound
+    from bench/roofline.py's constants, and the shared-memory floor from
+    the card's SMs and largest SM clock; the K-slope and the times' largest
+    deviation from one line); then `roofline.measure_anchors()` in this
+    process, #17's counter zeroed just before.
 40. The slice through its entry point: `python -m ccve_tpu_torch.cli
     roofline --anchor --measured-ms <phase 5's bulk_count median>` in a
     process of its own: its operator rows, both anchors and the percent of
@@ -3419,7 +3421,7 @@ def main() -> int:
                  ce_stages.ce_stages_plain(x_ce, k_ce), f"n={n_ce} K={k_ce}")
     x_ce = values(1 << 24)
     ce_ms = {}
-    for k_ce in (16, 64):
+    for k_ce in (16, 32, 48, 64):
         same("ce_stages_i32", ce_stages.ce_stages_i32(x_ce, k_ce),
              ce_stages.ce_stages_plain(x_ce, k_ce), f"n=2^24 K={k_ce}")
         ce_ms[k_ce] = (
@@ -3438,14 +3440,26 @@ def main() -> int:
     kernel_ms["ce_stages_i32"] = ce_ms[64]
     work["ce_stages_i32"] = (8 * x_ce.numel(), 64 * x_ce.numel())
     log(f"phase #17 (ce_stages_i32): ok ({time.perf_counter() - t0:.1f} s), equal to its plain "
-        f"version at n = 8192 and 24576 (K = 1, 3, 16) and 2^24 (K = 16, 64); "
+        f"version at n = 8192 and 24576 (K = 1, 3, 16) and 2^24 (K = 16, 32, 48, 64); "
         f"{launches['ce_stages_i32']} launches in measure_anchors()")
-    log(f"times on [{card}], CUDA events, medians of {REPS}, one launch over 2^24 keys:")
+    # #17's own floor: K passes of 8 bytes a key through the SMs' shared memory
+    sms, clock_hz = roofline.smem_rate()
+    log(f"times on [{card}], CUDA events, medians of {REPS}, one launch over 2^24 keys; "
+        f"shared-memory floor at {roofline.SMEM_BYTES_PER_CLOCK} B a clock on {sms} SMs at "
+        f"{clock_hz / 1e9:.3f} GHz (clocks.max.sm):")
     for k_ce, (kt, pt) in ce_ms.items():
         b_ms, b_by = bound(8 * x_ce.numel(), k_ce * x_ce.numel())
+        floor_ms = roofline.smem_floor_ms(x_ce.numel(), k_ce, sms, clock_hz)
         log(f"  ce_stages_i32 K={k_ce}: kernel {kt:.4f} ms, plain {pt:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {8 * x_ce.numel()} bytes at {roofline.BW_HBM:.3g} B/s, "
-            f"{k_ce * x_ce.numel()} operations at {roofline.ALU_OPS_PER_S:.3g} op/s)")
+            f"{k_ce * x_ce.numel()} operations at {roofline.ALU_OPS_PER_S:.3g} op/s), "
+            f"shared-memory floor {floor_ms:.4f} ms ({floor_ms / kt * 100:.1f}% of it reached)")
+    slope, intercept, worst = roofline.stage_line(list(ce_ms), [t[0] for t in ce_ms.values()])
+    log(f"  K-slope over K = {', '.join(map(str, ce_ms))}: {slope / x_ce.numel() * 1e9:.4f} "
+        f"ps a key a stage (least squares; intercept {intercept:.4f} ms), (t64 - t16) / 48 / n "
+        f"{(ce_ms[64][0] - ce_ms[16][0]) / 48 / x_ce.numel() * 1e9:.4f} ps; largest deviation "
+        f"from the line {worst * 100:.2f}%; the floor's "
+        f"{roofline.smem_floor_ms(1, 1, sms, clock_hz) * 1e9:.4f} ps")
     log("  measure_anchors() in this process:\n" + anchors)
     del x_ce
 

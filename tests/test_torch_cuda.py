@@ -965,7 +965,7 @@ def test_slice_3b_reaches_the_kernels(cuda):
     assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
 
 
-@pytest.mark.parametrize("n_tiles", [1, 3, 64])
+@pytest.mark.parametrize("n_tiles", [1, 3, 64, 1 << 11])
 @pytest.mark.parametrize("n_stages", [0, 1, 2, 3, 7, 16, 64])
 def test_ce_stages_kernel(cuda, n_tiles, n_stages):
     from ccve_tpu_torch.kernels.ce_stages import TILE_LOG, ce_stages_i32, ce_stages_plain
@@ -978,11 +978,34 @@ def test_ce_stages_kernel(cuda, n_tiles, n_stages):
     assert torch.equal(got, ce_stages_plain(x, n_stages))
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ce_stages_kernel_on_a_view_not_16_byte_aligned(cuda, offset):
+    """A contiguous view that starts 4, 8 or 12 bytes into its storage: the
+    kernel's copies then move a key a thread (the stages are the same)."""
+    from ccve_tpu_torch.kernels.ce_stages import TILE_LOG, ce_stages_i32, ce_stages_plain
+
+    rng = np.random.default_rng(offset)
+    x = _i32(rng.integers(-(2**31), 2**31 - 1, (3 << TILE_LOG) + 8), cuda)[offset:]
+    x = x[:3 << TILE_LOG]
+    for n_stages in (0, 3, 16):
+        assert torch.equal(ce_stages_i32(x, n_stages), ce_stages_plain(x, n_stages))
+
+
 def test_ce_stages_kernel_refuses_a_ragged_length(cuda):
     from ccve_tpu_torch.kernels.ce_stages import ce_stages_i32
 
     with pytest.raises(ValueError, match="multiple"):
         ce_stages_i32(torch.zeros(8191, dtype=torch.int32, device=cuda), 3)
+
+
+def test_smem_rate_on_card(cuda):
+    """The card's SMs and largest SM clock, as #17's floor reads them."""
+    from ccve_tpu_torch.bench.roofline import smem_floor_ms, smem_rate
+
+    sms, clock_hz = smem_rate()
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    assert 5e8 < clock_hz < 5e9
+    assert smem_floor_ms(1 << 24, 16, sms, clock_hz) > 0
 
 
 def test_measure_anchors_on_card(cuda):

@@ -177,14 +177,17 @@ def test_small_probes_are_not_modelled(n):
 
 
 def test_config1_model():
-    """Config 1's operators: each speed-of-light is the larger bound; the
-    tile sort is bound by its stages, everything else by bandwidth; the
-    plan is the one the count side runs at the port's tile."""
+    """Config 1's operators: each speed-of-light is the larger bound; with
+    the H100's STAGE_COST (below t_hbm / (9 n_pad), 0.2653 ps) the tile
+    sort's 9 merge-path rounds take less than its device-memory round trip,
+    so every operator is bound by bandwidth; the plan is the one the count
+    side runs at the port's tile."""
     ops = roofline.count_side_model(1_000_000, 16_000_000)
     assert len(ops) == 5
     for op in ops:
         assert op.t_sol == max(op.t_hbm, op.t_alu)
-    assert [op.bound for op in ops] == ["HBM", "ALU", "HBM", "HBM", "HBM"]
+    assert [op.bound for op in ops] == ["HBM", "HBM", "HBM", "HBM", "HBM"]
+    assert ops[1].t_alu < ops[1].t_hbm == ops[1].t_sol
     plan = roofline.count_side_plan(1_000_000, 16_000_000)
     assert plan == roofline.CountSidePlan(16_007_168, bigsort.TILE_LOG, 21, 8, 8)
     assert ops[1].stage_passes == 9 * plan.n_pad  # 512 threads' runs, 9 merge-path rounds
@@ -195,6 +198,33 @@ def test_config1_model():
 def test_bound_ms():
     assert roofline.bound_ms(3.35e9, 0) == (pytest.approx(1.0), "bytes")
     assert roofline.bound_ms(0, 67e9) == (pytest.approx(1.0), "operations")
+
+
+def test_smem_floor_ms():
+    """#17's floor: 8 bytes a key a stage at 128 bytes a clock an SM; on
+    the H100 (132 SMs, 1.98 GHz) 2^24 keys take 4.01 µs a stage."""
+    one = roofline.smem_floor_ms(1 << 24, 1, 132, 1.98e9)
+    assert one == pytest.approx(8 * 2**24 / (132 * 128 * 1.98e9) * 1e3)
+    assert one == pytest.approx(0.004012, rel=1e-3)
+    assert roofline.smem_floor_ms(1 << 24, 64, 132, 1.98e9) == pytest.approx(64 * one)
+    assert roofline.smem_floor_ms(1 << 24, 0, 132, 1.98e9) == 0
+
+
+@pytest.mark.parametrize("bent", [0.0, 0.1])
+def test_stage_line(bent):
+    """Times on one line give its slope and intercept and no deviation; a
+    bent point shows as the largest |t - line| / t."""
+    stages = [16, 32, 48, 64]
+    ms = [0.02 + 0.004 * k for k in stages]
+    ms[0] *= 1 + bent
+    slope, intercept, worst = roofline.stage_line(stages, ms)
+    if not bent:
+        assert (slope, intercept, worst) == (pytest.approx(0.004), pytest.approx(0.02),
+                                            pytest.approx(0, abs=1e-12))
+    else:
+        fit = np.polyval(np.polyfit(stages, ms, 1), stages)
+        assert worst == pytest.approx(np.max(np.abs(np.array(ms) - fit) / ms))
+        assert worst > 0.01
 
 
 def test_report_prints_every_row_and_the_measured_line():
