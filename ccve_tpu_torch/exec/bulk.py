@@ -49,6 +49,7 @@ from ccve_tpu_torch.ops.sort_merge import (
     sorted_match_stats,
     sorted_match_totals,
 )
+from ccve_tpu_torch.utils import profiler
 
 TABLE_TYPES = (SortedTable, LPTable, CSRTable)
 
@@ -242,28 +243,31 @@ def bulk_count(
     or CSR, one a level), without materializing output; optionally in
     `tile_rows`-row slices to bound memory. The probe columns move to the
     first table's device; an int32 column stays int32 for a sorted
-    table."""
+    table. The call is the root span `bulk.count` of a query
+    (`utils.profiler.span`); a single level over a sorted table records
+    the count side's steps as its children."""
     tables = _check_tables(tables)
     probe = torch.as_tensor(probe_rows)
     if probe.dim() != 2 or probe.shape[1] != len(tables):
         raise ValueError(
             f"probe_rows must be [n, {len(tables)}], got {tuple(probe.shape)}"
         )
-    if probe.dtype != torch.int32:
-        probe = probe.to(torch.int64)
-    probe = probe.to(tables[0].device)
-    cols = [probe[:, level].contiguous() for level in range(len(tables))]
     n = probe.shape[0]
-    if tile_rows is None or tile_rows >= n:
-        return _bulk_count(tables, cols)
-    if tile_rows < 1:
-        raise ValueError(f"tile_rows {tile_rows} < 1")
-    count, checksums = 0, 0
-    for start in range(0, n, tile_rows):
-        r = _bulk_count(tables, [c[start : start + tile_rows] for c in cols])
-        count = count + r.count
-        checksums = checksums + r.payload_checksums
-    return BulkResult(count=count, payload_checksums=checksums)
+    with profiler.span("bulk.count", device=tables[0].device):
+        if probe.dtype != torch.int32:
+            probe = probe.to(torch.int64)
+        probe = probe.to(tables[0].device)
+        cols = [probe[:, level].contiguous() for level in range(len(tables))]
+        if tile_rows is None or tile_rows >= n:
+            return _bulk_count(tables, cols)
+        if tile_rows < 1:
+            raise ValueError(f"tile_rows {tile_rows} < 1")
+        count, checksums = 0, 0
+        for start in range(0, n, tile_rows):
+            r = _bulk_count(tables, [c[start : start + tile_rows] for c in cols])
+            count = count + r.count
+            checksums = checksums + r.payload_checksums
+        return BulkResult(count=count, payload_checksums=checksums)
 
 
 def _expand_sorted(table: SortedTable, keys: torch.Tensor):

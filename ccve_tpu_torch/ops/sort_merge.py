@@ -51,6 +51,7 @@ import torch
 
 from ccve_tpu_torch.device import require_device
 from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
+from ccve_tpu_torch.utils import profiler
 
 # The static fields of a SortedTable, as `ccve_tpu.ops.sort_merge` has them.
 META_FIELDS = (
@@ -228,47 +229,95 @@ def _count_side_bc(p: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
     int64 routes' limb planes, per-run limb merges, split-plane ladders
     and tie fixup have no job: they exist because the TPU has no 64-bit
     lanes."""
-    n = p.numel()
-    if p.dtype == torch.int32 and n <= 1 << SMALL_PROBE_LOG:
+    plan, padded = _padded(p, m)
+    return _runs_bc(p, padded, plan, b, m)
+
+
+def _padded(p: torch.Tensor, m: int):
+    """(plan, padded) of probe stream p: the tile route's (n_pad, run_log,
+    tile_log) and p padded to n_pad keys with the key type's maximum, or
+    (None, None) where it takes the small-probe route."""
+    if p.dtype == torch.int32 and p.numel() <= 1 << SMALL_PROBE_LOG:
+        return None, None
+    tile_log = bigsort.TILE_LOG  # read per call, so a test can shrink it
+    n_pad, run_log = count_side_plan(p.numel(), m, tile_log)
+    padded = torch.cat([p, p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])])
+    return (n_pad, run_log, tile_log), padded
+
+
+def _runs_bc(p, padded, plan, b: torch.Tensor, m: int) -> torch.Tensor:
+    """`_count_side_bc` after `_padded`: the small-probe route where `plan`
+    is None, else the tile sort and ladder of `padded`, then the merge
+    counts, each a span of the open query that starts where the previous
+    step ended (nothing is enqueued between)."""
+    if plan is None:
         s = bigsort.merge_sorted_i32(p.sort().values, b)
         return merge_scan.merge_scan_build_counts(s, m)
-    tile_log = bigsort.TILE_LOG  # read per call, so a test can shrink it
-    n_pad, run_log = count_side_plan(n, m, tile_log)
-    padded = torch.cat([p, p.new_full((n_pad - n,), bigsort.PAD[p.dtype])])
-    runs = bigsort.sort_runs(padded, run_log, tile_log)
-    return merge_scan.MERGE_COUNTS[p.dtype](runs, 1 << run_log, n, b, m)
+    _, run_log, tile_log = plan
+    with profiler.span("count.sort_runs", follows=True):
+        runs = bigsort.sort_runs(padded, run_log, tile_log)
+    with profiler.span("count.merge_counts", follows=True):
+        return merge_scan.MERGE_COUNTS[p.dtype](runs, 1 << run_log, p.numel(), b, m)
 
 
-def _shifted_keys(table: SortedTable, probe_keys: torch.Tensor):
-    """(b, p): build keys as `key' << 1` and probe keys clamped into
-    [kmin - 1, kmin - 1 + span) and shifted the same way, both int32 and
-    untagged. An int32 probe column is clamped and shifted in int32 when
-    both clamp bounds fit, else in int64."""
+def _count_side(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
+    """`_count_side_bc` of a table and its probe column: int32 streams
+    when the table has `pack32`, else int64 streams (the table's key span
+    is below 2^62). Its steps are spans of the open query: the build keys'
+    shift; `_tagged` (the probe column's narrowing, then the build
+    stream's `| 1`) and the padding; then `_runs_bc`'s. `pack32_streams`
+    and `pack64_streams` are its first two steps, in its order."""
+    m = table.keys.numel()
+    wide = table.pack32 is None
+    with profiler.span("count.build_stream"):
+        b = (_build_key64 if wide else _build_key32)(table)
+    with profiler.span("count.narrow", follows=True):
+        p, b = _tagged(_probe_key64 if wide else _probe_key32, table, probe, b)
+        plan, padded = _padded(p, m)
+    return _runs_bc(p, padded, plan, b, m)
+
+
+def _tagged(probe_key, table: SortedTable, probe_keys: torch.Tensor, b: torch.Tensor):
+    """(p, b | 1) of the count side, from the build keys b of `_build_key32`
+    or `_build_key64`: the probe keys narrowed by `probe_key` (packed
+    even), then the builds tagged odd. The tag runs after the narrowing's
+    passes, so that the device starts on the probe column one launch
+    sooner while the host still enqueues."""
+    return probe_key(table, probe_keys).contiguous(), (b | 1).contiguous()
+
+
+def _build_key32(table: SortedTable) -> torch.Tensor:
+    """The build keys as `key' << 1`, int32, untagged (key' = key - kmin
+    + 1)."""
+    kmin, _ = table.pack32
+    # key' = key - kmin + 1: kmin - 1 is no int64 when kmin is INT64_MIN
+    return ((table.keys - kmin + 1) << 1).to(torch.int32)
+
+
+def _probe_key32(table: SortedTable, probe_keys: torch.Tensor) -> torch.Tensor:
+    """The probe keys clamped into [kmin - 1, kmin - 1 + span) and shifted
+    as `_build_key32`'s, int32, untagged. An int32 probe column is clamped
+    and shifted in int32 when both clamp bounds fit, else in int64."""
     kmin, key_bits = table.pack32
     key_lo = kmin - 1
     key_span = 1 << key_bits
-    # key' = key - kmin + 1: kmin - 1 is no int64 when kmin is INT64_MIN
-    b = ((table.keys - kmin + 1) << 1).to(torch.int32)
     if (
         probe_keys.dtype == torch.int32
         and -(2**31) <= key_lo
         and key_lo + key_span - 1 < 2**31
     ):
         clamped = probe_keys.clamp(key_lo, key_lo + key_span - 1)
-        p = (clamped - key_lo) << 1
-    else:
-        # clamp first, to bounds saturated at the int64 range, so the
-        # subtract cannot wrap
-        lo, hi = max(key_lo, I64_MIN), min(key_lo + key_span - 1, I64_MAX)
-        clamped = probe_keys.to(torch.int64).clamp(lo, hi)
-        p = ((clamped - kmin + 1) << 1).to(torch.int32)
-    return b, p
+        return (clamped - key_lo) << 1
+    # clamp first, to bounds saturated at the int64 range, so the
+    # subtract cannot wrap
+    lo, hi = max(key_lo, I64_MIN), min(key_lo + key_span - 1, I64_MAX)
+    clamped = probe_keys.to(torch.int64).clamp(lo, hi)
+    return ((clamped - kmin + 1) << 1).to(torch.int32)
 
 
 def pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
     """(p32, b32) of the count side: probes packed even, builds odd."""
-    b, p = _shifted_keys(table, probe_keys)
-    return p.contiguous(), (b | 1).contiguous()
+    return _tagged(_probe_key32, table, probe_keys, _build_key32(table))
 
 
 def stats_pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
@@ -276,45 +325,38 @@ def stats_pack32_streams(table: SortedTable, probe_keys: torch.Tensor):
     key's builds sort before its probes. Clamped probes match nothing: the
     low clamp sits below every build key', the high one above. With
     key_bits <= 29 the largest probe stays under INT32_MAX, the padding."""
-    b, p = _shifted_keys(table, probe_keys)
-    return b.contiguous(), (p | 1).contiguous()
+    return _build_key32(table).contiguous(), (_probe_key32(table, probe_keys) | 1).contiguous()
 
 
-def _shifted_keys64(table: SortedTable, probe_keys: torch.Tensor):
-    """(b, p) int64 of a wide table: build keys as `key' << 1` and probe
-    keys clamped into [kmin - 1, kmax + 1] and shifted the same way,
-    untagged. The bounds are 0-d tensors off the sorted table's ends (no
-    host read), saturated at the int64 range; the clamp comes before the
-    subtract, and key' is taken as key - kmin + 1, so nothing wraps. With
-    a span below 2^62 every packed key is below 2^63."""
+def _build_key64(table: SortedTable) -> torch.Tensor:
+    """The build keys of a wide table as `key' << 1`, int64, untagged
+    (key' = key - kmin + 1, kmin a 0-d tensor off the sorted table's
+    start: no host read)."""
+    return (table.keys - table.keys[0] + 1) << 1
+
+
+def _probe_key64(table: SortedTable, probe_keys: torch.Tensor) -> torch.Tensor:
+    """The probe keys of a wide table clamped into [kmin - 1, kmax + 1] and
+    shifted as `_build_key64`'s, int64, untagged. The bounds are 0-d
+    tensors off the sorted table's ends, saturated at the int64 range; the
+    clamp comes before the subtract, so nothing wraps. With a span below
+    2^62 every packed key is below 2^63."""
     kmin, kmax = table.keys[0], table.keys[-1]
     lo = kmin.clamp(min=I64_MIN + 1) - 1
     hi = kmax.clamp(max=I64_MAX - 1) + 1
-    b = (table.keys - kmin + 1) << 1
-    p = (probe_keys.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1
-    return b, p
+    return (probe_keys.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1
 
 
 def pack64_streams(table: SortedTable, probe_keys: torch.Tensor):
     """(p64, b64) of the count side of a wide table: probes packed even,
     builds odd."""
-    b, p = _shifted_keys64(table, probe_keys)
-    return p.contiguous(), (b | 1).contiguous()
+    return _tagged(_probe_key64, table, probe_keys, _build_key64(table))
 
 
 def stats_pack64_streams(table: SortedTable, probe_keys: torch.Tensor):
     """(b64, p64) of the stats side of a wide table: builds packed even,
     probes odd. Clamped probes match nothing."""
-    b, p = _shifted_keys64(table, probe_keys)
-    return b.contiguous(), (p | 1).contiguous()
-
-
-def _count_streams(table: SortedTable, probe_keys: torch.Tensor):
-    """(p, b) of the count side: int32 streams when the table has
-    `pack32`, else int64 streams (the table's key span is below 2^62)."""
-    if table.pack32 is not None:
-        return pack32_streams(table, probe_keys)
-    return pack64_streams(table, probe_keys)
+    return _build_key64(table).contiguous(), (_probe_key64(table, probe_keys) | 1).contiguous()
 
 
 def _full_range_build_counts(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
@@ -368,8 +410,7 @@ def sorted_build_counts(table: SortedTable, probe_keys) -> torch.Tensor:
         return torch.zeros(0, dtype=torch.int32, device=table.device)
     if table.pack32 is None and not table.span62:
         return _full_range_build_counts(table, probe)
-    p, b = _count_streams(table, probe)
-    return _count_side_bc(p, b, table.keys.numel())
+    return _count_side(table, probe)
 
 
 def sorted_match_totals(table: SortedTable, probe_keys):
@@ -385,8 +426,7 @@ def sorted_match_totals(table: SortedTable, probe_keys):
         return zero, zero.clone()
     if table.pack32 is None and not table.span62:
         return _full_range_totals(table, probe)
-    p, b = _count_streams(table, probe)
-    bc = _count_side_bc(p, b, table.keys.numel()).to(torch.int64)
+    bc = _count_side(table, probe).to(torch.int64)
     return bc.sum(), (bc * table.payloads).sum()
 
 

@@ -1,9 +1,11 @@
-"""Profiling suite: the reference's profilers, for the port.
+"""Profiling suite: the reference's profilers, for the port, and the
+port's spans.
 
 Port of `ccve_tpu.utils.profiler` (host code, copied: the port imports
 nothing of the JAX package). The reference instruments with
 (profiler.h:28-290):
- (a) `BaseProfiler`: a wall-clock stopwatch (`Timer`);
+ (a) `BaseProfiler`: a wall-clock stopwatch; not ported, since nothing of
+     the port reads one (the JAX package keeps its `Timer`);
  (b) `BeeProfiler`: named accumulators (total time and call count), printed
      sorted at exit;
  (c) `ZebraProfiler`: latency histograms keyed by chunk size, the tool that
@@ -16,6 +18,9 @@ sync), Zebra keys its histograms by chunk occupancy (the live-row count the
 executor records per emitted chunk, 0..block), and Cycle becomes
 `PhaseProfiler`: four named phases timed per call, with the bytes each
 moved.
+
+`Spans` is the port's own: the steps of a query, each timed on the host's
+clock and, on a GPU, on the device's (see `span`).
 """
 
 from __future__ import annotations
@@ -24,20 +29,11 @@ import csv
 import os
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
-
-class Timer:
-    """BaseProfiler (profiler.h:28-57): a simple stopwatch."""
-
-    def __init__(self):
-        self._t0 = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def elapsed(self) -> float:
-        return 0.0 if self._t0 is None else time.perf_counter() - self._t0
+import torch
+from torch.autograd import profiler as _torch_profiler
 
 
 @dataclass
@@ -208,3 +204,271 @@ class PhaseProfiler:
                 f"  {total * 1e9 / total_items:8.3f} ns/item"
             )
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Spans: the steps of a query, on the host's clock and the device's
+# ---------------------------------------------------------------------------
+
+_recording = 0  # open `Spans.recording()` blocks
+
+
+class _Off:
+    """The span of a recorder that is off: one shared object that does
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _Off()
+
+
+def span(name: str, device=None, follows: bool = False):
+    """A context manager that records one step of a query as a span. A
+    span opened with `device` while no span is open is a query's root; a
+    span opened inside a root is its child; any other span is not
+    recorded (a step called on its own).
+
+    The recorder is on inside `Spans.recording()`, where it records every
+    query, and while a torch.profiler session records, where it records
+    one query in `Spans.EVERY` (the rest open no span), so that its own
+    cost reaches a profiled stretch's readings a share that small. Off,
+    this checks the two flags and returns `NO_SPAN`, with no allocation,
+    clock read or CUDA call.
+
+    On, a span keeps its host start and end (`time.perf_counter_ns`): a
+    child's cover the recorder's own work for it, a root's leave its own
+    out, so that a root less its children (`self_host_ms`) is the call's
+    work alone. Where the root's device is a GPU, a child also records a
+    device start and end: CUDA events on the stream current at the root's
+    entry, at the child's entry and exit, from a pool. `follows` says
+    that nothing was enqueued since the query's previous stamp (the
+    previous sibling's exit, say): the span then starts at that stamp
+    instead of recording its own. A root records no stamp: its device
+    interval runs from its first child's start to its last child's end
+    (a root without children has none). A device interval, read by
+    `Spans.snapshot`, is the stretch of that stream's timeline from the
+    start to the end: the span's work, and any wait of the device for its
+    host enqueue, the event records' own included. A span never becomes a
+    profiler annotation or an NVTX range, so a trace's device operations
+    stay the program's."""
+    if not (_recording or _torch_profiler._is_profiler_enabled):
+        return NO_SPAN
+    return _RECORDER._open(name, device, follows)
+
+
+@dataclass(frozen=True)
+class SpanRecord:
+    """One recorded span, as `Spans.snapshot` returns it."""
+
+    name: str
+    id: int  # unique in the recorder
+    parent: int | None  # the enclosing span's id; None for a root
+    query: int  # the root's: the roots the recorder had opened before it
+    host_ns: tuple  # (start, end), time.perf_counter_ns
+    device_ms: tuple | None  # (start, end), ms after the root's device start
+
+    @property
+    def host_ms(self) -> float:
+        return (self.host_ns[1] - self.host_ns[0]) * 1e-6
+
+    @property
+    def device_interval_ms(self) -> float | None:
+        return None if self.device_ms is None else self.device_ms[1] - self.device_ms[0]
+
+
+def self_host_ms(query: list) -> float:
+    """The host ms of a query's root outside its direct children."""
+    root = query[0]
+    return root.host_ms - sum(s.host_ms for s in query if s.parent == root.id)
+
+
+class _Span:
+    """An open span of a recorder that is on."""
+
+    __slots__ = ("root", "parent", "name", "follows", "t0", "t1", "ev0", "ev1", "spans",
+                 "last", "stream", "query")
+
+    def __enter__(self):
+        root = self.root
+        _RECORDER._stack.append(self)
+        if root is self:
+            self.t0 = _now()
+        elif root.stream is not None:
+            if self.follows and root.last is not None:
+                self.ev0 = root.last
+            else:
+                self.ev0 = root.last = _RECORDER._event()
+                self.ev0.record(root.stream)
+                if root.ev0 is None:
+                    root.ev0 = self.ev0
+        return self
+
+    def __exit__(self, *exc):
+        root = self.root
+        if root is self:
+            self.t1 = _now()
+            self.ev1 = self.last
+        elif root.stream is not None:
+            self.ev1 = root.last = _RECORDER._event()
+            self.ev1.record(root.stream)
+        _RECORDER._stack.pop()
+        if root is self:
+            _RECORDER._pending.append(self.spans)
+            if self.stream is not None:
+                _RECORDER._top_up()
+        else:
+            self.t1 = _now()
+        return False
+
+
+class _Unrecorded:
+    """The root of a query that the recorder leaves out (past the store's
+    cap, or between the queries it samples): its spans are not recorded
+    either."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        _RECORDER._stack.append(None)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDER._stack.pop()
+        return False
+
+
+class Spans:
+    """The span recorder (see `span`): the queries recorded in order, up
+    to `CAP`, each a root and its children. `queries` counts the roots
+    opened while it was on, recorded or not, and `dropped` those past the
+    cap. One thread opens spans at a time."""
+
+    CAP = 4096
+    EVERY = 8  # under a torch.profiler session alone, one query recorded in EVERY
+    POOL = 16  # events made at a root's exit when fewer are free
+
+    def __init__(self):
+        self._stack: list = []  # open spans, root first; None in a query not recorded
+        self._pending: list = []  # closed queries whose device stamps are unread
+        self._done: list = []  # closed queries as lists of SpanRecord
+        self._pool: list = []  # CUDA events free for reuse
+        self._streams: dict = {}  # (device index, raw stream) -> torch.cuda.Stream
+        self._ids = 0  # span ids given so far
+        self.queries = 0
+        self.dropped = 0
+
+    @classmethod
+    def get(cls) -> "Spans":
+        return _RECORDER
+
+    @staticmethod
+    @contextmanager
+    def recording():
+        """Turns the recorder on inside the block, for every query."""
+        global _recording
+        _recording += 1
+        try:
+            yield _RECORDER
+        finally:
+            _recording -= 1
+
+    def _event(self):
+        return self._pool.pop() if self._pool else torch.cuda.Event(enable_timing=True)
+
+    def _top_up(self) -> None:
+        """Makes POOL events when fewer are free: at a root's exit, while
+        the device still runs the query's tail, rather than at the next
+        query's first stamps, where the device waits on the host."""
+        if len(self._pool) < self.POOL:
+            self._pool += [torch.cuda.Event(enable_timing=True) for _ in range(self.POOL)]
+
+    def _stream(self, device: torch.device):
+        """The current stream of `device`, its Stream object made once."""
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        key = (index, torch._C._cuda_getCurrentRawStream(index))
+        stream = self._streams.get(key)
+        if stream is None:
+            stream = self._streams[key] = torch.cuda.current_stream(index)
+        return stream
+
+    def _open(self, name: str, device, follows: bool):
+        t0 = _now()
+        stack = self._stack
+        if stack:
+            root = stack[0]
+            if root is None:
+                return NO_SPAN
+            s = _Span()
+            s.parent = stack[-1]
+            root.spans.append(s)
+        elif device is None:
+            return NO_SPAN
+        else:
+            query = self.queries
+            self.queries += 1
+            if len(self._pending) + len(self._done) >= self.CAP:
+                self.dropped += 1
+                return _UNRECORDED
+            # sampled mid-way through each EVERY: a session's first query
+            # finds the profiler starting up
+            if not _recording and query % self.EVERY != self.EVERY // 2:
+                return _UNRECORDED
+            if not isinstance(device, torch.device):
+                device = torch.device(device)
+            s = _Span()
+            root = s.parent = None
+            s.spans, s.last, s.query = [s], None, query
+            s.stream = self._stream(device) if device.type == "cuda" else None
+        s.root = root or s
+        s.name, s.follows, s.t0, s.ev0, s.ev1 = name, follows, t0, None, None
+        return s
+
+    def _free(self, spans: list) -> None:
+        """Returns a query's events to the pool, each once (a span that
+        follows shares its start)."""
+        events = {id(e): e for s in spans for e in (s.ev0, s.ev1) if e is not None}
+        self._pool += events.values()
+
+    def snapshot(self) -> list:
+        """The recorded queries in order, each a list of its SpanRecords
+        in the order they opened, root first. Reads the device stamps of
+        the queries closed since the last call (waiting for the device to
+        pass them) and returns their events to the pool."""
+        for spans in self._pending:
+            root = spans[0]
+            if root.ev0 is not None:
+                root.ev1.synchronize()
+            ids = {id(s): self._ids + k for k, s in enumerate(spans)}
+            self._ids += len(spans)
+            records = []
+            for s in spans:
+                device_ms = None
+                if s.ev1 is not None:
+                    device_ms = (root.ev0.elapsed_time(s.ev0), root.ev0.elapsed_time(s.ev1))
+                parent = None if s.parent is None else ids[id(s.parent)]
+                records.append(SpanRecord(s.name, ids[id(s)], parent, root.query, (s.t0, s.t1),
+                                          device_ms))
+            self._free(spans)
+            self._done.append(records)
+        self._pending.clear()
+        return list(self._done)
+
+    def clear(self) -> None:
+        """Forgets every recorded query and both counts."""
+        for spans in self._pending:
+            self._free(spans)
+        self._pending.clear()
+        self._done.clear()
+        self.queries = self.dropped = 0
+
+
+_now = time.perf_counter_ns
+_UNRECORDED = _Unrecorded()
+_RECORDER = Spans()  # the one recorder: it holds no CUDA state until a root needs it
