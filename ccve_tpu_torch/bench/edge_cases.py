@@ -2,8 +2,10 @@
 arrays made from a seeded generator: `chunk_rank_cases` for #11
 (`kernels.chunk_probe.chunk_rank`, csrc/chunk_rank.cu),
 `dense_counts_cases` for #4 (`kernels.merge_scan.merge_scan_build_counts`,
-csrc/dense_counts.cu) and `merge_counts_case` for #3 and #14
-(`kernels.merge_scan.merge_counts_i32` / `_i64`, csrc/merge_counts.cu).
+csrc/dense_counts.cu), `merge_counts_case` for #3 and #14
+(`kernels.merge_scan.merge_counts_i32` / `_i64`, csrc/merge_counts.cu) and
+`narrow_case` for #1's narrowing load (`kernels.bigsort.sort_runs_narrowed`,
+csrc/sort_tiles.cu).
 `chip_smoke.py` and tests/test_torch_cuda.py hold each kernel against its
 plain version on them, exactly; the CPU tests hold the plain versions
 against numpy, or a model of the kernel against its plain version.
@@ -221,3 +223,38 @@ def merge_counts_case(rng, dtype, kind: str, tile: int = MERGE_COUNTS_TILE) -> t
     return (probe_runs((base + probes) * 2, run_log, dtype), 1 << run_log,
             probes.size if n_real is None else n_real,
             ((base + np.sort(builds)) * 2 + 1).astype(dtype))
+
+
+NARROW_BUILDS = 1000  # build keys of a `narrow_case` table
+# #1's narrowing load: name -> the table's smallest key; its keys are that
+# key and NARROW_BUILDS - 1 more spread over the next 2 * NARROW_BUILDS
+NARROW_TABLES = {
+    "small keys": 0,
+    "negative keys": -5_000,
+    "kmin INT64_MIN": int(I64.min),
+    "kmax INT64_MAX": int(I64.max) - 2 * NARROW_BUILDS,
+    "beyond int32": 2**40,
+}
+
+
+def narrow_case(rng, table: str, n: int, dtype) -> tuple[np.ndarray, np.ndarray]:
+    """(build keys int64[NARROW_BUILDS], probe column of `dtype`[n]) of one
+    of NARROW_TABLES: probes drawn from the builds and their neighbours
+    (wrapping at the int64 extremes), clipped to `dtype`, with the
+    column's type extremes and the keys around the table's clamp bounds
+    (kmin - 1 and kmin - 1 + 2^key_bits - 1, as `ops.sort_merge._pack32_meta`
+    sizes key_bits) and past them, as far as `dtype` holds them."""
+    kmin = NARROW_TABLES[table]
+    spread = np.sort(rng.choice(2 * NARROW_BUILDS, NARROW_BUILDS - 1, replace=False))
+    keys = np.array([kmin] + [kmin + 1 + int(s) for s in spread], dtype=np.int64)
+    kmax = int(keys.max())
+    top = kmin - 1 + (1 << max((kmax - kmin + 2).bit_length(), 1)) - 1
+    info = np.iinfo(dtype)
+    edges = [int(info.min), int(info.max), int(info.min) + 1, int(info.max) - 1, -1, 0,
+             kmin - 2, kmin - 1, kmin, kmax, kmax + 1, top - 1, top, top + 1]
+    edges = [e for e in edges if info.min <= e <= info.max][:n]
+    col = rng.choice(keys, n) + rng.integers(-1, 2, n)
+    col = np.clip(col, info.min, info.max)
+    col[: len(edges)] = edges
+    rng.shuffle(col)
+    return keys, col.astype(dtype)

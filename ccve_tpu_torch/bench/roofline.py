@@ -138,7 +138,7 @@ class CountSidePlan(NamedTuple):
 def count_side_plan(n_build: int, n_probe: int, tile_log: int | None = None) -> CountSidePlan:
     """The shape of the count side's tile route for n_probe probes against
     n_build builds, from `ops.sort_merge.count_side_plan` with the tile
-    that `_count_side_bc` uses (`bigsort.TILE_LOG`, read per call, unless
+    that `_count_side` uses (`bigsort.TILE_LOG`, read per call, unless
     `tile_log` is given)."""
     if n_probe <= 1 << sort_merge.SMALL_PROBE_LOG:
         raise ValueError(
@@ -158,7 +158,7 @@ def merge_rounds(tile_log: int) -> int:
 
 def count_side_model(n_build: int, n_probe: int, tile_log: int | None = None) -> list[OpModel]:
     """Operator list of `sorted_match_totals`' int32 count side as the port
-    runs it (`ops.sort_merge._count_side_bc`): pack, the tile sort
+    runs it (`ops.sort_merge._count_side`): pack, the tile sort
     (TILE_ITEMS keys a thread sorted in registers, which touches no shared
     memory, then `merge_rounds` merge-path rounds, each one store and one
     load of every key in shared memory and a barrier: priced as a stage

@@ -48,13 +48,14 @@ TRACE_CALLS = 5
 def tile_route(table: sm.SortedTable, col: torch.Tensor):
     """(count, checksum) of `col` (int32 probe keys) against a `pack32`
     table by the tile route's steps, called directly: the route
-    `sorted_match_totals` takes above 2^SMALL_PROBE_LOG probes."""
+    `sorted_match_totals` takes above 2^SMALL_PROBE_LOG probes (the build
+    stream, then `sort_runs_narrowed` of the column and the merge
+    counts)."""
     n = col.numel()
-    p, b = sm.pack32_streams(table, col)
+    b = (sm._build_key32(table) | 1).contiguous()
     n_pad, run_log = sm.count_side_plan(n, b.numel(), bigsort.TILE_LOG)
-    runs = bigsort.sort_runs(torch.cat([p, p.new_full((n_pad - n,), bigsort.PAD[p.dtype])]),
-                             run_log)
-    bc = merge_scan.MERGE_COUNTS[p.dtype](runs, 1 << run_log, n, b, b.numel()).long()
+    runs = bigsort.sort_runs_narrowed(col, *sm._narrow_bounds(table), n_pad, run_log)
+    bc = merge_scan.MERGE_COUNTS[runs.dtype](runs, 1 << run_log, n, b, b.numel()).long()
     return bc.sum(), (bc * table.payloads).sum()
 
 

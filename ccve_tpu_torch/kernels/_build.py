@@ -40,8 +40,8 @@ _L = ctypes.c_longlong
 # name -> argtypes of every C entry point; each returns a cudaError_t as
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
 # same arguments, except those of one key type: the compaction, the drain,
-# the dense build counts, the key-only merge and the roofline's
-# compare-exchange stages (int32), and the hash, the
+# the dense build counts, the key-only merge, the roofline's
+# compare-exchange stages and the narrowing ladder (int32), and the hash, the
 # chunk ranks and the generic and packed stats scans (int64).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
@@ -95,6 +95,11 @@ _ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _I, _P, _P, _P]
 _ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P, _P]
 # (x, y, n_tiles, n_stages, stream)
 _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
+# (col, col_is_i64, n, stride, lo, hi, kmin, y, t, splits, n_pad,
+#  tile_log, n_levels, stream): the count side's ladder over a probe column
+# narrowed in the tile sort's load
+_ENTRY_POINTS["ccve_sort_runs_narrow_i32"] = [_P, _I, _L, _L, _L, _L, _L, _P, _P, _P, _L, _I, _I,
+                                             _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {
@@ -228,15 +233,16 @@ def empty_with_scratch(like: torch.Tensor, n: int, scratch_bytes: int):
     return buf[:n], buf.data_ptr() + n * like.element_size()
 
 
-def check_int(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
-    """The checks every wrapper makes on an operand of `dtype`."""
+def check_int(t: torch.Tensor, name: str, dtype: torch.dtype, contiguous: bool = True) -> None:
+    """The checks every wrapper makes on an operand of `dtype` (contiguous
+    unless the kernel reads it at its stride)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != 1:
         raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if not (t.is_cuda or t.is_cpu):
         raise ValueError(f"{name}: unsupported device {t.device}")

@@ -13,8 +13,14 @@ two launches a level) until runs reach 2^run_log or cover the stream.
 `sort_runs` drives the two for either key type: on CUDA tensors in one
 host call (`ccve_sort_runs`: every launch enqueued from C, one output, one
 scratch buffer, one split scratch), on the CPU through the plain versions
-level by level. `merge_sorted_i32` (kernel csrc/merge_multi.cu, the
-key-only merge) is the counterpart of
+level by level. `sort_runs_narrowed` is the count side's int32 ladder read
+straight from its int64 or int32 probe column: its tile sort narrows each
+key as it loads it (`ccve_sort_runs_narrow_i32`), so no narrowed or
+padded copy of the column is written. It is the only int32 ladder on a
+main path: the int32 `sort_runs` and `sort_tiles_i32` (the key-only tile
+sort of a packed stream) remain for the tests and the measuring tools,
+and as `sort_runs_narrowed`'s CPU route. `merge_sorted_i32` (kernel
+csrc/merge_multi.cu, the key-only merge) is the counterpart of
 `ccve_tpu.kernels.bigsort.merge_sorted_i32`: two ascending int32 streams
 into one.
 
@@ -187,6 +193,73 @@ def sort_runs(x: torch.Tensor, run_log: int, tile_log: int = TILE_LOG) -> torch.
     merge_level.launches += n_levels
     merge_partition.launches += n_levels
     return y
+
+
+def narrow_plain(col: torch.Tensor, lo: int, hi: int, kmin: int) -> torch.Tensor:
+    """The count side's int32 probe keys from an int64 or int32 column:
+    int32(((clamp(x, lo, hi) - kmin) + 1) << 1) in int64 arithmetic, as
+    `ops.sort_merge._probe_key32` narrows them (lo <= hi: its clamp
+    bounds, saturated at the int64 range)."""
+    return ((col.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1).to(torch.int32)
+
+
+def _narrowed_padded(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int):
+    p = narrow_plain(col, lo, hi, kmin)
+    return torch.cat([p, p.new_full((n_pad - p.numel(),), I32_MAX)])
+
+
+def sort_runs_narrowed_plain(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int,
+                             run_log: int, tile_log: int = TILE_LOG) -> torch.Tensor:
+    """`sort_runs_narrowed` composed of torch passes and the plain ladder,
+    on any device: the column narrowed (`narrow_plain`), padded with
+    PAD[int32] to n_pad keys, then `sort_runs_plain`."""
+    return sort_runs_plain(_narrowed_padded(col, lo, hi, kmin, n_pad), run_log, tile_log)
+
+
+def sort_runs_narrowed(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int,
+                       run_log: int, tile_log: int = TILE_LOG) -> torch.Tensor:
+    """`sort_runs` of the count side's int32 probe stream, read from the
+    raw probe column: int32[n_pad] in runs of 2^run_log, the column's n
+    keys narrowed as `narrow_plain` narrows them and padded with PAD[int32]
+    to n_pad (a multiple of 2^tile_log, at least n). The column may be a
+    strided view (one column of a probe table): it is read in place.
+
+    On CUDA tensors one host call (`ccve_sort_runs_narrow_i32`) enqueues
+    the tile sort, which narrows each key in registers as it loads it
+    (csrc/sort_tiles.cu), and the same merge levels as `sort_runs`: the
+    narrowed and padded stream is never written. It counts one call here,
+    and its levels on `merge_level_i32` and `merge_partition` as
+    `sort_runs` counts them; its tile sort is its own kernel, not
+    `sort_tiles_i32`. On the CPU it is that composition through
+    `sort_runs`, whose CPU route runs the plain versions level by level:
+    `sort_runs_narrowed_plain`'s result."""
+    _build.check_int(col, "col", _build.key_dtype(col, "col"), contiguous=False)
+    n = col.numel()
+    if n_pad < n or n_pad >= 2**31 or n_pad % (1 << tile_log):
+        raise ValueError(f"n_pad {n_pad} is not a multiple of 2^{tile_log} in [{n}, 2^31)")
+    if not lo <= hi:
+        raise ValueError(f"clamp bounds {lo} > {hi}")
+    if col.device.type == "cpu":
+        return sort_runs(_narrowed_padded(col, lo, hi, kmin, n_pad), run_log, tile_log)
+    n_levels = _n_levels(n_pad, run_log, tile_log)
+    y = col.new_empty(0, dtype=torch.int32)
+    if not n_pad:
+        return y
+    lib = _build.load()
+    y, splits = _build.empty_with_scratch(y, n_pad, lib.ccve_merge_splits_bytes(n_pad, tile_log))
+    t = torch.empty_like(y) if n_levels else y
+    code = lib.ccve_sort_runs_narrow_i32(
+        col.data_ptr(), int(col.dtype == torch.int64), n, col.stride(0), lo, hi, kmin,
+        y.data_ptr(), t.data_ptr(), splits, n_pad, tile_log, n_levels, _build.stream(col),
+    )
+    _build.check(code, "sort_runs_narrowed")
+    sort_runs_narrowed.launches += 1
+    merge_level_i32.launches += n_levels
+    merge_partition.launches += n_levels
+    return y
+
+
+sort_runs_narrowed.launches = 0
 
 
 def sort_runs_plain(

@@ -12,6 +12,9 @@
 //    the stream, between the output and a scratch buffer.
 //  - ccve_sort_runs_i32: the same ladder of keys with no planes, over
 //    sort_tiles.cu's key-only tile sort.
+//  - ccve_sort_runs_narrow_i32 (int32 keys only): the same ladder over
+//    sort_tiles.cu's narrowing tile sort, which reads the count side's
+//    int64 or int32 probe column and narrows each key as it loads it.
 //  - ccve_merge_two_multi_i32: the unequal merge of two ascending streams
 //    A[0, na) and B[0, nb) into one of na + nb (either may be empty).
 //  - ccve_merge_two_i32: the same merge of int32 keys with no planes.
@@ -349,6 +352,8 @@ extern "C" int ccve_sort_tiles_multi_i64(const void*, const void*, const void*, 
                                          void*);
 extern "C" int ccve_sort_tiles_i32(const void*, void*, long long, int, void*);
 extern "C" int ccve_sort_tiles_i64(const void*, void*, long long, int, void*);
+extern "C" int ccve_sort_tiles_narrow_i32(const void*, int, long long, long long, long long,
+                                          long long, long long, void*, long long, int, void*);
 
 namespace {
 
@@ -363,9 +368,23 @@ int sort_keys(const void* xk, const void*, const void*, const void*, void* yk, v
   return kSort(xk, yk, n >> tile_log, tile_log, stream);
 }
 
+// The n_levels merge levels of a ladder over n_pad elements whose tiles
+// of 2^tile_log were sorted into buffer n_levels & 1 of (bk, bv): each
+// level from one buffer into the other, so that the last ends in buffer 0.
+template <typename K>
+int levels(void* const (&bk)[2], void* const (&bv)[2][kMaxPlanes], void* splits, int n_planes,
+           long long n_pad, int tile_log, int n_levels, void* stream) {
+  int code = 0;
+  for (int level = 0, cur = n_levels & 1; level < n_levels && code == 0; ++level, cur ^= 1) {
+    code = level_planes<K>(bk[cur], bv[cur][0], bv[cur][1], bv[cur][2], bk[cur ^ 1],
+                           bv[cur ^ 1][0], bv[cur ^ 1][1], bv[cur ^ 1][2], splits, n_planes,
+                           n_pad, tile_log + level, stream);
+  }
+  return code;
+}
+
 // The tile sort (which pads x's n elements to whole tiles) into the
-// buffer from which an even number of levels ends in y, then each level
-// from one buffer into the other.
+// buffer from which an even number of levels ends in y, then the levels.
 template <typename K>
 int ladder(SortTiles sort_tiles, const void* xk, const void* xv0, const void* xv1,
            const void* xv2, void* yk, void* yv0, void* yv1, void* yv2, void* tk, void* tv0,
@@ -377,17 +396,12 @@ int ladder(SortTiles sort_tiles, const void* xk, const void* xv0, const void* xv
   }
   if (n == 0) return 0;
   const long long n_pad = (((n - 1) >> tile_log) + 1) << tile_log;
-  void* bk[2] = {yk, tk};
-  void* bv[2][kMaxPlanes] = {{yv0, yv1, yv2}, {tv0, tv1, tv2}};
-  int cur = n_levels & 1;
-  int code = sort_tiles(xk, xv0, xv1, xv2, bk[cur], bv[cur][0], bv[cur][1], bv[cur][2],
-                        n_planes, n, tile_log, stream);
-  for (int level = 0; level < n_levels && code == 0; ++level, cur ^= 1) {
-    code = level_planes<K>(bk[cur], bv[cur][0], bv[cur][1], bv[cur][2], bk[cur ^ 1],
-                           bv[cur ^ 1][0], bv[cur ^ 1][1], bv[cur ^ 1][2], splits, n_planes,
-                           n_pad, tile_log + level, stream);
-  }
-  return code;
+  void* const bk[2] = {yk, tk};
+  void* const bv[2][kMaxPlanes] = {{yv0, yv1, yv2}, {tv0, tv1, tv2}};
+  const int cur = n_levels & 1;
+  const int code = sort_tiles(xk, xv0, xv1, xv2, bk[cur], bv[cur][0], bv[cur][1], bv[cur][2],
+                              n_planes, n, tile_log, stream);
+  return code ? code : levels<K>(bk, bv, splits, n_planes, n_pad, tile_log, n_levels, stream);
 }
 
 // The key-only ladder: x, y, t: n keys, n a multiple of 2^tile_log.
@@ -478,6 +492,31 @@ extern "C" int ccve_sort_runs_i64(const void* x, void* y, void* t, void* splits,
                                   int tile_log, int n_levels, void* stream) {
   return sort_runs<long long>(sort_keys<ccve_sort_tiles_i64>, x, y, t, splits, n, tile_log,
                               n_levels, stream);
+}
+
+// The count side's int32 ladder over a probe column narrowed in the tile
+// sort's load (sort_tiles.cu's ccve_sort_tiles_narrow_i32): col holds n
+// keys, int64 (col_is_i64 1) or int32 (0), key i at col[i * stride] (in
+// elements, stride >= 0), narrowed by (lo, hi, kmin) and
+// padded with INT32_MAX to n_pad, a multiple of 2^tile_log at least n;
+// then n_levels merge levels, the result in y. y, t: n_pad int32 keys, t
+// scratch; splits: ccve_merge_splits_bytes(n_pad, tile_log) of scratch.
+extern "C" int ccve_sort_runs_narrow_i32(const void* col, int col_is_i64, long long n,
+                                         long long stride, long long lo, long long hi,
+                                         long long kmin, void* y, void* t, void* splits,
+                                         long long n_pad, int tile_log, int n_levels,
+                                         void* stream) {
+  if (tile_log < 1 || tile_log > 30 || n_pad % (1LL << tile_log) != 0 || n_levels < 0 ||
+      tile_log + n_levels > 31 || bad_level(0, n_pad, tile_log)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_pad == 0) return 0;
+  void* const bk[2] = {y, t};
+  void* const bv[2][kMaxPlanes] = {};
+  const int code = ccve_sort_tiles_narrow_i32(col, col_is_i64, n, stride, lo, hi, kmin,
+                                              bk[n_levels & 1], n_pad >> tile_log, tile_log,
+                                              stream);
+  return code ? code : levels<int>(bk, bv, splits, 0, n_pad, tile_log, n_levels, stream);
 }
 
 // splits: ccve_merge_splits_bytes(na + nb, 30) of scratch.

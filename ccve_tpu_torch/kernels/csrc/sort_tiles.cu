@@ -6,6 +6,13 @@
 //  - ccve_sort_tiles_multi_i32 / _i64 (the stats side's probe sort):
 //    stably, moving P int32 cargo planes (P = 1..3) with their keys; n any
 //    length, padded to whole tiles in the kernel.
+//  - ccve_sort_tiles_narrow_i32 (the count side's int32 probe stream):
+//    the key-only int32 sort, whose load reads the raw int64 or int32
+//    probe column, in place at any stride, and narrows each key in
+//    registers (`Narrow`), padding
+//    the tiles past the column's n keys with INT32_MAX. The narrowed and
+//    padded stream is never written: the column is read once, by this
+//    load, where separate passes would write it and read it back.
 //
 // Replaces: the key-only form, ccve_tpu/kernels/bigsort.py
 // `_make_local_kernel` (the in-VMEM Batcher presort that `_sort_padded_buf`
@@ -204,11 +211,13 @@ __device__ __forceinline__ void sort_items(typename Tr::Item (&it)[kItems]) {
   }
 }
 
-template <typename Tr, int P>
-__global__ void __launch_bounds__(kMaxThreads)
-    sort_tiles_kernel(const typename Tr::Key* __restrict__ xk, InPlanes xv,
-                      typename Tr::Key* __restrict__ yk, OutPlanes yv, long long n,
-                      int tile_log) {
+// One tile a block: element i of the input (i below n) is
+// f(x[i * stride]), a key of the trait's type; the kernels below differ
+// only in that load (stride 1 and `Same` for the sorts of a key stream).
+template <typename Tr, int P, typename C, typename F>
+__device__ __forceinline__ void sort_tile(const C* __restrict__ x, long long stride, F f,
+                                          InPlanes xv, typename Tr::Key* __restrict__ yk,
+                                          OutPlanes yv, long long n, int tile_log) {
   using Item = typename Tr::Item;
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = 1 << tile_log;
@@ -221,7 +230,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int e = t + k * threads;
-    it[k] = e < T ? Tr::make(e < real ? xk[base + e] : Tr::kMax, e) : Tr::pad();
+    it[k] = e < T ? Tr::make(e < real ? f(x[(base + e) * stride]) : Tr::kMax, e) : Tr::pad();
   }
   sort_items<Tr>(it);
   // Round by round, pairs of runs of `width` threads' items become one.
@@ -256,6 +265,50 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
   }
+}
+
+// The load of a key stream: each key as it is.
+struct Same {
+  template <typename K>
+  __device__ __forceinline__ K operator()(K k) const {
+    return k;
+  }
+};
+
+template <typename Tr, int P>
+__global__ void __launch_bounds__(kMaxThreads)
+    sort_tiles_kernel(const typename Tr::Key* __restrict__ xk, InPlanes xv,
+                      typename Tr::Key* __restrict__ yk, OutPlanes yv, long long n,
+                      int tile_log) {
+  sort_tile<Tr, P>(xk, 1, Same{}, xv, yk, yv, n, tile_log);
+}
+
+// The count side's probe key, narrowed as ops.sort_merge._probe_key32
+// narrows it in int64: int32(((clamp(x, lo, hi) - kmin) + 1) << 1), here
+// in wrapping 64-bit arithmetic, which is what the int64 tensor ops do.
+// lo and hi are its clamp bounds, kmin - 1 and kmin - 1 + 2^key_bits - 1
+// saturated at the int64 range; every result lies in [0, 2^31).
+struct Narrow {
+  long long lo, hi, kmin;
+
+  __device__ int operator()(long long x) const {
+    const long long c = x < lo ? lo : x > hi ? hi : x;
+    const unsigned long long k =
+        (static_cast<unsigned long long>(c) - static_cast<unsigned long long>(kmin) + 1ULL) << 1;
+    return static_cast<int>(static_cast<unsigned>(k));
+  }
+};
+
+// The key-only int32 tile sort of a probe column of type C (int32 or
+// int64) narrowed on load: key i of the column is col[i * stride] (a
+// column of a wider table is read in place), each read once, coalesced
+// where stride is 1, and narrowed in registers; the tiles past n are
+// padded with INT32_MAX. From the load on it is the int32 key-only kernel.
+template <typename C>
+__global__ void __launch_bounds__(kMaxThreads)
+    sort_tiles_narrow_kernel(const C* __restrict__ col, long long stride, Narrow narrow,
+                             int* __restrict__ yk, long long n, int tile_log) {
+  sort_tile<Keys<int>, 0>(col, stride, narrow, InPlanes{}, yk, OutPlanes{}, n, tile_log);
 }
 
 template <typename Tr, int P>
@@ -314,6 +367,21 @@ int launch_keys(const void* x, void* y, long long n_tiles, int tile_log, void* s
                             static_cast<cudaStream_t>(stream));
 }
 
+// The narrowing tile sort's shared memory, 34 KB at the largest tile, is
+// below the default limit, so its launch never opts in.
+static_assert(((1 << kMaxTileLog) + (1 << kMaxTileLog) / 16) * sizeof(int) <= kDefaultSmem,
+              "the narrowing tile sort's shared memory");
+
+template <typename C>
+int launch_narrow(const void* col, long long stride, Narrow narrow, void* y, long long n,
+                  long long n_tiles, int tile_log, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(slots_of(tile_log)) * sizeof(int);
+  sort_tiles_narrow_kernel<C><<<static_cast<unsigned>(n_tiles), threads_of(tile_log), smem,
+                                stream>>>(static_cast<const C*>(col), stride, narrow,
+                                          static_cast<int*>(y), n, tile_log);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y: n_tiles whole tiles of 2^tile_log keys.
@@ -344,4 +412,25 @@ extern "C" int ccve_sort_tiles_multi_i64(const void* xk, const void* xv0, const 
                                          void* stream) {
   return launch_planes<Pairs64>(xk, xv0, xv1, xv2, yk, yv0, yv1, yv2, n_planes, n, tile_log,
                                 stream);
+}
+
+// col: n probe keys, int64 (col_is_i64 1) or int32 (0), key i at
+// col[i * stride] (stride >= 0, in elements); y: n_tiles whole tiles of
+// 2^tile_log int32 keys, n at most their length. Each tile of the column
+// narrowed on load (`Narrow`; lo <= hi) and sorted; the keys past n are
+// INT32_MAX.
+extern "C" int ccve_sort_tiles_narrow_i32(const void* col, int col_is_i64, long long n,
+                                          long long stride, long long lo, long long hi,
+                                          long long kmin, void* y, long long n_tiles,
+                                          int tile_log, void* stream) {
+  if (tile_log < 1 || tile_log > kMaxTileLog || n_tiles < 0 ||
+      n_tiles > (0x7FFFFFFFLL >> tile_log) || n < 0 || n > (n_tiles << tile_log) || lo > hi ||
+      stride < 0 || (col_is_i64 != 0 && col_is_i64 != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_tiles == 0) return 0;
+  const Narrow narrow{lo, hi, kmin};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return col_is_i64 ? launch_narrow<long long>(col, stride, narrow, y, n, n_tiles, tile_log, st)
+                    : launch_narrow<int>(col, stride, narrow, y, n, n_tiles, tile_log, st);
 }

@@ -11,7 +11,9 @@ to the host. Every kernel on these paths has an int32 and an int64 build.
  - Count side (`sorted_match_totals`, `sorted_build_counts`): probes even,
    builds odd. The probe stream is sorted into runs (`count_side_plan`)
    and each build row j gets `bc[j]`, the probes equal to it; then
-   count = Σ bc and checksum = Σ bc · payloads.
+   count = Σ bc and checksum = Σ bc · payloads. On int32 streams the
+   tile route's sort reads the raw probe column and narrows it as it
+   loads it (kernels.bigsort.sort_runs_narrowed).
  - Stats side (`sorted_match_stats`, `sorted_match_ranks`,
    `sorted_expand`): builds even, so they precede the probes of their key.
    The probes are sorted with their row ids (kernels.pairsort), merged
@@ -189,7 +191,7 @@ I64_MAX = 2**63 - 1
 # 0.8 * n_pad / m rule otherwise).
 SKIP_LEVELS_OVERRIDE: int | None = None
 # int32 probe streams of at most 2^SMALL_PROBE_LOG keys take the
-# small-probe route of `_count_side_bc` (the JAX package's CHUNK_LOG)
+# small-probe route of `_count_side` (the JAX package's CHUNK_LOG)
 SMALL_PROBE_LOG = 13
 
 
@@ -217,64 +219,103 @@ def count_side_plan(n: int, m: int, tile_log: int):
 def _count_side_bc(p: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
     """Dense per-build-row probe counts bc int32[m] from packed streams of
     one key type, int32 or int64 (p = key' << 1 probes, b = key' << 1 | 1
-    builds, b ascending).
+    builds, b ascending), on the routes that sort the packed stream.
 
     An int32 probe stream of at most 2^SMALL_PROBE_LOG keys (a point or
     IN-list lookup) is sorted whole, merged with the build stream and
     counted in one scan over the merged stream, as the JAX package's
-    small-n branch does. Every other stream, of either key type, is padded
-    to a tile multiple with the key type's maximum, tile sorted, merged
-    for the levels the plan keeps, then counted over all runs, restricted
-    to the n real probes (so padding is never counted). The JAX package's
-    int64 routes' limb planes, per-run limb merges, split-plane ladders
-    and tie fixup have no job: they exist because the TPU has no 64-bit
-    lanes."""
-    plan, padded = _padded(p, m)
-    return _runs_bc(p, padded, plan, b, m)
+    small-n branch does. An int64 stream is padded to a tile multiple with
+    the key type's maximum, tile sorted, merged for the levels the plan
+    keeps, then counted over all runs, restricted to the n real probes (so
+    padding is never counted). The JAX package's int64 routes' limb
+    planes, per-run limb merges, split-plane ladders and tie fixup have no
+    job: they exist because the TPU has no 64-bit lanes. A longer int32
+    stream is refused: the count side sorts it from the probe column
+    (`_count_side`), never from a packed copy."""
+    plan = _plan(p.numel(), m, p.dtype)
+    if plan is not None and p.dtype == torch.int32:
+        raise ValueError(f"an int32 probe stream of {p.numel()} keys takes the tile route, "
+                         "which sorts the probe column itself (_count_side)")
+    return _runs_bc(p, _padded(p, plan), plan, b, m)
 
 
-def _padded(p: torch.Tensor, m: int):
-    """(plan, padded) of probe stream p: the tile route's (n_pad, run_log,
-    tile_log) and p padded to n_pad keys with the key type's maximum, or
-    (None, None) where it takes the small-probe route."""
-    if p.dtype == torch.int32 and p.numel() <= 1 << SMALL_PROBE_LOG:
-        return None, None
+def _plan(n: int, m: int, dtype: torch.dtype):
+    """The count side's route for n probes of stream type `dtype` against
+    m builds: None for the small-probe route (int32 streams of at most
+    2^SMALL_PROBE_LOG keys), else the tile route's (n_pad, run_log,
+    tile_log)."""
+    if dtype == torch.int32 and n <= 1 << SMALL_PROBE_LOG:
+        return None
     tile_log = bigsort.TILE_LOG  # read per call, so a test can shrink it
-    n_pad, run_log = count_side_plan(p.numel(), m, tile_log)
-    padded = torch.cat([p, p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])])
-    return (n_pad, run_log, tile_log), padded
+    return (*count_side_plan(n, m, tile_log), tile_log)
+
+
+def _padded(p: torch.Tensor, plan):
+    """p padded to the plan's n_pad keys with the key type's maximum, or
+    None on the small-probe route (plan None)."""
+    if plan is None:
+        return None
+    return torch.cat([p, p.new_full((plan[0] - p.numel(),), bigsort.PAD[p.dtype])])
 
 
 def _runs_bc(p, padded, plan, b: torch.Tensor, m: int) -> torch.Tensor:
-    """`_count_side_bc` after `_padded`: the small-probe route where `plan`
-    is None, else the tile sort and ladder of `padded`, then the merge
-    counts, each a span of the open query that starts where the previous
-    step ended (nothing is enqueued between)."""
+    """`_count_side_bc` after `_plan` and `_padded`: the small-probe route
+    where `plan` is None, else the tile sort and ladder of `padded`, then
+    the merge counts, each a span of the open query that starts where the
+    previous step ended (nothing is enqueued between)."""
     if plan is None:
         s = bigsort.merge_sorted_i32(p.sort().values, b)
         return merge_scan.merge_scan_build_counts(s, m)
     _, run_log, tile_log = plan
     with profiler.span("count.sort_runs", follows=True):
         runs = bigsort.sort_runs(padded, run_log, tile_log)
+    return _merge_counts(runs, run_log, p.numel(), b, m)
+
+
+def _merge_counts(runs, run_log: int, n: int, b: torch.Tensor, m: int) -> torch.Tensor:
+    """The count side's last step, a span of the open query: bc int32[m]
+    over the runs of 2^run_log, restricted to the n real probes."""
     with profiler.span("count.merge_counts", follows=True):
-        return merge_scan.MERGE_COUNTS[p.dtype](runs, 1 << run_log, p.numel(), b, m)
+        return merge_scan.MERGE_COUNTS[runs.dtype](runs, 1 << run_log, n, b, m)
 
 
 def _count_side(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
-    """`_count_side_bc` of a table and its probe column: int32 streams
-    when the table has `pack32`, else int64 streams (the table's key span
-    is below 2^62). Its steps are spans of the open query: the build keys'
-    shift; `_tagged` (the probe column's narrowing, then the build
-    stream's `| 1`) and the padding; then `_runs_bc`'s. `pack32_streams`
-    and `pack64_streams` are its first two steps, in its order."""
+    """Dense per-build-row probe counts bc int32[m] of a table and its
+    probe column: int32 streams when the table has `pack32`, else int64
+    streams (the table's key span is below 2^62); the route is `_plan`'s.
+    Its steps are spans of the open query: the build keys' shift
+    (`count.build_stream`), then
+
+    - on int32 streams on the tile route: the plan and the build stream's
+      `| 1` (`count.narrow`), then the raw column, read in place, into
+      `bigsort.sort_runs_narrowed`, whose tile sort narrows each key as
+      `_probe_key32` does and pads the last tile as it loads them
+      (`count.sort_runs`): no narrowed or padded copy of the column is
+      written;
+    - on int64 streams and on the small-probe route: `_tagged` (the probe
+      column's narrowing, then the build stream's `| 1`), the plan and the
+      padding (`count.narrow`), then `_runs_bc`'s, as `_count_side_bc`
+      runs them. `pack32_streams` and `pack64_streams` are these first
+      two steps, in this order;
+
+    and last the merge counts (`count.merge_counts`)."""
     m = table.keys.numel()
     wide = table.pack32 is None
     with profiler.span("count.build_stream"):
         b = (_build_key64 if wide else _build_key32)(table)
+    plan = _plan(probe.numel(), m, torch.int64 if wide else torch.int32)
+    if wide or plan is None:
+        with profiler.span("count.narrow", follows=True):
+            p, b = _tagged(_probe_key64 if wide else _probe_key32, table, probe, b)
+            padded = _padded(p, plan)
+        return _runs_bc(p, padded, plan, b, m)
+    n_pad, run_log, tile_log = plan
     with profiler.span("count.narrow", follows=True):
-        p, b = _tagged(_probe_key64 if wide else _probe_key32, table, probe, b)
-        plan, padded = _padded(p, m)
-    return _runs_bc(p, padded, plan, b, m)
+        b = (b | 1).contiguous()
+    with profiler.span("count.sort_runs", follows=True):
+        runs = bigsort.sort_runs_narrowed(probe, *_narrow_bounds(table), n_pad, run_log,
+                                          tile_log)
+    return _merge_counts(runs, run_log, probe.numel(), b, m)
 
 
 def _tagged(probe_key, table: SortedTable, probe_keys: torch.Tensor, b: torch.Tensor):
@@ -308,11 +349,16 @@ def _probe_key32(table: SortedTable, probe_keys: torch.Tensor) -> torch.Tensor:
     ):
         clamped = probe_keys.clamp(key_lo, key_lo + key_span - 1)
         return (clamped - key_lo) << 1
-    # clamp first, to bounds saturated at the int64 range, so the
-    # subtract cannot wrap
-    lo, hi = max(key_lo, I64_MIN), min(key_lo + key_span - 1, I64_MAX)
-    clamped = probe_keys.to(torch.int64).clamp(lo, hi)
-    return ((clamped - kmin + 1) << 1).to(torch.int32)
+    return bigsort.narrow_plain(probe_keys, *_narrow_bounds(table))
+
+
+def _narrow_bounds(table: SortedTable) -> tuple[int, int, int]:
+    """(lo, hi, kmin) of `_probe_key32`'s narrowing in int64: the clamp
+    bounds [kmin - 1, kmin - 1 + 2^key_bits) saturated at the int64 range,
+    so that the clamp comes first and the subtract cannot wrap."""
+    kmin, key_bits = table.pack32
+    key_lo = kmin - 1
+    return max(key_lo, I64_MIN), min(key_lo + (1 << key_bits) - 1, I64_MAX), kmin
 
 
 def pack32_streams(table: SortedTable, probe_keys: torch.Tensor):

@@ -11,12 +11,16 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     5,000 builds clustered on 500 keys beside 5,000 spread ones.
  4. Drives the config-1 join (1M build rows against 16M probe rows) once
     through `build_sorted` and `bulk_count`, with every launch counter set
-    to 0 just before; checks that each kernel launched, a merge-path
-    partition for every count-side merge level, and that count and
-    checksum equal numpy's and the all-plain path's.
+    to 0 just before; checks that each kernel launched (#1 as
+    `sort_runs_narrowed`; its key-only form `sort_tiles_i32` must not), a
+    merge-path partition for every count-side merge level, and that count
+    and checksum equal numpy's and the all-plain path's.
  5. Holds each kernel against its plain version again at the shapes that
-    run gave it, and times kernels, plain versions, `bulk_count` and the
-    all-plain path with CUDA events.
+    run gave it (#1's narrowing load, `sort_runs_narrowed`, the main
+    path's tile sort, on the int32 column and on an int64 copy of it, the
+    tile sort alone and the whole ladder, against its plain twin), and
+    times kernels, plain versions, `bulk_count` and the all-plain path
+    with CUDA events.
  6. Runs `bench.configs.config1_single_join` as the CLI would.
  7. Slice 2's kernels (multi-plane tile sort, multi-plane merges, stats
     scan, compaction) against their plain versions at small ragged
@@ -52,8 +56,10 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     `bulk_count` against the numpy oracle, each with counters zeroed just
     before; the int64 stats kernels again at its shapes; times, with #6
     and #7's int64 builds read apart as in phase 8.
-15. The int64/int32 ratio: config 1's own streams (phase 4) widened to
-    int64 through the same count side, timed beside the int32 streams.
+15. The int64/int32 ratio: config 1's count side (phase 4's table and
+    column) on its int32 streams and, with the table's `pack32` dropped,
+    on int64 streams, timed in turns (each the whole count side from the
+    column).
 16. Slice 4's kernel, the murmur64 hash (#12), against its plain version
     at small shapes, exactly: the int64 extremes, unaligned n, n = 0.
 17. Config 1 (phase 4's data) through `build_lp` and `build_csr` at full
@@ -229,9 +235,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     16-way histogram and partition_skew_16 3.378732, each also asserted
     against numpy inside the config; then one counted query and histogram
     (#1, #2, #3 and #12's counters and the partitions' zeroed just before,
-    every one launched, a partition a merge level), its answer equal to the
+    every one launched, #1 as `sort_runs_narrowed` and not in its key-only
+    form, a partition a merge level), its answer equal to the
     CPU path's on the same inputs; the same kernels at the run's shapes
-    (#1 on the packed probes, #2 at each level and as `sort_runs`, #3
+    (#1 as `sort_runs_narrowed` on the int64 probe column and in its
+    key-only form on the packed probes, #2 at each level and as `sort_runs`, #3
     against the 100K builds, #12 on the 4M keys) held exactly against their
     plain versions, into the kernels line's max |kernel - plain|; the
     histogram making no host sync; `run()`, its join aggregate, its
@@ -280,7 +288,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     --backend gloo` as two processes on the card (CCVE_* variables, a
     file:// rendezvous) and `roofline --dist --n-levels 2`.
 
-Prints the per-kernel JSON line (22 kernels: each kernel's launches on its main paths,
+Prints the per-kernel JSON line (23 kernels: `sort_runs_narrowed` is #1 on
+the main paths, the narrowing tile sort with its ladder, timed as its tile
+sort alone on the int64 column; `sort_tiles_i32`, #1's key-only form, runs
+on no main path, so it reads 0 launches, and is timed on the packed, padded
+stream: each kernel's launches on its main paths,
 #1-#3 and #12 with config 4's counted run among them, #6-#9 and #12 with
 the distributed plans' counted runs (phases 51-53, one a plan),
 max |kernel - plain|, its time, its plain version's, its bound and the
@@ -474,6 +486,21 @@ WIDE_STATS = ("sort_tiles_multi_i64", "merge_multi_i64", "merge_stats_i64")
 # the same function (torch.sort per tile or run pair, torch.searchsorted):
 # their library time is the plain time, not taken twice
 LIBRARY_IS_PLAIN = {"sort_tiles_i32", "merge_level_i32", "sort_tiles_i64", "merge_level_i64"}
+# kernels whose counters are read in a counted run and must read 0 there:
+# #1's key-only tile sort, which the count side's int32 route replaced by
+# `sort_runs_narrowed` (kept for the tests and the measuring tools)
+OFF_PATH = {"sort_tiles_i32"}
+
+
+def check_launched(launches: dict, what: str) -> None:
+    """Raises unless every kernel of `launches` launched in the counted run
+    `what`, but those of OFF_PATH, which must not have."""
+    idle = [name for name, k in launches.items() if k == 0 and name not in OFF_PATH]
+    if idle:
+        raise AssertionError(f"kernels not launched by {what}: {idle}")
+    ran = {name: launches[name] for name in OFF_PATH & launches.keys() if launches[name]}
+    if ran:
+        raise AssertionError(f"kernels of no main path launched by {what}: {ran}")
 
 
 def counts_library(runs, run_len: int, b):
@@ -806,6 +833,7 @@ CONFIG4_SKEW = 3.378732  # partition_skew_16, to 6 decimals
 # the kernels config 4's query and histogram launch: the count side (#1-#3)
 # through `sorted_build_counts` and #12 through `partition_histogram`
 CONFIG4_WRAPPERS = {
+    "sort_runs_narrowed": (bigsort.sort_runs_narrowed,),
     "sort_tiles_i32": (bigsort.sort_tiles_i32,),
     "merge_level_i32": (bigsort.merge_level_i32,),
     "merge_counts_i32": (merge_scan.merge_counts_i32,),
@@ -847,9 +875,7 @@ def config4_phases(card: str, repo_root: str, same) -> dict:
     torch.cuda.synchronize()
     launches4 = read_counters(CONFIG4_WRAPPERS)
     parts4 = check_partitions(launches4["merge_level_i32"], "config 4 run()")
-    idle4 = [name for name, k in launches4.items() if k == 0]
-    if idle4:
-        raise AssertionError(f"kernels not launched by config 4's run and histogram: {idle4}")
+    check_launched(launches4, "config 4's run and histogram")
     got4 = [int(x) for x in out4]
     want4 = [CONFIG4_WANT["matches"], CONFIG4_WANT["n_groups"], *CONFIG4_WANT["top_group"]]
     if got4 != want4 or hist4.tolist() != CONFIG4_WANT["partition_hist_16"]:
@@ -870,6 +896,9 @@ def config4_phases(card: str, repo_root: str, same) -> dict:
         runs4 = out
     same("merge_level_i32", bigsort.sort_runs(padded4, run_log4),
          bigsort.sort_runs_plain(padded4, run_log4), "config 4 sort_runs")
+    bounds4 = sm._narrow_bounds(table4)
+    same("sort_runs_narrowed", bigsort.sort_runs_narrowed(probe4, *bounds4, n_pad4, run_log4),
+         bigsort.sort_runs_narrowed_plain(probe4, *bounds4, n_pad4, run_log4), "config 4")
     bc4 = merge_scan.merge_counts_i32(runs4, 1 << run_log4, n4, b4, m4)
     same("merge_counts_i32", bc4,
          merge_scan.merge_counts_plain(runs4, 1 << run_log4, n4, b4, m4), "config 4")
@@ -881,6 +910,7 @@ def config4_phases(card: str, repo_root: str, same) -> dict:
     if hist_syncs:
         raise AssertionError(f"partition_histogram read back from the card {hist_syncs} times")
     log(f"phase config 4 kernels at its shapes: ok, equal to their plain versions: "
+        f"sort_runs_narrowed on the {n4} int64 probe keys, "
         f"sort_tiles_i32 on {n_pad4} packed probes, merge_level_i32 at run_log "
         f"{list(levels4)} and sort_runs to runs of 2^{run_log4}, merge_counts_i32 against "
         f"{m4} builds, murmurhash64_i64 on {probe4.numel()} keys; partition_histogram "
@@ -1477,6 +1507,7 @@ def main() -> int:
     log(f"phase build: ok ({time.perf_counter() - t0:.1f} s, {_build.LIB_PATH.name})")
 
     wrappers = {
+        "sort_runs_narrowed": bigsort.sort_runs_narrowed,
         "sort_tiles_i32": bigsort.sort_tiles_i32,
         "merge_level_i32": bigsort.merge_level_i32,
         "merge_counts_i32": merge_scan.merge_counts_i32,
@@ -1588,9 +1619,7 @@ def main() -> int:
     if (count, checksum) != (want_count, want_checksum):
         raise AssertionError(f"bulk_count gave ({count}, {checksum}), numpy "
                              f"({want_count}, {want_checksum})")
-    idle = [name for name, k in launches.items() if k == 0]
-    if idle:
-        raise AssertionError(f"kernels not launched by bulk_count: {idle}")
+    check_launched(launches, "bulk_count")
 
     col = probe_dev[:, 0].contiguous()
     p32, b32 = sm.pack32_streams(table, col)
@@ -1614,6 +1643,16 @@ def main() -> int:
     # ---- 5. kernels at the slice's shapes, and times -----------------------
     tile_log = bigsort.TILE_LOG
     levels = list(range(tile_log, tile_log + launches["merge_level_i32"]))
+    # #1's narrowing load, the main path's tile sort, on the int32 column
+    # and on the int64 column the benchmark hands over: the tile sort
+    # alone (run_log = tile_log) and the whole ladder, against the plain twin
+    bounds = sm._narrow_bounds(table)
+    col64 = col.to(torch.int64)
+    for c in (col, col64):
+        for rl in (tile_log, run_log):
+            same("sort_runs_narrowed", bigsort.sort_runs_narrowed(c, *bounds, n_pad, rl),
+                 bigsort.sort_runs_narrowed_plain(c, *bounds, n_pad, rl),
+                 f"config 1 {c.dtype} run_log={rl}")
     tiles = bigsort.sort_tiles_i32(padded, tile_log)
     same("sort_tiles_i32", tiles, bigsort.sort_tiles_plain(padded, tile_log), "config 1")
     level_in = [tiles]
@@ -1634,7 +1673,17 @@ def main() -> int:
         the ladder enqueues them: no level waits on the host."""
         return med(cuda_ms(lambda: [fn(x, lv) for x, lv in zip(level_in, levels)]))
 
+    narrowed_ms = {
+        (str(c.dtype), rl): (
+            med(cuda_ms(lambda c=c, rl=rl: bigsort.sort_runs_narrowed(c, *bounds, n_pad, rl))),
+            med(cuda_ms(lambda c=c, rl=rl: bigsort.sort_runs_narrowed_plain(
+                c, *bounds, n_pad, rl))),
+        )
+        for c in (col, col64) for rl in (tile_log, run_log)
+    }
     kernel_ms = {
+        # the narrowing tile sort alone, on the int64 column
+        "sort_runs_narrowed": narrowed_ms[(str(torch.int64), tile_log)],
         "sort_tiles_i32": (
             med(cuda_ms(lambda: bigsort.sort_tiles_i32(padded, tile_log))),
             med(cuda_ms(lambda: bigsort.sort_tiles_plain(padded, tile_log))),
@@ -1654,6 +1703,7 @@ def main() -> int:
     # probes and b read once and bc written once, a compare a probe and two
     # a build row and run (its two bounds)
     work = {
+        "sort_runs_narrowed": (8 * n + 4 * n_pad, n_pad * tile_log),
         "sort_tiles_i32": (8 * n_pad, n_pad * tile_log),
         "merge_level_i32": (8 * n_pad * len(levels), n_pad * len(levels)),
         "merge_counts_i32": (4 * (n + 2 * m), n + 2 * m * n_runs),
@@ -1681,9 +1731,17 @@ def main() -> int:
     for name, (kt, pt, *lib) in kernel_ms.items():
         log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms"
             + (f", library {lib[0]:.4f} ms" if lib else "")
-            + f" ({launches[name]} launch(es) per bulk_count)")
-    glue = k_ms - sum(t[0] for t in kernel_ms.values())
-    log(f"  outside the kernels (pack, pad, sums, allocation): {glue:.4f} ms")
+            + f" ({launches[name]} launch(es) per bulk_count)"
+            + (" (the narrowing tile sort alone, int64 column; its plain twin narrows, "
+               "pads and sorts the tiles)" if name == "sort_runs_narrowed" else
+               " (on the packed, padded probes, off the main path)"
+               if name == "sort_tiles_i32" else ""))
+    for (dtype, rl), (kt, pt) in narrowed_ms.items():
+        log(f"  sort_runs_narrowed, {dtype} column, run_log {rl} "
+            f"({rl - tile_log} levels): kernel {kt:.4f} ms, plain {pt:.4f} ms")
+    glue = k_ms - narrowed_ms[(str(torch.int32), tile_log)][0] - sum(
+        kernel_ms[k][0] for k in ("merge_level_i32", "merge_counts_i32"))
+    log(f"  outside the kernels (build stream, sums, allocation): {glue:.4f} ms")
 
     # ---- 6. the benchmark entry point --------------------------------------
     result = config1_single_join(device="cuda")
@@ -2323,20 +2381,18 @@ def main() -> int:
     kernel_ms["sort_tiles_multi_i64"] += (lib_w["per tile"],)
 
     # ---- 15. the int64/int32 ratio on config 1's own data ------------------
-    p32_c, b32_c = sm.pack32_streams(table, col)
-    p64_c, b64_c = p32_c.long(), b32_c.long()
-    m_c = b32_c.numel()
-    bc32 = sm._count_side_bc(p32_c, b32_c, m_c)
-    bc64 = sm._count_side_bc(p64_c, b64_c, m_c)
+    # the same table without `pack32` takes the int64 streams' route
+    table_c = {"i32": table, "i64": dataclasses.replace(table, pack32=None)}
+    bc32, bc64 = (sm._count_side(table_c[k], col) for k in ("i32", "i64"))
     if not torch.equal(bc32, bc64):
         raise AssertionError("config 1: the int64 count side disagrees with the int32 one")
     er = {"i32": [], "i64": []}
     for which in ("i32", "i64", "i64", "i32"):
-        er[which] += cuda_ms((lambda: sm._count_side_bc(p32_c, b32_c, m_c)) if which == "i32"
-                             else (lambda: sm._count_side_bc(p64_c, b64_c, m_c)))
+        er[which] += cuda_ms(lambda t=table_c[which]: sm._count_side(t, col))
     ratio = med(er["i64"]) / med(er["i32"])
-    log(f"phase int64/int32 ratio: ok, config 1's streams (1M x 16M) through the count side: "
-        f"int32 {spread(er['i32'])}, int64 {spread(er['i64'])}, ratio {ratio:.4f} [{card}]")
+    log(f"phase int64/int32 ratio: ok, config 1's count side (1M x 16M, from the int32 column, "
+        f"build stream included) on int32 streams (the narrowing load) {spread(er['i32'])}, "
+        f"on int64 streams {spread(er['i64'])}, ratio {ratio:.4f} [{card}]")
 
     # ---- 16. slice 4's kernel against its plain version, small shapes -----
     t0 = time.perf_counter()
@@ -3531,6 +3587,8 @@ def main() -> int:
     launches9 = dist_phases(card, repo_root, max_err)
 
     sources = {
+        "sort_runs_narrowed": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
+                               "ccve_tpu/kernels/bigsort.py:94"),
         "sort_tiles_i32": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/bigsort.py:94"),
         "merge_level_i32": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",

@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from ccve_tpu_torch.bench.edge_cases import MERGE_COUNTS_KINDS, merge_counts_case, probe_runs
+from ccve_tpu_torch.bench.edge_cases import (
+    MERGE_COUNTS_KINDS,
+    NARROW_TABLES,
+    merge_counts_case,
+    narrow_case,
+    probe_runs,
+)
 from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
 from ccve_tpu_torch.ops import sort_merge as sm
 
@@ -1376,22 +1382,103 @@ def test_sort_runs_one_call_equals_levels(cuda, dtype, tile_log, n_tiles):
 
 
 def test_count_side_reaches_the_key_only_levels(cuda):
-    """config 1's count side at a small size: the tile sort once, every
-    level once with its partition, the totals equal to the CPU's."""
+    """config 1's count side at a small size: the tile sort once (the
+    narrowing one, `sort_runs_narrowed`; the key-only `sort_tiles_i32`
+    not), every level once with its partition, the totals equal to the
+    CPU's."""
     from ccve_tpu_torch.bench.configs import config1_host
 
     keys, pays, probe = config1_host(20_000, 300_000)
     col = torch.from_numpy(probe[:, 0].astype(np.int32))
-    counters = (bigsort.sort_tiles_i32, bigsort.merge_level_i32, pairsort.merge_partition)
+    counters = (bigsort.sort_runs_narrowed, bigsort.merge_level_i32, pairsort.merge_partition,
+                bigsort.sort_tiles_i32)
     before = tuple(c.launches for c in counters)
     got = sm.sorted_match_totals(sm.build_sorted(keys, pays, cuda), col.to(cuda))
     after = tuple(c.launches for c in counters)
     n_pad, run_log = sm.count_side_plan(col.numel(), keys.size, bigsort.TILE_LOG)
     n_levels = run_log - bigsort.TILE_LOG
     assert n_levels > 0
-    assert after == (before[0] + 1, before[1] + n_levels, before[2] + n_levels)
+    assert after == (before[0] + 1, before[1] + n_levels, before[2] + n_levels, before[3])
     want = sm.sorted_match_totals(sm.build_sorted(keys, pays, device="cpu"), col)
     assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
+
+
+# ---- #1's narrowing load: the count side's ladder read from the raw probe column
+
+NARROW_LENGTHS = {"a tile multiple": 5 << bigsort.TILE_LOG,
+                  "one above": (5 << bigsort.TILE_LOG) + 1,
+                  "small-route boundary + 1": (1 << sm.SMALL_PROBE_LOG) + 1}
+NARROW_COUNTERS = (bigsort.sort_runs_narrowed, bigsort.sort_tiles_i32, bigsort.merge_level_i32,
+                   pairsort.merge_partition)
+
+
+@pytest.mark.parametrize("length", NARROW_LENGTHS)
+@pytest.mark.parametrize("table_kind", NARROW_TABLES)
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_sort_runs_narrowed_equals_the_composition(cuda, dtype, table_kind, length):
+    """The narrowing tile sort and its ladder from one host call
+    (`ccve_sort_runs_narrow_i32`) equal, bit for bit, the composition they
+    replace on the card (the column narrowed by `_probe_key32`, padded with
+    INT32_MAX, then `sort_runs`) and the plain route, at either parity of
+    the level count, with whole tiles of padding past the column, and at
+    a small tile, and read in place from a strided view; each call counts
+    once, and a launch and a partition a level, and never on the key-only
+    tile sort `sort_tiles_i32`."""
+    n = NARROW_LENGTHS[length]
+    keys, col = narrow_case(np.random.default_rng(n), table_kind, n, dtype)
+    table = sm.build_sorted(keys, device=cuda)
+    col = torch.from_numpy(col).to(cuda)
+    bounds = sm._narrow_bounds(table)
+    p = sm._probe_key32(table, col)
+    for tile_log in (4, bigsort.TILE_LOG):
+        for extra_tiles in (0, 2):
+            n_pad = n + (-n) % (1 << tile_log) + (extra_tiles << tile_log)
+            padded = torch.cat([p, p.new_full((n_pad - n,), bigsort.PAD[torch.int32])])
+            for run_log in (tile_log, tile_log + 1, tile_log + 2, tile_log + 20):
+                n_levels = bigsort._n_levels(n_pad, run_log, tile_log)
+                before = [c.launches for c in NARROW_COUNTERS]
+                got = bigsort.sort_runs_narrowed(col, *bounds, n_pad, run_log, tile_log)
+                after = [c.launches for c in NARROW_COUNTERS]
+                what = (tile_log, extra_tiles, run_log)
+                assert [a - b for a, b in zip(after, before)] == [1, 0, n_levels, n_levels], what
+                assert torch.equal(got, bigsort.sort_runs(padded, run_log, tile_log)), what
+                assert torch.equal(got, bigsort.sort_runs_narrowed_plain(
+                    col, *bounds, n_pad, run_log, tile_log)), what
+    for strided in (torch.stack([col.flip(0), col], 1)[:, 1], col.repeat_interleave(2)[::2]):
+        assert not strided.is_contiguous()
+        n_pad = n + (-n) % (1 << bigsort.TILE_LOG)
+        run_log = bigsort.TILE_LOG + 1
+        assert torch.equal(bigsort.sort_runs_narrowed(strided, *bounds, n_pad, run_log),
+                           bigsort.sort_runs_narrowed(col, *bounds, n_pad, run_log))
+
+
+@pytest.mark.parametrize("route", ["tile route", "small probe", "wide", "full range",
+                                   "stats side"])
+def test_narrowing_load_launches_only_on_the_tile_route(cuda, route):
+    """`sort_runs_narrowed` launches once a call of the count side on a
+    `pack32` table above 2^SMALL_PROBE_LOG probes, and never on the
+    small-probe, wide, full-range or stats routes; every answer is the
+    CPU's."""
+    rng = np.random.default_rng(len(route))
+    stride = {"wide": 1 << 22, "full range": 1 << 50}.get(route, 1)
+    keys = (rng.permutation(3000) - 1500).astype(np.int64) * stride
+    if route == "full range":
+        keys[0] = -(2**63) + 5
+    n = 8192 if route == "small probe" else 300_000
+    probe = torch.from_numpy(rng.choice(keys, n) + rng.integers(0, 2, n))
+    payloads = rng.integers(0, 10**6, keys.size)
+    tables = {dev: sm.build_sorted(keys, payloads, device=dev) for dev in (cuda, "cpu")}
+    before = bigsort.sort_runs_narrowed.launches
+    if route == "stats side":
+        got, want = (sm.sorted_match_stats(tables[dev], probe.to(dev)) for dev in (cuda, "cpu"))
+        assert torch.equal(got.mult.cpu(), want.mult) and torch.equal(got.psum.cpu(), want.psum)
+    else:
+        got, want = (sm.sorted_match_totals(tables[dev], probe.to(dev)) for dev in (cuda, "cpu"))
+        assert [int(t) for t in got] == [int(t) for t in want]
+        got, want = (sm.sorted_build_counts(tables[dev], probe.to(dev)) for dev in (cuda, "cpu"))
+        assert torch.equal(got.cpu(), want)
+    launched = bigsort.sort_runs_narrowed.launches - before
+    assert launched == (2 if route == "tile route" else 0)
 
 
 # ---- #9, the compaction: one launch, look-back across tiles, zeros from the kernel

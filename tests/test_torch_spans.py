@@ -4,7 +4,9 @@ nothing; on (`Spans.recording()`, or one query in `Spans.EVERY` in a
 torch.profiler session), it records one root a call with the count
 side's four steps as children, a root's self time free of the recorder's
 own work, the store's cap, and the same answers as with it off; the
-stream packers enqueue the count side's first steps in its order. The
+stream packers enqueue the count side's first steps in its order where
+it packs the probe column itself, and on the int32 tile route it tags
+the build stream and hands the column to `sort_runs_narrowed`. The
 `cuda` case holds the device stamps on the card. The JAX package has no
 spans: nothing here imports it."""
 
@@ -17,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ccve_tpu_torch.exec import bulk
-from ccve_tpu_torch.kernels import bigsort
+from ccve_tpu_torch.kernels import bigsort, merge_scan
 from ccve_tpu_torch.ops import sort_merge as sm
 from ccve_tpu_torch.utils import profiler
 
@@ -173,7 +175,7 @@ def test_spans_outside_a_query_are_not_recorded(rec, tiles):
     with profiler.Spans.recording():
         assert profiler.span("count.narrow") is profiler.NO_SPAN
         p, b = sm.pack32_streams(tables[0], probe[:, 0])
-        sm._count_side_bc(p, b, b.numel())
+        sm._count_side(tables[0], probe[:, 0])
         sm.sorted_build_counts(tables[0], probe[:, 0])
     assert rec.snapshot() == []
 
@@ -213,15 +215,34 @@ class _Ops(TorchDispatchMode):
 
 @pytest.mark.parametrize("wide", [False, True], ids=["int32 streams", "int64 streams"])
 def test_stream_packers_are_the_count_sides_first_steps(rec, tiles, wide):
+    """Where the count side packs the probe column itself (int64 streams,
+    and int32 streams on the small-probe route), the packers are its first
+    steps, in its order. On the int32 tile route it tags the build stream
+    alone and hands the raw column to `sort_runs_narrowed`, which narrows
+    it in its load. Every answer is the packers' composition's: through
+    `_count_side_bc`, or on the int32 tile route through `sort_runs` of
+    the padded packed stream and the merge counts."""
     tables, probe = _case(wide=wide)
     table, col = tables[0], probe[:, 0].contiguous()
+    m = table.keys.numel()
     pack = sm.pack64_streams if wide else sm.pack32_streams
-    with _Ops() as packed:
-        p, b = pack(table, col)
-    with _Ops() as whole:
-        got = sm._count_side(table, col)
-    assert len(packed.names) >= 5 and whole.names[: len(packed.names)] == packed.names
-    assert torch.equal(got, sm._count_side_bc(p, b, table.keys.numel()))
+    for c in (col, col[: 1 << sm.SMALL_PROBE_LOG]):
+        with _Ops() as packed:
+            p, b = pack(table, c)
+        with _Ops() as whole:
+            got = sm._count_side(table, c)
+        if wide or c.numel() <= 1 << sm.SMALL_PROBE_LOG:
+            assert torch.equal(got, sm._count_side_bc(p, b, m))
+            assert len(packed.names) >= 5 and whole.names[: len(packed.names)] == packed.names
+            continue
+        n_pad, run_log = sm.count_side_plan(c.numel(), m, TILE_LOG)
+        pad = p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])
+        runs = bigsort.sort_runs(torch.cat([p, pad]), run_log, TILE_LOG)
+        assert torch.equal(got, merge_scan.merge_counts_plain(runs, 1 << run_log, c.numel(), b, m))
+        with _Ops() as steps:
+            (sm._build_key32(table) | 1).contiguous()
+            bigsort.sort_runs_narrowed(c, *sm._narrow_bounds(table), n_pad, run_log, TILE_LOG)
+        assert len(steps.names) >= 5 and whole.names[: len(steps.names)] == steps.names
 
 
 @pytest.mark.cuda
