@@ -48,6 +48,7 @@ from ccve_tpu_torch.ops.sort_merge import (
     sorted_expand,
     sorted_match_stats,
     sorted_match_totals,
+    stats_key_type,
 )
 from ccve_tpu_torch.utils import profiler
 
@@ -271,26 +272,25 @@ def bulk_count(
 
 
 def _expand_sorted(table: SortedTable, keys: torch.Tensor):
-    """(rows, keys, payloads) of every match of `keys` at one level.
-    Capacity is the worst case n * max_mult, so nothing is cut."""
-    cap = keys.numel() * max(int(table.max_mult), 1)
-    rows, ck, cp, total = sorted_expand(table, keys, cap)
-    n_keep = int(total)
-    return rows[:n_keep].to(torch.int64), ck[:n_keep], cp[:n_keep]
+    """(rows, keys, payloads, total) of every match of `keys` at one level:
+    the first `total` slots hold them. Capacity is the worst case n *
+    max_mult, so nothing is cut."""
+    return sorted_expand(table, keys, keys.numel() * max(int(table.max_mult), 1))
 
 
 def _expand_grid(table, keys: torch.Tensor):
-    """(rows, keys, payloads) of every match of `keys` at one level of a
-    hash table: its candidate grid's matches, compacted in row-major order
-    (`compact_i32` on the flat candidate index), as the JAX package's
-    stable argsort orders them."""
+    """(rows, keys, payloads, total) of every match of `keys` at one level
+    of a hash table: its candidate grid's matches, compacted in row-major
+    order (`compact_i32` on the flat candidate index), as the JAX package's
+    stable argsort orders them; `total` is their number, a Python int."""
     expand = lp_expand_grid if isinstance(table, LPTable) else csr_expand_grid
     grid = expand(table, keys)
     n, width = grid.match.shape
     flat = torch.arange(n * width, dtype=torch.int32, device=keys.device)
     packed, n_keep = compact_i32(flat[None], grid.match.reshape(-1))
-    keep = packed[0, : int(n_keep)].to(torch.int64)
-    return keep // width, grid.keys.reshape(-1)[keep], grid.payloads.reshape(-1)[keep]
+    n_keep = int(n_keep)
+    keep = packed[0, :n_keep].to(torch.int64)
+    return keep // width, grid.keys.reshape(-1)[keep], grid.payloads.reshape(-1)[keep], n_keep
 
 
 def bulk_materialize(
@@ -303,23 +303,38 @@ def bulk_materialize(
     REFERENCE mode or (key, payload) in FULL mode, as
     exec/oracle.oracle_pipeline has them; row order is not part of the
     contract. `payload_mode` is a PayloadMode or its value. A hash level's
-    memory grows with n * its chain bound."""
+    memory grows with n * its chain bound.
+
+    The call is the root span `bulk.materialize` of a query
+    (`utils.profiler.span`). A level over a sorted table on the stats
+    side's int32 kernel route records `sorted_expand`'s steps as its
+    children, then the emission (`expand.emit`: the host's read of the
+    match count, the slices, the gathers and the concatenations, the
+    output's last included); other levels record none."""
     mode = PayloadMode(getattr(payload_mode, "value", payload_mode))
     tables = _check_tables(tables)
-    probe = torch.as_tensor(probe_rows).to(torch.int64).to(tables[0].device)
-    n, n_joins = probe.shape
-    if n_joins != len(tables):
-        raise ValueError(f"probe_rows has {n_joins} columns for {len(tables)} tables")
-    src = torch.arange(n, device=probe.device)
-    appended = torch.zeros((0, n), dtype=torch.int64, device=probe.device)
-    for level, table in enumerate(tables):
-        expand = _expand_sorted if isinstance(table, SortedTable) else _expand_grid
-        row_of, ck, cp = expand(table, probe[src, level])
-        src = src[row_of]
-        appended = appended[:, row_of]
-        if mode is PayloadMode.REFERENCE:
-            new_cols = torch.stack([torch.zeros_like(ck), ck])
-        else:
-            new_cols = torch.stack([ck, cp])
-        appended = torch.cat([appended, new_cols])
-    return torch.cat([probe[src], appended.T], dim=1)
+    with profiler.span("bulk.materialize", device=tables[0].device):
+        probe = torch.as_tensor(probe_rows).to(torch.int64).to(tables[0].device)
+        n, n_joins = probe.shape
+        if n_joins != len(tables):
+            raise ValueError(f"probe_rows has {n_joins} columns for {len(tables)} tables")
+        src = torch.arange(n, device=probe.device)
+        appended = torch.zeros((0, n), dtype=torch.int64, device=probe.device)
+        for level, table in enumerate(tables):
+            sorted_level = isinstance(table, SortedTable)
+            on_kernels = sorted_level and stats_key_type(table) == torch.int32
+            expand = _expand_sorted if sorted_level else _expand_grid
+            row_of, ck, cp, total = expand(table, probe[src, level])
+            with profiler.span("expand.emit", follows=True) if on_kernels else profiler.NO_SPAN:
+                n_keep = int(total)
+                row_of = row_of[:n_keep].to(torch.int64)
+                ck, cp = ck[:n_keep], cp[:n_keep]
+                src = src[row_of]
+                appended = appended[:, row_of]
+                if mode is PayloadMode.REFERENCE:
+                    new_cols = torch.stack([torch.zeros_like(ck), ck])
+                else:
+                    new_cols = torch.stack([ck, cp])
+                appended = torch.cat([appended, new_cols])
+                if level == len(tables) - 1:
+                    return torch.cat([probe[src], appended.T], dim=1)

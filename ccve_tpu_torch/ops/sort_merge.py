@@ -526,25 +526,38 @@ def stats_key_type(table: SortedTable) -> torch.dtype | None:
     return torch.int64 if table.span62 else None
 
 
-def merged_stream(table: SortedTable, probe_keys, tile_log=None, route: Route = KERNELS):
+def _no_span(name: str, follows: bool = False):
+    return profiler.NO_SPAN
+
+
+def merged_stream(
+    table: SortedTable, probe_keys, tile_log=None, route: Route = KERNELS, *,
+    spans: bool = False,
+):
     """The kernel route's merged stream (s int32 or int64[n + m], v
     int32[n + m]): the packed probes sorted with their row ids, merged with
     the build stream and its int32 payloads (builds first at equal keys),
-    on the key type `stats_key_type` picks."""
+    on the key type `stats_key_type` picks. With `spans` (the expansion's
+    route) its two steps are spans of the open query: the stats pack and
+    the row ids (`expand.narrow`), then the tile sort and the merge
+    (`expand.merge`); the stats side records none."""
     key_type = stats_key_type(table)
     if key_type is None:
         raise ValueError("merged_stream: the table has no kernel route (stats_key_type)")
     probe = _probe_on(table, probe_keys)
-    if key_type == torch.int32:
-        b, p = stats_pack32_streams(table, probe)
-        sort_multi, merge_two = route.sort_multi, route.merge_two
-    else:
-        b, p = stats_pack64_streams(table, probe)
-        sort_multi, merge_two = route.sort_multi64, route.merge_two64
-    rows = torch.arange(probe.numel(), dtype=torch.int32, device=probe.device)
+    step = profiler.span if spans else _no_span
+    with step("expand.narrow"):
+        if key_type == torch.int32:
+            b, p = stats_pack32_streams(table, probe)
+            sort_multi, merge_two = route.sort_multi, route.merge_two
+        else:
+            b, p = stats_pack64_streams(table, probe)
+            sort_multi, merge_two = route.sort_multi64, route.merge_two64
+        rows = torch.arange(probe.numel(), dtype=torch.int32, device=probe.device)
     tl = pairsort.TILE_LOG if tile_log is None else tile_log
-    sk, (sv,) = sort_multi(p, [rows], tl)
-    s, (v,) = merge_two(sk, [sv], b, [table.payloads.to(torch.int32)])
+    with step("expand.merge", follows=True):
+        sk, (sv,) = sort_multi(p, [rows], tl)
+        s, (v,) = merge_two(sk, [sv], b, [table.payloads.to(torch.int32)])
     return s, v
 
 
@@ -689,14 +702,17 @@ def expand_candidates(
     int32[3, F·L], valid bool[F·L], total int64 scalar) over the merged
     stream of L = n + m elements, F = max_mult. The planes hold (probe
     row, key', payload) per candidate; `valid` marks the matched
-    triples."""
-    s, v = merged_stream(table, probe_keys, tile_log, route)
-    is_build = (s & 1) == 0
-    key = s >> 1
-    fan_out = max(int(table.max_mult), 1)
-    total, pays, valid = _candidates(is_build, merge_scan.run_starts(key), v, fan_out)
-    planes = torch.stack([v.repeat(fan_out), key.repeat(fan_out), torch.cat(pays)])
-    return planes, torch.cat(valid), total
+    triples. Its steps are spans of the open query: `merged_stream`'s
+    two, then the run starts, the copy-last scans and the planes
+    (`expand.candidates`)."""
+    s, v = merged_stream(table, probe_keys, tile_log, route, spans=True)
+    with profiler.span("expand.candidates", follows=True):
+        is_build = (s & 1) == 0
+        key = s >> 1
+        fan_out = max(int(table.max_mult), 1)
+        total, pays, valid = _candidates(is_build, merge_scan.run_starts(key), v, fan_out)
+        planes = torch.stack([v.repeat(fan_out), key.repeat(fan_out), torch.cat(pays)])
+        return planes, torch.cat(valid), total
 
 
 def sorted_expand(
@@ -719,18 +735,25 @@ def sorted_expand(
     its probes by a copy-last scan, and a probe with at least f builds
     makes one candidate. The candidates are compacted in merged order
     (`compact_i32` on the kernel route), so triples come out grouped by
-    key; their multiset is the contract."""
+    key; their multiset is the contract.
+
+    Inside a query's root span the kernel route records its steps as
+    spans: `expand_candidates`' three, the compaction (`expand.compact`)
+    and the triples' widening and `_fit` (`expand.emit`); the generic
+    route records none."""
     if capacity < 0:
         raise ValueError(f"capacity {capacity} < 0")
     probe = _probe_on(table, probe_keys)
     if use_kernel is not False and stats_key_type(table) == torch.int32:
         planes, valid, total = expand_candidates(table, probe, tile_log, route)
-        packed, _ = route.compact(planes, valid)
-        kmin = table.pack32[0]  # key = key' - 1 + kmin; kmin - 1 may be no int64
-        return _fit(
-            packed[0], (packed[1].to(torch.int64) - 1) + kmin, packed[2].to(torch.int64),
-            total, capacity,
-        )
+        with profiler.span("expand.compact", follows=True):
+            packed, _ = route.compact(planes, valid)
+        with profiler.span("expand.emit", follows=True):
+            kmin = table.pack32[0]  # key = key' - 1 + kmin; kmin - 1 may be no int64
+            return _fit(
+                packed[0], (packed[1].to(torch.int64) - 1) + kmin, packed[2].to(torch.int64),
+                total, capacity,
+            )
     fan_out = max(int(table.max_mult), 1)
     _, _, srow, is_build, sk, spay = _merged_stats(table, probe)
     total, pays, valid = _candidates(is_build, merge_scan.run_starts(sk), spay, fan_out)
