@@ -5,13 +5,16 @@ arrays made from a seeded generator: `chunk_rank_cases` for #11
 csrc/dense_counts.cu), `merge_counts_case` for #3 and #14
 (`kernels.merge_scan.merge_counts_i32` / `_i64`, csrc/merge_counts.cu) and
 `narrow_case` for #1's narrowing load (`kernels.bigsort.sort_runs_narrowed`,
-csrc/sort_tiles.cu).
+csrc/sort_tiles.cu) and `candidates_case` for the expansion's candidates
+(`kernels.merge_scan.expand_candidates_i32`, csrc/candidates.cu).
 `chip_smoke.py` and tests/test_torch_cuda.py hold each kernel against its
 plain version on them, exactly; the CPU tests hold the plain versions
 against numpy, or a model of the kernel against its plain version.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -258,3 +261,115 @@ def narrow_case(rng, table: str, n: int, dtype) -> tuple[np.ndarray, np.ndarray]
     col[: len(edges)] = edges
     rng.shuffle(col)
     return keys, col.astype(dtype)
+
+
+SCAN_TILE = 4096  # csrc/seg_scan.cuh: kChunk, the stream elements a block
+KEY_BITS = 29  # the widest key' of the int32 stats route (`stats_key_type`)
+
+
+def _expand_stream(rng, bkeys, pays, pkeys, pad: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(s int32[L], v int32[L]): the merged ascending stream of builds
+    `key' << 1` with their payloads and probes `key' << 1 | 1` with their
+    rows (a permutation), a key's builds first, then `pad` INT32_MAX
+    entries."""
+    bkeys, pkeys = np.asarray(bkeys, np.int64), np.asarray(pkeys, np.int64)
+    s = np.concatenate([bkeys * 2, pkeys * 2 + 1])
+    v = np.concatenate([np.asarray(pays, np.int64), rng.permutation(pkeys.size)])
+    order = np.argsort(s, kind="stable")
+    s = np.concatenate([s[order], np.full(pad, I32_MAX)])
+    v = np.concatenate([v[order], np.arange(pad)])
+    return s.astype(np.int32), v.astype(np.int32)
+
+
+
+def _runs(rng, tile: int, fan: int):
+    """Key runs of 1 to `fan` builds (one of `fan`), probes of their keys
+    and misses."""
+    keys = rng.choice(4 * tile, tile // 8, replace=False)
+    mult = rng.integers(1, fan + 1, keys.size)
+    mult[0] = fan
+    bkeys = np.repeat(keys, mult)
+    pkeys = np.concatenate([rng.choice(keys, tile // 2), rng.integers(0, 4 * tile, tile // 4)])
+    return (*_expand_stream(rng, bkeys, rng.integers(-(2**31), 2**31, bkeys.size), pkeys), fan)
+
+
+def _with_fan_out(rng, bkeys, pays, pkeys, pad: int = 0):
+    """The stream and the fan-out of its longest build run."""
+    return (*_expand_stream(rng, bkeys, pays, pkeys, pad),
+            int(np.unique(bkeys, return_counts=True)[1].max()))
+
+
+def _hot(rng, tile: int):
+    """A key with HOT_PROBES probes (scaled with `tile`) over many tiles."""
+    hot = HOT_PROBES * tile // SCAN_TILE
+    bkeys = np.concatenate([[500] * 3, rng.choice(1000, 200, replace=False)])
+    pkeys = np.concatenate([np.full(hot, 500), rng.integers(0, 1000, hot // 10)])
+    return _with_fan_out(rng, bkeys, rng.integers(-9, 9, bkeys.size), pkeys)
+
+
+def _long_build_run(rng, tile: int):
+    """A key whose 3 tiles and 5 builds precede its probes, at fan-out 4
+    (the wrapper takes any fan-out): its probes read their builds from
+    tiles before their own."""
+    bkeys = np.concatenate([np.full(3 * tile + 5, 70), rng.integers(0, 200, tile)])
+    pkeys = np.concatenate([np.full(tile // 2, 70), rng.integers(0, 200, tile)])
+    return (*_expand_stream(rng, bkeys, rng.integers(-(2**31), 2**31, bkeys.size), pkeys), 4)
+
+
+def _unmatched(rng, tile: int):
+    """Builds without probes beside probes without builds, and a few hits."""
+    bkeys = rng.integers(0, 1000, 2 * tile)
+    pkeys = np.concatenate([rng.integers(1000, 2000, tile), rng.choice(bkeys, 50)])
+    return _with_fan_out(rng, bkeys, rng.integers(0, 100, bkeys.size), pkeys)
+
+
+def _length(rng, L: int):
+    """A stream of L elements, a third builds with repeated keys."""
+    n_build = L // 3
+    bkeys = rng.integers(0, L // 4, n_build)
+    pkeys = rng.integers(0, L // 4 + 3, L - n_build)
+    return _with_fan_out(rng, bkeys, rng.integers(-50, 50, n_build), pkeys)
+
+
+def _extremes(rng, tile: int):
+    """Payloads at the int32 extremes, key' 0 and 2^29 - 1 (the widest key
+    of the int32 stats route), INT32_MAX padding."""
+    top = (1 << KEY_BITS) - 1
+    bkeys = np.array([0, 0, top, top, top, 5, 5])
+    pays = np.array([-(2**31), 2**31 - 1, -(2**31), 0, 2**31 - 1, -1, 1])
+    pkeys = np.concatenate([np.full(tile, top), np.zeros(tile // 2, np.int64),
+                            rng.integers(0, 10, tile // 2)])
+    return _with_fan_out(rng, bkeys, pays, pkeys, pad=5)
+
+
+def _many_tiles(rng, tile: int):
+    """300 tiles and 7 elements, runs of 1 or 2 builds."""
+    L = 300 * tile + 7
+    keys = rng.choice(L, L // 5, replace=False)
+    bkeys = np.repeat(keys, rng.integers(1, 3, keys.size))
+    pkeys = rng.integers(0, L, L - bkeys.size)
+    return (*_expand_stream(rng, bkeys, rng.integers(-(2**31), 2**31, bkeys.size), pkeys), 2)
+
+
+# the expansion's candidates: kind -> (rng, tile) -> (s, v, fan_out)
+CANDIDATE_KINDS = {
+    **{f"runs of 1 to {fan} builds": functools.partial(_runs, fan=fan) for fan in range(1, 9)},
+    "a hot key": _hot,
+    "builds across tiles": _long_build_run,
+    "builds without probes, probes without builds": _unmatched,
+    "L=1, a probe": lambda rng, tile: (np.array([9], np.int32), np.array([0], np.int32), 1),
+    "L=1, a build": lambda rng, tile: (np.array([8], np.int32), np.array([-5], np.int32), 2),
+    "L=0": lambda rng, tile: (np.zeros(0, np.int32), np.zeros(0, np.int32), 3),
+    "L=tile-1": lambda rng, tile: _length(rng, tile - 1),
+    "L=tile+1": lambda rng, tile: _length(rng, tile + 1),
+    "extremes": _extremes,
+    "300 tiles": _many_tiles,
+}
+
+
+def candidates_case(rng, kind: str, tile: int = SCAN_TILE) -> tuple:
+    """(s int32[L], v int32[L], fan_out) of one of CANDIDATE_KINDS: a
+    merged stream and a fan-out at the edges of csrc/candidates.cu's
+    design (L = 0 launches nothing). `tile` shrinks the lengths for a
+    model or the plain version on the CPU."""
+    return CANDIDATE_KINDS[kind](rng, tile)

@@ -41,7 +41,8 @@ _L = ctypes.c_longlong
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
 # same arguments, except those of one key type: the compaction, the drain,
 # the dense build counts, the key-only merge, the roofline's
-# compare-exchange stages and the narrowing ladder (int32), and the hash, the
+# compare-exchange stages, the narrowing ladder and the expansion's
+# candidates (int32), and the hash, the
 # chunk ranks and the generic and packed stats scans (int64).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
@@ -100,12 +101,15 @@ _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
 # narrowed in the tile sort's load
 _ENTRY_POINTS["ccve_sort_runs_narrow_i32"] = [_P, _I, _L, _L, _L, _L, _L, _P, _P, _P, _L, _I, _I,
                                              _P]
+# (s, v, L, fan_out, scratch, planes, valid, total, stream)
+_ENTRY_POINTS["ccve_expand_candidates_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {
     # (L, n): a stream of L elements, n output rows (0: per element)
     "ccve_merge_stats_scratch_bytes": [_L, _L],
     "ccve_compact_scratch_bytes": [_L],
+    "ccve_expand_candidates_scratch_bytes": [_L],
     # (n, run_log): the merge-path splits of a merge of n outputs
     "ccve_merge_splits_bytes": [_L, _I],
     # (S, L, block, occupancy, fanouts (host)); -1 where they do not fit

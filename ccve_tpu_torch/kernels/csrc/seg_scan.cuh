@@ -1,5 +1,6 @@
 // A single-pass segmented scan of (build count, payload sum) over one
-// sorted stream, for the stats scans of merge_stats.cu.
+// sorted stream, for the stats scans of merge_stats.cu and the expansion's
+// candidates of candidates.cu.
 //
 // The TPU kernels carry their cursors and running sums from one grid step
 // to the next. CUDA blocks run in no fixed order, so a block takes its tile
@@ -185,8 +186,9 @@ __device__ __forceinline__ Seg read(const Seg* value) {
 // farther lanes on the left, and thread 0 folds the warps' values up to
 // the nearest warp that met one. A wide window lets a tile find a prefix
 // while the tiles just before it, started at the same time, still hold
-// only aggregates.
-__device__ Seg look_back(const Tiles& st, long long tile) {
+// only aggregates. Inline: two sources include this header, and a
+// non-inline function would be defined in both.
+__device__ inline Seg look_back(const Tiles& st, long long tile) {
   __shared__ Seg warp_value[kWarps];
   __shared__ int warp_met[kWarps];
   __shared__ int done;

@@ -19,6 +19,10 @@
    stream, generic (untagged keys beside tagged payloads) or packed (key'
    and payload in one word), the counterparts of the JAX functions of
    those names.
+ - `expand_candidates_i32` (kernel csrc/candidates.cu): the expansion's
+   candidate planes, mask and match total over the merged int32 stream,
+   in one scan; it replaces no Pallas kernel (the JAX package's step is
+   `lax.associative_scan`).
 
 Each kernel has a plain PyTorch version beside it (`*_plain`): cumsums, the
 copy-last segment base (`segment_base`) and a scatter, or searchsorted.
@@ -142,6 +146,74 @@ def segment_base(flags: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     # unflagged positions all write the spare slot n, which is never read
     where_flag.scatter_(0, torch.where(flags, seg, n), torch.arange(n, device=flags.device))
     return torch.where(seg >= 0, values[where_flag[seg.clamp(min=0)]], 0)
+
+
+def candidates(is_build, starts, cargo, fan_out: int):
+    """Per merged position: (total matches, [payload of the run's f-th
+    build], [valid candidate mask]) for f = 1..fan_out. A probe with at
+    least f builds in its run emits one triple with the f-th's payload,
+    which a copy-last scan from the f-th build carries forward."""
+    ib = is_build.to(torch.int64)
+    count = ib.cumsum(0)
+    ordinal = count - segment_base(starts, count - ib)  # build: its 1-based
+    #                                  place in the run; probe: the run's builds
+    total = torch.where(is_build, 0, ordinal).sum()
+    pays, valid = [], []
+    for f in range(1, fan_out + 1):
+        pays.append(segment_base(is_build & (ordinal == f), cargo))
+        valid.append(~is_build & (ordinal >= f))
+    return total, pays, valid
+
+
+def expand_candidates_plain(s: torch.Tensor, v: torch.Tensor, fan_out: int):
+    """`expand_candidates_i32` as torch scans (the run starts, the
+    copy-last scans of `candidates`, the planes' stack), on any device."""
+    is_build = (s & 1) == 0
+    key = s >> 1
+    total, pays, valid = candidates(is_build, run_starts(key), v, fan_out)
+    planes = torch.stack([v.repeat(fan_out), key.repeat(fan_out), torch.cat(pays)])
+    return planes, torch.cat(valid), total
+
+
+def expand_candidates_i32(s: torch.Tensor, v: torch.Tensor, fan_out: int):
+    """(planes int32[3, F·L], valid bool[F·L], total int64 scalar) of the
+    merged ascending stream `s` of `key' << 1 | tag` (builds even, so a
+    run's builds come before its probes; probes odd) and its cargo plane
+    `v` (a build's payload, a probe's row), F = `fan_out`: at slot f·L + i
+    (f = 0..F-1) the planes hold (v[i], s[i] >> 1, the payload of the
+    (f+1)-th build of i's key run), and `valid` marks the probes whose run
+    holds more than f builds; `total` sums the probes' builds. Only the
+    valid slots' planes are the contract: the kernel writes payload 0
+    elsewhere, the plain version the last such build's payload."""
+    _build.check_i32(s, "s")
+    _build.check_i32(v, "v")
+    if v.numel() != s.numel() or v.device != s.device:
+        raise ValueError(f"v has {v.numel()} values on {v.device}, s {s.numel()} on {s.device}")
+    if fan_out < 1:
+        raise ValueError(f"fan_out {fan_out} < 1")
+    length = s.numel()
+    if fan_out * length >= 2**31:
+        raise ValueError(f"fan_out {fan_out} x {length} elements: the candidates take < 2^31")
+    if s.device.type == "cpu":
+        return expand_candidates_plain(s, v, fan_out)
+    planes = s.new_empty((3, fan_out * length))
+    valid = torch.empty(fan_out * length, dtype=torch.bool, device=s.device)
+    if not length:
+        return planes, valid, torch.zeros((), dtype=torch.int64, device=s.device)
+    total = torch.empty((), dtype=torch.int64, device=s.device)
+    lib = _build.load()
+    scratch = torch.empty(lib.ccve_expand_candidates_scratch_bytes(length), dtype=torch.uint8,
+                          device=s.device)
+    code = lib.ccve_expand_candidates_i32(
+        s.data_ptr(), v.data_ptr(), length, fan_out, scratch.data_ptr(), planes.data_ptr(),
+        valid.data_ptr(), total.data_ptr(), _build.stream(s),
+    )
+    _build.check(code, "expand_candidates_i32")
+    expand_candidates_i32.launches += 1
+    return planes, valid, total
+
+
+expand_candidates_i32.launches = 0
 
 
 def _run_sums(key: torch.Tensor, is_build: torch.Tensor, pay: torch.Tensor):

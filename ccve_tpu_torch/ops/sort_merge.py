@@ -498,19 +498,20 @@ class Route(NamedTuple):
     sort_multi64: Callable
     merge_two64: Callable
     merge_stats64: Callable
+    candidates: Callable  # (s, v, fan_out) -> (planes, valid, total)
 
 
 KERNELS = Route(
     pairsort.sort_multi_i32, pairsort.merge_sorted_multi_i32,
     merge_scan.merge_stats_i32, compact.compact_i32,
     pairsort.sort_multi_i64, pairsort.merge_sorted_multi_i64,
-    merge_scan.merge_stats_i64,
+    merge_scan.merge_stats_i64, merge_scan.expand_candidates_i32,
 )
 PLAIN = Route(
     pairsort.sort_multi_plain, pairsort.merge_sorted_multi_plain,
     merge_scan.merge_stats_plain, compact.compact_plain,
     pairsort.sort_multi_plain, pairsort.merge_sorted_multi_plain,
-    merge_scan.merge_stats_plain,
+    merge_scan.merge_stats_plain, merge_scan.expand_candidates_plain,
 )
 
 
@@ -678,41 +679,18 @@ def _fit(rows, keys, pays, total, capacity: int):
     return out_rows, out_keys, out_pays, total
 
 
-def _candidates(is_build, starts, cargo, fan_out: int):
-    """Per merged position: (total matches, [payload of the run's f-th
-    build], [valid candidate mask]) for f = 1..fan_out. A probe with at
-    least f builds in its run emits one triple with the f-th's payload,
-    which a copy-last scan from the f-th build carries forward."""
-    ib = is_build.to(torch.int64)
-    count = ib.cumsum(0)
-    ordinal = count - merge_scan.segment_base(starts, count - ib)  # build: its 1-based
-    #                                  place in the run; probe: the run's builds
-    total = torch.where(is_build, 0, ordinal).sum()
-    pays, valid = [], []
-    for f in range(1, fan_out + 1):
-        pays.append(merge_scan.segment_base(is_build & (ordinal == f), cargo))
-        valid.append(~is_build & (ordinal >= f))
-    return total, pays, valid
-
-
 def expand_candidates(
     table: SortedTable, probe_keys, tile_log: int | None = None, route: Route = KERNELS
 ):
     """The kernel route's expansion before its compaction: (planes
     int32[3, F·L], valid bool[F·L], total int64 scalar) over the merged
-    stream of L = n + m elements, F = max_mult. The planes hold (probe
-    row, key', payload) per candidate; `valid` marks the matched
+    int32 stream of L = n + m elements, F = max_mult. The planes hold
+    (probe row, key', payload) per candidate; `valid` marks the matched
     triples. Its steps are spans of the open query: `merged_stream`'s
-    two, then the run starts, the copy-last scans and the planes
-    (`expand.candidates`)."""
+    two, then `route.candidates` (`expand.candidates`)."""
     s, v = merged_stream(table, probe_keys, tile_log, route, spans=True)
     with profiler.span("expand.candidates", follows=True):
-        is_build = (s & 1) == 0
-        key = s >> 1
-        fan_out = max(int(table.max_mult), 1)
-        total, pays, valid = _candidates(is_build, merge_scan.run_starts(key), v, fan_out)
-        planes = torch.stack([v.repeat(fan_out), key.repeat(fan_out), torch.cat(pays)])
-        return planes, torch.cat(valid), total
+        return route.candidates(s, v, max(int(table.max_mult), 1))
 
 
 def sorted_expand(
@@ -732,10 +710,11 @@ def sorted_expand(
 
     The probe stream and the build stream merge as in `sorted_match_stats`;
     for f = 1..max_mult the f-th build's payload of each key run reaches
-    its probes by a copy-last scan, and a probe with at least f builds
-    makes one candidate. The candidates are compacted in merged order
-    (`compact_i32` on the kernel route), so triples come out grouped by
-    key; their multiset is the contract.
+    its probes by a copy-last scan (one scan kernel for every f,
+    `expand_candidates_i32`, on the kernel route), and a probe with at
+    least f builds makes one candidate. The candidates are compacted in
+    merged order (`compact_i32` on the kernel route), so triples come out
+    grouped by key; their multiset is the contract.
 
     Inside a query's root span the kernel route records its steps as
     spans: `expand_candidates`' three, the compaction (`expand.compact`)
@@ -756,7 +735,7 @@ def sorted_expand(
             )
     fan_out = max(int(table.max_mult), 1)
     _, _, srow, is_build, sk, spay = _merged_stats(table, probe)
-    total, pays, valid = _candidates(is_build, merge_scan.run_starts(sk), spay, fan_out)
+    total, pays, valid = merge_scan.candidates(is_build, merge_scan.run_starts(sk), spay, fan_out)
     mask = torch.cat(valid)
     return _fit(
         srow.repeat(fan_out)[mask], sk.repeat(fan_out)[mask], torch.cat(pays)[mask],

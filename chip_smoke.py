@@ -35,10 +35,15 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
  9. Config 1 materialized at full size (phase 4's data) through
     `sorted_expand_tiled`, counters zeroed just before: total, Σ payload
     and sampled triples against numpy, every tensor against the
-    all-plain path; the kernels again at its shapes; times, with #6 and
-    #7 read apart as in phase 8.
+    all-plain path; the kernels again at its shapes (the expansion's
+    candidates, `expand_candidates_i32`, on the merged stream of L =
+    17,000,000 at F = 1: valid slots, mask and total); times, with #6 and
+    #7 read apart as in phase 8, and the candidates alone beside their
+    byte bound and their plain version.
 10. Duplicate keys (256K build rows, 4 per key, 4M probes): per-probe
-    stats and the expanded triple multiset against numpy.
+    stats and the expanded triple multiset against numpy; the candidates
+    at F = 4 over the merged stream of 786,432 of its probes (L = 2^20),
+    against their plain version, timed beside both.
 11. Runs `config3_four_way` and `config1_materialize` as the CLI would.
 12. Slice 3's int64 kernels (tile sort, merge level, counts, multi-plane
     tile sort, multi-plane merges, stats scan) against their plain
@@ -432,7 +437,23 @@ NEW_WRAPPERS = {
     "merge_multi_i32": (pairsort.merge_level_multi_i32, pairsort.merge_two_multi_i32),
     "merge_stats_i32": (merge_scan.merge_stats_i32,),
     "compact_i32": (compact.compact_i32,),
+    "expand_candidates_i32": (merge_scan.expand_candidates_i32,),
 }
+
+
+def candidates_view(out):
+    """The expansion's candidates as their contract reads them: the
+    planes on the valid slots, the mask, the total (elsewhere the kernel's
+    payload plane holds 0, the plain version's a stale payload)."""
+    planes, valid, total = out
+    return planes[:, valid], valid, total
+
+
+def candidates_work(L: int, fan_out: int) -> tuple[int, int]:
+    """(bytes, integer operations) of the candidates over L elements: s and
+    v read once, three int32 planes and a byte of mask written a slot; a
+    few operations an element (tag, run start, the scan's combine)."""
+    return 8 * L + 13 * fan_out * L, 8 * L
 
 
 # the merge-path partition kernel that runs before each #7 merge level and
@@ -1079,6 +1100,7 @@ DIST_WRAPPERS = {
     "merge_stats_i32": (merge_scan.merge_stats_i32,),
     "compact_i32": (compact.compact_i32,),
     "murmurhash64_i64": (murmur.murmurhash64_i64,),
+    "expand_candidates_i32": (merge_scan.expand_candidates_i32,),
 }
 STATS_SIDE = ("sort_tiles_multi_i32", "merge_multi_i32", "merge_stats_i32")
 
@@ -1213,6 +1235,11 @@ def hold_probes(calls, launches, same, what: str) -> list[int]:
                 raise AssertionError(f"{tag}: a config-5 table off the int32 kernel route")
             inputs = stats_path(check, table, keys, tag)
             if name == "sorted_expand":
+                s, (v,) = inputs["merged"]
+                fan_out = max(int(table.max_mult), 1)
+                check("expand_candidates_i32",
+                      candidates_view(merge_scan.expand_candidates_i32(s, v, fan_out)),
+                      candidates_view(merge_scan.expand_candidates_plain(s, v, fan_out)), tag)
                 planes, valid, _ = sm.expand_candidates(table, keys)
                 check("compact_i32", compact.compact_i32(planes, valid),
                       compact.compact_plain(planes, valid), tag)
@@ -2011,6 +2038,9 @@ def main() -> int:
         f"payload sum {psum_m} (numpy agrees), {sampled} sampled triples match the "
         f"generators, all-plain route identical; launches {launches_m}, partitions {parts_m}")
     inputs_m = path_kernels(table, col1, "materialize")
+    sm_m, (sv_m,) = inputs_m["merged"]
+    same("expand_candidates_i32", candidates_view(merge_scan.expand_candidates_i32(sm_m, sv_m, 1)),
+         candidates_view(merge_scan.expand_candidates_plain(sm_m, sv_m, 1)), "materialize")
     planes_m, valid_m, _ = sm.expand_candidates(table, col1)
     same("compact_i32", compact.compact_i32(planes_m, valid_m),
          compact.compact_plain(planes_m, valid_m), "materialize")
@@ -2024,6 +2054,11 @@ def main() -> int:
         med(cuda_ms(lambda: compact.compact_plain(planes_m, valid_m))),
         med(cuda_ms(lambda: planes_m[:, valid_m])),
     )
+    ms_mat["expand_candidates_i32"] = (
+        med(cuda_ms(lambda: merge_scan.expand_candidates_i32(sm_m, sv_m, 1))),
+        med(cuda_ms(lambda: merge_scan.expand_candidates_plain(sm_m, sv_m, 1))),
+    )
+    work["expand_candidates_i32"] = candidates_work(sm_m.numel(), 1)
     w_m = path_work(inputs_m)
     n_c = planes_m.shape[1]
     work["sort_tiles_multi_i32"] = w_m["sort"]
@@ -2047,6 +2082,11 @@ def main() -> int:
         lib_s = f", planes[:, mask] {lib[0]:.4f} ms" if lib else ""
         log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms{lib_s} "
             f"({launches_m[name]} launch(es) per call)")
+    ops_c = [idle_share(lambda fn=fn: fn(sm_m, sv_m, 1))[1] / PROFILED_CALLS
+             for fn in (merge_scan.expand_candidates_i32, merge_scan.expand_candidates_plain)]
+    log(f"  expand_candidates_i32 at L = {sm_m.numel()}, F = 1: bound "
+        f"{bound(*work['expand_candidates_i32'])[0]:.4f} ms; device operations a call: "
+        f"kernel {ops_c[0]:.0f}, plain {ops_c[1]:.0f}")
     lib_m = probe_sort_readings(inputs_m, "i32", "materialize (16M probes)")
     ms_mat["sort_tiles_multi_i32"] += (lib_m["per tile"],)
 
@@ -2091,6 +2131,19 @@ def main() -> int:
     log(f"phase duplicate keys: ok ({time.perf_counter() - t0:.1f} s), 262144 build rows "
         f"(4 per key) x 4M probes: stats and {total_d} triples match numpy; "
         f"launches {launches_d}")
+    s_d, v_d = sm.merged_stream(table_d, col_d[: (1 << 20) - 262_144])
+    fan_d = table_d.max_mult
+    same("expand_candidates_i32",
+         candidates_view(merge_scan.expand_candidates_i32(s_d, v_d, fan_d)),
+         candidates_view(merge_scan.expand_candidates_plain(s_d, v_d, fan_d)), "duplicate keys")
+    zero_counters(NEW_WRAPPERS)
+    cand_d = [med(cuda_ms(lambda: merge_scan.expand_candidates_i32(s_d, v_d, fan_d))),
+              med(cuda_ms(lambda: merge_scan.expand_candidates_plain(s_d, v_d, fan_d)))]
+    calls_d = REPS + 1
+    log(f"  expand_candidates_i32 at F = {fan_d}, L = {s_d.numel()}: kernel {cand_d[0]:.4f} ms "
+        f"({read_counters(NEW_WRAPPERS)['expand_candidates_i32'] / calls_d:.0f} launch(es) a "
+        f"call), plain {cand_d[1]:.4f} ms, bound "
+        f"{bound(*candidates_work(s_d.numel(), fan_d))[0]:.4f} ms")
 
     # ---- 11. the benchmark entry points ------------------------------------
     # (config3_four_way also runs the sorted-chunk executor, phase 24's; its
@@ -3603,6 +3656,8 @@ def main() -> int:
                             "ccve_tpu/kernels/merge_scan.py:240"),
         "compact_i32": ("ccve_tpu_torch/kernels/csrc/compact.cu",
                         "ccve_tpu/kernels/compact.py:77"),
+        "expand_candidates_i32": ("ccve_tpu_torch/kernels/csrc/candidates.cu",
+                                  "none: lax.associative_scan, ccve_tpu/ops/sort_merge.py:151"),
         "sort_tiles_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/pairsort.py:563"),
         "merge_level_i64": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",

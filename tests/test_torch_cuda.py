@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from ccve_tpu_torch.bench.edge_cases import (
+    CANDIDATE_KINDS,
     MERGE_COUNTS_KINDS,
     NARROW_TABLES,
+    candidates_case,
     merge_counts_case,
     narrow_case,
     probe_runs,
@@ -213,7 +215,7 @@ def test_slice_two_reaches_the_kernels(cuda):
     probe = torch.from_numpy(gen_probe_table(100_000, 1, 20_000)[:, 0]).to(cuda)
     counters = [pairsort.sort_tiles_multi_i32, pairsort.merge_level_multi_i32,
                 pairsort.merge_two_multi_i32, merge_scan.merge_stats_i32,
-                compact.compact_i32]
+                merge_scan.expand_candidates_i32, compact.compact_i32]
     before = [fn.launches for fn in counters]
     table = sm.build_sorted(keys, pays, cuda)
     stats = sm.sorted_match_stats(table, probe)
@@ -545,6 +547,76 @@ def test_hash_bulk_materialize_on_card_matches_cpu(cuda, kind):
     assert compact.compact_i32.launches > before
     want = bulk.bulk_materialize([build(keys, pays, device="cpu")] * 2, probe, PayloadMode.FULL)
     assert torch.equal(got.cpu(), want)  # the compaction keeps the grid's order
+
+
+# ---- the expansion's candidates (csrc/candidates.cu) ------------------------
+
+
+def _candidates_same(got, want):
+    """The kernel's candidates against the plain version's, exactly: the
+    mask and the total, and the planes on the valid slots (the contract:
+    elsewhere the payload plane is the kernel's 0)."""
+    planes, valid, total = got
+    assert planes.shape == want[0].shape and planes.dtype == torch.int32
+    assert valid.dtype == torch.bool and torch.equal(valid, want[1])
+    assert torch.equal(planes[:, valid], want[0][:, valid])
+    assert total.dtype == torch.int64 and int(total) == int(want[2])
+
+
+@pytest.mark.parametrize("kind", CANDIDATE_KINDS)
+def test_expand_candidates_kernel(cuda, kind):
+    s, v, fan_out = candidates_case(np.random.default_rng(26), kind)
+    s, v = _i32(s, cuda), _i32(v, cuda)
+    before = merge_scan.expand_candidates_i32.launches
+    got = merge_scan.expand_candidates_i32(s, v, fan_out)
+    assert merge_scan.expand_candidates_i32.launches == before + (s.numel() > 0)
+    _candidates_same(got, merge_scan.expand_candidates_plain(s, v, fan_out))
+
+
+def test_expand_candidates_at_the_cells_shape(cuda):
+    """Config 1's merged stream (1M unique build keys, 16M probes in
+    [0, 1M]: L = 17,000,000, F = 1), twenty calls: the look-back across
+    blocks that run at once."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    m, n = 1_000_000, 16_000_000
+    s = torch.cat([torch.randperm(m, device=cuda, generator=g) * 2,
+                   torch.randint(0, m + 1, (n,), device=cuda, generator=g) * 2 + 1])
+    v = torch.cat([torch.randint(-(2**31), 2**31, (m,), device=cuda, generator=g),
+                   torch.randperm(n, device=cuda, generator=g)])
+    s, order = s.to(torch.int32).sort(stable=True)
+    v = v[order].to(torch.int32)
+    want = merge_scan.expand_candidates_plain(s, v, 1)
+    assert int(want[2]) > 15_000_000
+    for _ in range(20):
+        _candidates_same(merge_scan.expand_candidates_i32(s, v, 1), want)
+
+
+@pytest.mark.parametrize("dup", [1, 4])
+def test_materialize_launches_the_candidates_a_level(cuda, dup):
+    """`bulk_materialize` over two levels launches the kernel once a level
+    and gives the CPU's rows as a multiset; `sorted_expand` gives the
+    all-plain route's output bit for bit."""
+    from ccve_tpu_torch.config import PayloadMode
+    from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve_tpu_torch.exec import bulk
+
+    keys, pays = gen_rhs_table(20_000, dup)
+    probe = gen_probe_table(100_000, 2, 20_000)
+    table = sm.build_sorted(keys, pays, cuda)
+    assert table.max_mult == dup
+    before = merge_scan.expand_candidates_i32.launches
+    got = bulk.bulk_materialize([table] * 2, probe, PayloadMode.FULL)
+    assert merge_scan.expand_candidates_i32.launches == before + 2
+    want = bulk.bulk_materialize([sm.build_sorted(keys, pays, device="cpu")] * 2, probe,
+                                 PayloadMode.FULL)
+    got, want = got.cpu().numpy(), want.numpy()
+    assert got.shape == want.shape and got.shape[0] > 0
+    assert np.array_equal(got[np.lexsort(got.T[::-1])], want[np.lexsort(want.T[::-1])])
+    col = torch.from_numpy(probe[:, 0]).to(cuda)
+    cap = col.numel() * dup
+    for g, w in zip(sm.sorted_expand(table, col, cap), sm.sorted_expand(table, col, cap,
+                                                                         route=sm.PLAIN)):
+        assert torch.equal(g, w)
 
 
 # ---- the sorted-chunk executor (slice 7): kernel #10 ------------------------

@@ -34,9 +34,9 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("use_kernel", [None, False])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_sorted_expand_matches_jax_xla(case, use_kernel):
+def _xla_case(case):
+    """(the port's table, probe keys, capacity, the JAX XLA route's answer)
+    of a CASES entry."""
     keys, payloads, lo, hi = CASES[case]
     rng = np.random.default_rng(len(keys))
     probe = rng.integers(lo, hi, 2000)
@@ -45,9 +45,26 @@ def test_sorted_expand_matches_jax_xla(case, use_kernel):
     cap = probe.size * table.max_mult
     want = once(("expand xla", case), lambda: jax_sm.sorted_expand(
         jax_table, jnp.asarray(probe), cap, use_kernel=False))
-    got = sm.sorted_expand(table, torch.from_numpy(probe), cap, use_kernel=use_kernel)
+    return table, torch.from_numpy(probe), cap, want
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sorted_expand_matches_jax_xla(case, use_kernel):
+    table, probe, cap, want = _xla_case(case)
+    got = sm.sorted_expand(table, probe, cap, use_kernel=use_kernel)
     assert int(got[3]) == int(want[3])
     assert got[0].dtype == torch.int32 and got[1].dtype == got[2].dtype == torch.int64
+    np.testing.assert_array_equal(_triples(*got[:3]), _triples(*want[:3]))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sorted_expand_plain_route_matches_jax_xla(case):
+    """The all-plain route (`sm.PLAIN`: every kernel's plain version,
+    the candidates' torch scans among them) against the XLA route."""
+    table, probe, cap, want = _xla_case(case)
+    got = sm.sorted_expand(table, probe, cap, route=sm.PLAIN)
+    assert int(got[3]) == int(want[3])
     np.testing.assert_array_equal(_triples(*got[:3]), _triples(*want[:3]))
 
 
