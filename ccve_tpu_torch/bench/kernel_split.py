@@ -66,7 +66,7 @@ default). Every line gives:
 - `device_us`: torch.profiler's device events over TRACE_CALLS calls: the
   sum of their durations a call, the events a call, each kernel's
   (memsets among them) and the device's busy time a call (the union of
-  the events; `device_split`, which bench/small_probe.py also reads). On
+  the events; `device_split`). On
   the H100 machine the profiler drops device events in some windows (seen:
   8 of 20 calls' kernels, or all of them, and in a long process most
   windows), so TRACE_WINDOWS windows are read: a kernel's launches a call

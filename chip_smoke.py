@@ -182,9 +182,7 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     and one off, builds only, probes only, a 100K-probe hot key, phantoms,
     m below and past the builds, L = 1 and 0, more tiles than the grid),
     each into memory the allocator last held garbage in and from a view 4
-    bytes past a 16-byte boundary. Both routes timed at 1, 100, 1024 and
-    8192 probes (`bench.small_probe`), with each route's device time at
-    8192.
+    bytes past a 16-byte boundary.
 38. #5 then #4 on config 1's own streams (the sorted 16M probe stream and
     the 1M build stream), and #16 on config 1's table packed as the JAX
     package's `table.pack` does: Σ bc / dot(bc, payloads) and Σ mult /
@@ -348,7 +346,7 @@ from ccve_tpu_torch.bench.configs import (  # noqa: E402
 from ccve_tpu_torch.config import CompactionStrategy, EngineConfig, PayloadMode  # noqa: E402
 from ccve_tpu_torch.core.datagen import gen_probe_table, gen_rhs_table  # noqa: E402
 from ccve_tpu_torch.bench.profile_config1 import busy_window  # noqa: E402
-from ccve_tpu_torch.bench import edge_cases, kernel_split, roofline, small_probe  # noqa: E402
+from ccve_tpu_torch.bench import edge_cases, kernel_split, roofline  # noqa: E402
 from ccve_tpu_torch.core import chunk as chunklib  # noqa: E402
 from ccve_tpu_torch.core.collection import DataCollection  # noqa: E402
 from ccve_tpu_torch.exec.bulk import (  # noqa: E402
@@ -3428,25 +3426,6 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  #4 on {len(count_edges)} edge cases, aligned and from element 1, exact: "
         + "; ".join(what for what, *_ in count_edges))
-    log(f"times on [{card}], CUDA events, medians of {2 * REPS} in turns tile, small, small, "
-        "tile; host wall time a call (synchronized), medians of "
-        f"{REPS}: config 1's table against its first n probes, sorted_match_totals (small-probe "
-        "route) and the tile route's steps (pack, pad, tile sort, merge counts, sums)")
-    for n_s in small_probe.NS:
-        col_s = col[:n_s].contiguous()
-        want_s = numpy_totals(keys1, payloads, probe[:n_s, 0])
-        for which, fn in small_probe.ROUTES.items():
-            if tuple(int(x) for x in fn(table1, col_s)) != want_s:
-                raise AssertionError(f"n={n_s}: the {which} route disagrees with numpy")
-        ts = small_probe.route_times(table1, col_s, torch.device("cuda"), REPS)
-        log(f"  n={n_s}: small-probe {spread(ts['small'])}, host {med(ts['small host']):.4f} "
-            f"ms; tile {spread(ts['tile'])}, host {med(ts['tile host']):.4f} ms")
-    for which, fn in small_probe.ROUTES.items():
-        d = kernel_split.device_split(lambda: fn(table1, col[:n_8k]), small_probe.TRACE_CALLS)
-        top = sorted(d["kernels"].items(), key=lambda kv: -kv[1])[:8]
-        log(f"  device at n=8192, {which} route: busy {d['busy']:.1f} us a call, "
-            f"{d['events']:g} device events a call; "
-            + "; ".join(f"{k} {v:.1f} us" for k, v in top))
 
     # ---- 38. #5, #4 and #16 at full width on config 1's own data ----------------
     t0 = time.perf_counter()

@@ -141,22 +141,6 @@ def test_tile_sort_cases_hold_kernels_and_yardsticks(monkeypatch):
         assert lib_name.startswith("torch.sort(dim=1)")
 
 
-def test_stats_sweep_variants_apply_to_the_sources():
-    """Every rewrite of `bench.stats_sweep` for the design the sources hold
-    finds its text exactly once, so a sweep on the card builds what it
-    names."""
-    from ccve_tpu_torch.bench import stats_sweep
-    from ccve_tpu_torch.kernels import _build
-
-    name, variants = stats_sweep.design()
-    assert name == "single-pass"
-    sources = {f: (_build.CSRC / f).read_text() for f in ("seg_scan.cuh", "merge_stats.cu")}
-    for copy, subs in variants.items():
-        for target, old, _ in subs:
-            assert sources[target].count(old) == 1, (copy, old)
-    assert stats_sweep.INEXACT <= set(variants)
-
-
 def _count_tiles():
     """Small stand-ins for `kernel_split.count_tiles`: padded probe streams
     of both key types, whole tiles of 2^TILE_LOG."""
@@ -255,54 +239,3 @@ def test_compact_cases_hold_kernels_and_yardsticks(monkeypatch):
 def test_kernel_split_refuses_unknown_groups():
     with pytest.raises(SystemExit):
         kernel_split.main(["--only", "tile_sort,nonesuch"])
-
-
-def test_tile_sweep_copies_apply_to_the_sources():
-    """Every copy of `bench.tile_sweep` finds each text it rewrites exactly
-    once, and ptxas' lines of the kernels it reads parse into resources."""
-    from ccve_tpu_torch.bench import tile_sweep
-
-    for copy in tile_sweep.COPIES:
-        tile_sweep.sources(copy)
-    assert tile_sweep.INEXACT <= set(tile_sweep.COPIES)
-    lines = [
-        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__x_14_merge_multi_cu_y12"
-        "merge_kernelIiLi0ENS_5LevelEEEvPKT_' for 'sm_90a'",
-        "ptxas info    : Function properties for _ZN47",
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 32 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__x_10_compact_cu_y14"
-        "compact_kernelEPKi' for 'sm_90a'",
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 128 registers, used 1 barriers, 2160 bytes smem",
-        "ptxas info    : Compiling entry function '_ZN47_other_kernelEv' for 'sm_90a'",
-        "ptxas info    : Used 200 registers",
-        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__x_15_merge_counts_cu_y19"
-        "merge_counts_kernelIxEEvPKT_xiS3_iPi' for 'sm_90a'",
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 64 registers, used 1 barriers, 1024 bytes smem",
-    ]
-    got = tile_sweep.resources(lines, tile_sweep._block_threads("counts 512 x 4"))
-    assert len(got) == 3
-    assert got[0].startswith("merge_kernel<int, 0, Level>: Used 32 registers")
-    assert got[0].endswith("8 blocks of 256 an SM by registers and static smem")
-    assert got[1].startswith("compact_kernel: Used 128 registers")
-    assert "2 blocks of 256" in got[1]
-    assert got[2].startswith("merge_counts_kernel<long long>: Used 64 registers")
-    assert "2 blocks of 512" in got[2]
-
-
-def test_tile_sweep_copies_build_their_own_sources():
-    """Each copy builds the sources of the kernel it rewrites (with
-    status.cu), `source` all of them, and every source a copy rewrites is
-    among those it builds."""
-    from ccve_tpu_torch.bench import tile_sweep
-    from ccve_tpu_torch.kernels import _build
-
-    every = {f.name for f in _build.CSRC.glob("*.cu")}
-    assert set(tile_sweep.units("source")) <= every
-    assert {"merge_multi.cu", "compact.cu", "merge_counts.cu"} <= set(tile_sweep.units("source"))
-    for copy, subs in tile_sweep.COPIES.items():
-        assert tile_sweep.group(copy) in (None, "merge", "compact", "counts"), copy
-        assert {target for target, _, _ in subs} <= set(tile_sweep.units(copy)), copy
-    assert tile_sweep.units("counts stage x2") == ["merge_counts.cu", "status.cu"]

@@ -226,8 +226,8 @@ def test_port_imports_no_jax():
                  "ops.hashing", "ops.hash_table", "kernels.murmur", "core.chunk",
                  "ops.compactor", "ops.filter", "kernels.drain", "exec.pipeline",
                  "exec.sorted_pipeline", "control.bandit", "control.device_bandit",
-                 "utils.profiler", "kernels.chunk_probe", "device", "bench.small_probe",
-                 "bench.roofline", "kernels.ce_stages", "core.collection", "bench.micro",
+                 "utils.profiler", "kernels.chunk_probe", "device", "bench.roofline",
+                 "kernels.ce_stages", "core.collection", "bench.micro",
                  "bench.configs", "ops.aggregate", "ops.sort", "parallel",
                  "parallel.distributed", "parallel.dist_aggregate", "parallel.bootstrap",
                  "parallel.dryrun", "bench.dist_model"):
