@@ -12,7 +12,9 @@ with one `match_stats` sweep per level and no fan-out materialized. A
 single level over a sorted table takes the count-side engine
 (`sorted_match_totals`), whose totals need no per-probe order; a hash
 table takes `match_stats` at one level too. `bulk_materialize` expands
-level by level through `sorted_expand` or a hash table's candidate grid.
+level by level (a sorted table's int32 kernel route through
+`expand_compacted` and the emission kernel, other sorted levels through
+`sorted_expand`, a hash table through its candidate grid).
 Tables of int64 keys (a key span above 2^30) take the int64 builds of the
 sort-merge kernels on both sides. A single-level count answers every key
 span: one of 2^62 or more (64-bit fingerprints, hashed ids) takes the
@@ -34,6 +36,7 @@ import torch
 
 from ccve_tpu_torch.config import PayloadMode
 from ccve_tpu_torch.kernels.compact import compact_i32, compact_plain
+from ccve_tpu_torch.kernels.emit import emit_rows_i32
 from ccve_tpu_torch.kernels.murmur import murmurhash64_i64, murmurhash64_plain
 from ccve_tpu_torch.ops.hash_table import (
     EMPTY,
@@ -45,6 +48,7 @@ from ccve_tpu_torch.ops.hash_table import (
 from ccve_tpu_torch.ops.sort_merge import (
     MatchStats,
     SortedTable,
+    expand_compacted,
     sorted_expand,
     sorted_match_stats,
     sorted_match_totals,
@@ -272,9 +276,10 @@ def bulk_count(
 
 
 def _expand_sorted(table: SortedTable, keys: torch.Tensor):
-    """(rows, keys, payloads, total) of every match of `keys` at one level:
-    the first `total` slots hold them. Capacity is the worst case n *
-    max_mult, so nothing is cut."""
+    """(rows, keys, payloads, total) of every match of `keys` at one level
+    off the kernel route (int64 keys, the generic route): the first
+    `total` slots hold them. Capacity is the worst case n * max_mult, so
+    nothing is cut."""
     return sorted_expand(table, keys, keys.numel() * max(int(table.max_mult), 1))
 
 
@@ -284,13 +289,23 @@ def _expand_grid(table, keys: torch.Tensor):
     order (`compact_i32` on the flat candidate index), as the JAX package's
     stable argsort orders them; `total` is their number, a Python int."""
     expand = lp_expand_grid if isinstance(table, LPTable) else csr_expand_grid
-    grid = expand(table, keys)
+    grid = expand(table, keys.contiguous())
     n, width = grid.match.shape
     flat = torch.arange(n * width, dtype=torch.int32, device=keys.device)
     packed, n_keep = compact_i32(flat[None], grid.match.reshape(-1))
     n_keep = int(n_keep)
     keep = packed[0, :n_keep].to(torch.int64)
     return keep // width, grid.keys.reshape(-1)[keep], grid.payloads.reshape(-1)[keep], n_keep
+
+
+def _emit_torch(state, rows, keys, pays, total, full: bool) -> torch.Tensor:
+    """A level's output rows off the emission kernel: the first `total`
+    triples' state rows gathered, then (key, payload), or (0, key) without
+    `full`, in one concatenation."""
+    n_keep = int(total)
+    keys, pays = keys[:n_keep, None], pays[:n_keep, None]
+    new = (keys, pays) if full else (torch.zeros_like(keys), keys)
+    return torch.cat([state[rows[:n_keep].to(torch.int64)], *new], dim=1)
 
 
 def bulk_materialize(
@@ -305,36 +320,32 @@ def bulk_materialize(
     contract. `payload_mode` is a PayloadMode or its value. A hash level's
     memory grows with n * its chain bound.
 
+    The partial output rows are carried level to level: they start as the
+    probe rows, and a level turns them into its matches' rows, each with
+    the level's two columns appended. A level over a sorted table on the
+    stats side's int32 kernel route takes `expand_compacted`'s planes and
+    writes its rows in one launch (`emit_rows_i32`); other levels gather
+    the rows and concatenate the new columns.
+
     The call is the root span `bulk.materialize` of a query
-    (`utils.profiler.span`). A level over a sorted table on the stats
-    side's int32 kernel route records `sorted_expand`'s steps as its
-    children, then the emission (`expand.emit`: the host's read of the
-    match count, the slices, the gathers and the concatenations, the
-    output's last included); other levels record none."""
+    (`utils.profiler.span`). A level on the int32 kernel route records
+    `expand_compacted`'s steps as its children, then the emission
+    (`expand.emit`: the host's read of the match count, the output's
+    allocation and the emission kernel); other levels record none."""
     mode = PayloadMode(getattr(payload_mode, "value", payload_mode))
+    full = mode is PayloadMode.FULL
     tables = _check_tables(tables)
     with profiler.span("bulk.materialize", device=tables[0].device):
-        probe = torch.as_tensor(probe_rows).to(torch.int64).to(tables[0].device)
-        n, n_joins = probe.shape
-        if n_joins != len(tables):
-            raise ValueError(f"probe_rows has {n_joins} columns for {len(tables)} tables")
-        src = torch.arange(n, device=probe.device)
-        appended = torch.zeros((0, n), dtype=torch.int64, device=probe.device)
+        state = torch.as_tensor(probe_rows).to(torch.int64).to(tables[0].device).contiguous()
+        if state.dim() != 2 or state.shape[1] != len(tables):
+            raise ValueError(f"probe_rows has shape {tuple(state.shape)} for {len(tables)} tables")
         for level, table in enumerate(tables):
-            sorted_level = isinstance(table, SortedTable)
-            on_kernels = sorted_level and stats_key_type(table) == torch.int32
-            expand = _expand_sorted if sorted_level else _expand_grid
-            row_of, ck, cp, total = expand(table, probe[src, level])
-            with profiler.span("expand.emit", follows=True) if on_kernels else profiler.NO_SPAN:
-                n_keep = int(total)
-                row_of = row_of[:n_keep].to(torch.int64)
-                ck, cp = ck[:n_keep], cp[:n_keep]
-                src = src[row_of]
-                appended = appended[:, row_of]
-                if mode is PayloadMode.REFERENCE:
-                    new_cols = torch.stack([torch.zeros_like(ck), ck])
-                else:
-                    new_cols = torch.stack([ck, cp])
-                appended = torch.cat([appended, new_cols])
-                if level == len(tables) - 1:
-                    return torch.cat([probe[src], appended.T], dim=1)
+            keys = state[:, level]
+            if isinstance(table, SortedTable) and stats_key_type(table) == torch.int32:
+                planes, total = expand_compacted(table, keys)
+                with profiler.span("expand.emit", follows=True):
+                    state = emit_rows_i32(planes, int(total), table.pack32[0], state, level, full)
+            else:
+                expand = _expand_sorted if isinstance(table, SortedTable) else _expand_grid
+                state = _emit_torch(state, *expand(table, keys), full)
+        return state

@@ -41,8 +41,8 @@ _L = ctypes.c_longlong
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
 # same arguments, except those of one key type: the compaction, the drain,
 # the dense build counts, the key-only merge, the roofline's
-# compare-exchange stages, the narrowing ladder and the expansion's
-# candidates (int32), and the hash, the
+# compare-exchange stages, the narrowing ladder, the expansion's
+# candidates and the emission (int32), and the hash, the
 # chunk ranks and the generic and packed stats scans (int64).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
@@ -103,6 +103,8 @@ _ENTRY_POINTS["ccve_sort_runs_narrow_i32"] = [_P, _I, _L, _L, _L, _L, _L, _P, _P
                                              _P]
 # (s, v, L, fan_out, scratch, planes, valid, total, stream)
 _ENTRY_POINTS["ccve_expand_candidates_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P, _P]
+# (planes, plane_len, n_keep, key_off, state, width, level, full, out, stream)
+_ENTRY_POINTS["ccve_emit_rows_i32"] = [_P, _L, _L, _L, _P, _I, _I, _I, _P, _P]
 # name -> argtypes of the C functions that size a kernel's scratch; each
 # returns a byte count
 _SIZE_FUNCTIONS = {

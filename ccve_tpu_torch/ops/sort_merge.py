@@ -693,6 +693,20 @@ def expand_candidates(
         return route.candidates(s, v, max(int(table.max_mult), 1))
 
 
+def expand_compacted(
+    table: SortedTable, probe_keys, tile_log: int | None = None, route: Route = KERNELS
+):
+    """The kernel route's expansion up to its compaction: (planes int32[3,
+    F·L], total int64 scalar), the matched (probe row, key', payload)
+    triples packed to the front of the planes, in merged order, zeros
+    after; key = key' - 1 + kmin. Its steps are spans of the open query:
+    `expand_candidates`' three, then the compaction (`expand.compact`)."""
+    planes, valid, total = expand_candidates(table, probe_keys, tile_log, route)
+    with profiler.span("expand.compact", follows=True):
+        packed, _ = route.compact(planes, valid)
+    return packed, total
+
+
 def sorted_expand(
     table: SortedTable,
     probe_keys,
@@ -717,16 +731,13 @@ def sorted_expand(
     grouped by key; their multiset is the contract.
 
     Inside a query's root span the kernel route records its steps as
-    spans: `expand_candidates`' three, the compaction (`expand.compact`)
-    and the triples' widening and `_fit` (`expand.emit`); the generic
-    route records none."""
+    spans: `expand_compacted`'s four and the triples' widening and `_fit`
+    (`expand.emit`); the generic route records none."""
     if capacity < 0:
         raise ValueError(f"capacity {capacity} < 0")
     probe = _probe_on(table, probe_keys)
     if use_kernel is not False and stats_key_type(table) == torch.int32:
-        planes, valid, total = expand_candidates(table, probe, tile_log, route)
-        with profiler.span("expand.compact", follows=True):
-            packed, _ = route.compact(planes, valid)
+        packed, total = expand_compacted(table, probe, tile_log, route)
         with profiler.span("expand.emit", follows=True):
             kmin = table.pack32[0]  # key = key' - 1 + kmin; kmin - 1 may be no int64
             return _fit(

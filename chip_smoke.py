@@ -290,8 +290,18 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     --shuffle flat` (one NCCL rank, cross-checked), `dist --shuffle bcast
     --backend gloo` as two processes on the card (CCVE_* variables, a
     file:// rendezvous) and `roofline --dist --n-levels 2`.
+55. The emission (#19, `emit_rows_i32`; `emit_phase`, runnable alone with
+    config 1's table and probe column): config 1 through `bulk_materialize`
+    on the int64 column, counter zeroed just before (rows and payload sum
+    against numpy, one launch), then three levels at config 3's shape (1M
+    probe rows, 50K keys a level; rows equal to the oracle's, three
+    launches); the kernel against its plain version on config 1's
+    compacted planes (16M rows, W = 1, F = 1) and at each of the three
+    levels, exactly, and against the old torch emission at config 1; the
+    kernel, its plain version and the old torch emission timed in turns,
+    beside the kernel's byte bound.
 
-Prints the per-kernel JSON line (23 kernels: `sort_runs_narrowed` is #1 on
+Prints the per-kernel JSON line (25 kernels: `sort_runs_narrowed` is #1 on
 the main paths, the narrowing tile sort with its ladder, timed as its tile
 sort alone on the int64 column; `sort_tiles_i32`, #1's key-only form, runs
 on no main path, so it reads 0 launches, and is timed on the packed, padded
@@ -365,6 +375,7 @@ from ccve_tpu_torch.kernels import (  # noqa: E402
     bigsort,
     ce_stages,
     compact,
+    emit,
     merge_scan,
     murmur,
     pairsort,
@@ -1509,6 +1520,104 @@ def dist_phases(card: str, repo_root: str, max_err: dict) -> dict:
     return total
 
 
+def emit_work(n_keep: int, width: int) -> tuple[int, int]:
+    """(bytes, integer operations) of the emission of n_keep rows from a
+    state W wide: key' and payload read a row (and the row id and the W - 1
+    gathered columns when W > 1), W + 2 int64 words written a row; a few
+    operations a row."""
+    read = 8 + (4 + 8 * (width - 1) if width > 1 else 0)
+    return n_keep * (read + 8 * (width + 2)), 4 * n_keep
+
+
+def old_emission(planes, total, kmin: int, probe: torch.Tensor, src: torch.Tensor):
+    """The one-level emission at F = 1 as `bulk_materialize` and
+    `sorted_expand` ran it before the emission kernel (the span
+    `expand.emit`, twice): `_fit` at full capacity, then the host's read
+    of the total, the slices, the gathers of `src` and the empty
+    `appended`, the stack and the `cat`s."""
+    rows, ck, cp, total = sm._fit(planes[0], (planes[1].to(torch.int64) - 1) + kmin,
+                                  planes[2].to(torch.int64), total, probe.shape[0])
+    n_keep = int(total)
+    row_of = rows[:n_keep].to(torch.int64)
+    ck, cp = ck[:n_keep], cp[:n_keep]
+    appended = torch.zeros((0, probe.shape[0]), dtype=torch.int64, device=probe.device)
+    src, appended = src[row_of], appended[:, row_of]
+    appended = torch.cat([appended, torch.stack([ck, cp])])
+    return torch.cat([probe[src], appended.T], dim=1)
+
+
+def emit_phase(card: str, same, table, col: torch.Tensor, want: tuple) -> dict:
+    """Phase 55, runnable alone with config 1's table and int32 probe column
+    on the card, `want` its numpy (count, checksum), and any exact `same`:
+    #19 counted in `bulk_materialize` at the cell's shape and over three
+    levels, held against its plain version at each, and timed. Returns
+    {"launches", "ms", "work"} for the kernels line."""
+    t0 = time.perf_counter()
+    emit.emit_rows_i32.launches = 0
+    probe = col.to(torch.int64)[:, None].contiguous()
+    out = bulk_materialize([table], probe, PayloadMode.FULL)
+    torch.cuda.synchronize()
+    launches = emit.emit_rows_i32.launches
+    got = (out.shape[0], int(out[:, 2].sum()))
+    if got != want or launches != 1 or not torch.equal(out[:, 0], out[:, 1]):
+        raise AssertionError(f"bulk_materialize config 1: (rows, payload sum) {got}, numpy "
+                             f"{want}; {launches} emission launch(es)")
+    del out
+    kmin = table.pack32[0]
+    planes, total = sm.expand_compacted(table, probe[:, 0])
+    n_keep = int(total)
+    kernel = lambda: emit.emit_rows_i32(planes, n_keep, kmin, probe, 0, True)  # noqa: E731
+    plain = lambda: emit.emit_rows_plain(planes, n_keep, kmin, probe, 0, True)  # noqa: E731
+    same("emit_rows_i32", kernel(), plain(), "config 1 (16M rows, W = 1, F = 1)")
+    src = torch.arange(probe.shape[0], device=probe.device)
+    old = lambda: old_emission(planes, total, kmin, probe, src)  # noqa: E731
+    if not torch.equal(old(), kernel()):
+        raise AssertionError("the emission kernel and the old torch emission differ")
+    torch.cuda.synchronize()
+    # three levels: config 3's shape (1M probe rows, 50K build keys a level)
+    keys3, pays3 = gen_rhs_table(50_000, 1)
+    probe3 = torch.from_numpy(gen_probe_table(1_000_000, 3, 100_000)).cuda()
+    table3 = sm.build_sorted(keys3, pays3, device="cuda")
+    emit.emit_rows_i32.launches = 0
+    out3 = bulk_materialize([table3] * 3, probe3, PayloadMode.FULL)
+    torch.cuda.synchronize()
+    launches3 = emit.emit_rows_i32.launches
+    want3 = oracle_pipeline(probe3.cpu().numpy(), [OracleBuildTable(keys3, pays3)] * 3,
+                            PayloadMode.FULL)
+    got3 = out3.cpu().numpy()
+    if launches3 != 3 or got3.shape != want3.shape or not np.array_equal(
+            got3[np.lexsort(got3.T[::-1])], want3[np.lexsort(want3.T[::-1])]):
+        raise AssertionError(f"bulk_materialize over three levels: {got3.shape} rows against "
+                             f"the oracle's {want3.shape}; {launches3} emission launches")
+    state, widths = probe3, []
+    for level in range(3):
+        p3, t3 = sm.expand_compacted(table3, state[:, level])
+        k3 = int(t3)
+        nxt = emit.emit_rows_i32(p3, k3, table3.pack32[0], state, level, True)
+        same("emit_rows_i32", nxt, emit.emit_rows_plain(p3, k3, table3.pack32[0], state, level,
+                                                        True), f"three levels, level {level}")
+        widths.append((state.shape[1], k3))
+        state = nxt
+    torch.cuda.synchronize()
+    log(f"phase emission (#19): ok ({time.perf_counter() - t0:.1f} s); config 1 through "
+        f"bulk_materialize: {want[0]} rows, payload sum {want[1]} (numpy agrees), {launches} "
+        f"launch; three levels (1M probe rows, 50K keys a level): {got3.shape[0]} rows equal to "
+        f"the oracle's, {launches3} launches; the kernel equal to its plain version at config 1 "
+        f"and at each level (W, rows) {widths}, and to the old torch emission at config 1")
+    ms = {}
+    for _ in range(2):  # in turns: kernel, plain, old torch emission
+        for name, fn in (("kernel", kernel), ("plain", plain), ("old", old)):
+            ms.setdefault(name, []).extend(cuda_ms(fn))
+    b_ms, b_by = bound(*emit_work(n_keep, 1))
+    k_ms = med(ms["kernel"])
+    log(f"  emit_rows_i32 at config 1 ({n_keep} rows, W = 1, F = 1) on [{card}], CUDA events, "
+        f"medians of {2 * REPS}: kernel {spread_ms(ms['kernel'])}, bound {b_ms:.4f} ms "
+        f"({b_by}; {k_ms / b_ms:.2f}x the bound), plain {spread_ms(ms['plain'])}, the old torch "
+        f"emission (_fit, int(total), the gathers, the stack and the cats) {spread_ms(ms['old'])}")
+    return {"launches": launches + launches3, "ms": (k_ms, med(ms["plain"]), med(ms["old"])),
+            "work": emit_work(n_keep, 1)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1539,7 +1648,7 @@ def main() -> int:
     }
     max_err = dict.fromkeys([*wrappers, *NEW_WRAPPERS, *WIDE_WRAPPERS, *HASH_WRAPPERS,
                              "drain_segment", "drain_segment_occ", "chunk_rank",
-                             *SLICE_3B_WRAPPERS, "ce_stages_i32"], 0)
+                             *SLICE_3B_WRAPPERS, "ce_stages_i32", "emit_rows_i32"], 0)
 
     same = exact(max_err)
 
@@ -2011,6 +2120,7 @@ def main() -> int:
 
     # ---- 9. config 1 materialized at full size (phase 4's data) ------------
     col1 = probe_dev[:, 0].contiguous()
+    config1 = (table, col1, (want_count, want_checksum))  # phase 55's
     zero_counters(NEW_WRAPPERS)
     zero_counters(PARTITION)
     tiles, total = sm.sorted_expand_tiled(table, col1)
@@ -3618,6 +3728,12 @@ def main() -> int:
     # ---- 51-54. slice 9: the distributed tier at config 5 ---------------------------
     launches9 = dist_phases(card, repo_root, max_err)
 
+    # ---- 55. the emission (#19) at config 1's shape and over three levels ------------
+    emitted = emit_phase(card, same, *config1)
+    launches["emit_rows_i32"] = emitted["launches"]
+    kernel_ms["emit_rows_i32"] = emitted["ms"][:2]
+    work["emit_rows_i32"] = emitted["work"]
+
     sources = {
         "sort_runs_narrowed": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                                "ccve_tpu/kernels/bigsort.py:94"),
@@ -3667,6 +3783,8 @@ def main() -> int:
                           "ccve_tpu/kernels/bigsort.py:229"),
         "ce_stages_i32": ("ccve_tpu_torch/kernels/csrc/ce_stages.cu",
                           "ccve_tpu/bench/roofline.py:208"),
+        "emit_rows_i32": ("ccve_tpu_torch/kernels/csrc/emit.cu",
+                          "none: takes and concatenations, ccve_tpu/exec/bulk.py:342-390"),
     }
     # Slice 2's launches are those of its two main-path runs (config 3's
     # bulk_count and config 1's sorted_expand_tiled); its times are per

@@ -20,8 +20,11 @@ from ccve_tpu_torch.bench.edge_cases import (
     narrow_case,
     probe_runs,
 )
-from ccve_tpu_torch.kernels import bigsort, compact, merge_scan, pairsort
+from ccve_tpu_torch.config import PayloadMode
+from ccve_tpu_torch.exec import bulk
+from ccve_tpu_torch.kernels import bigsort, compact, emit, merge_scan, pairsort
 from ccve_tpu_torch.ops import sort_merge as sm
+from ccve_tpu_torch.ops.hash_table import build_csr, build_lp
 
 pytestmark = pytest.mark.cuda
 
@@ -1614,3 +1617,61 @@ def test_compact_again_and_again(cuda):
         for got, count in out:
             assert int(count) == int(want_count)
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "reference"])
+@pytest.mark.parametrize("width", [1, 2, 3, 40])
+@pytest.mark.parametrize("n_keep", [1, 1023, 1025, 3 * 1024 + 7, 200_001])
+def test_emit_rows_kernel(cuda, n_keep, width, full):
+    """The emission kernel bit for bit against its plain version, at row
+    counts off its tile (1024 rows at W <= 3, 128 at W = 40), over planes
+    longer than n_keep, at the int64 ends of the key offset."""
+    rng = np.random.default_rng(n_keep + width)
+    rows, length = 5_000, n_keep + 13
+    planes = torch.from_numpy(np.stack([
+        rng.integers(0, rows, length), rng.integers(1, 2**29, length),
+        rng.integers(-(2**31), 2**31 - 1, length)]).astype(np.int32)).to(cuda)
+    state = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (rows, width))).to(cuda)
+    for kmin in (0, -(2**62) + 3, 2**62, -(2**63)):
+        for level in sorted({0, width // 2, width - 1}):
+            before = emit.emit_rows_i32.launches
+            got = emit.emit_rows_i32(planes, n_keep, kmin, state, level, full)
+            assert emit.emit_rows_i32.launches == before + 1
+            want = emit.emit_rows_plain(planes, n_keep, kmin, state, level, full)
+            assert got.shape == (n_keep, width + 2) and torch.equal(got, want), (kmin, level)
+
+
+def test_emit_rows_kernel_no_match_launches_nothing(cuda):
+    planes = torch.zeros((3, 64), dtype=torch.int32, device=cuda)
+    state = torch.zeros((64, 2), dtype=torch.int64, device=cuda)
+    before = emit.emit_rows_i32.launches
+    assert emit.emit_rows_i32(planes, 0, 5, state, 1, True).shape == (0, 4)
+    assert emit.emit_rows_i32.launches == before
+
+
+def test_bulk_materialize_emits_each_sorted_int32_level_once(cuda):
+    """Over sorted int32, LP, sorted int32, CSR and wide int64 levels the
+    emission kernel launches once a sorted int32 level and never for the
+    others; the rows equal the CPU path's as a multiset."""
+    rng = np.random.default_rng(27)
+    kinds = ["sorted", "lp", "sorted", "csr", "wide"]
+    build = {"sorted": sm.build_sorted, "wide": sm.build_sorted, "lp": build_lp,
+             "csr": build_csr}
+    tables = {"cpu": [], "cuda": []}
+    cols = []
+    for kind in kinds:
+        keys = np.repeat(rng.permutation(3000).astype(np.int64) * 3, rng.integers(1, 3, 3000))
+        if kind == "wide":
+            keys = keys * 2**40
+        pays = rng.integers(-(2**31), 2**31 - 1, keys.size)
+        for dev in tables:
+            tables[dev].append(build[kind](keys, pays, device=dev))
+        cols.append(rng.choice(keys, 4000) + rng.integers(0, 2, 4000))
+    probe = np.stack(cols, axis=1)
+    emit.emit_rows_i32.launches = 0
+    got = bulk.bulk_materialize(tables["cuda"], torch.from_numpy(probe).to(cuda), PayloadMode.FULL)
+    torch.cuda.synchronize()
+    assert emit.emit_rows_i32.launches == 2
+    want = bulk.bulk_materialize(tables["cpu"], probe, PayloadMode.FULL)
+    assert got.shape == want.shape and want.shape[0] > 0
+    assert sorted(map(tuple, got.cpu().tolist())) == sorted(map(tuple, want.tolist()))

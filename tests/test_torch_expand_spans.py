@@ -1,8 +1,8 @@
 """The span recorder (`utils.profiler.span`, `Spans`) on
 `bulk_materialize`: a call is the root `bulk.materialize`; a level on the
-stats side's int32 kernel route records `sorted_expand`'s steps as its
+stats side's int32 kernel route records `expand_compacted`'s steps as its
 children, in order, each after the first starting at the previous one's
-end stamp (`follows`), then the emission; other routes record the root
+end stamp (`follows`), then the emission, once; other routes record the root
 alone; the expansion called outside a root records nothing; `bulk_count`'s
 spans stay as they were; the answers are the same recording or not. The
 `cuda` case holds the device stamps on the card. The JAX package has no
@@ -21,7 +21,7 @@ from ccve_tpu_torch.ops.hash_table import build_csr, build_lp
 from ccve_tpu_torch.utils import profiler
 
 LEVEL = ["expand.narrow", "expand.merge", "expand.candidates", "expand.compact",
-         "expand.emit", "expand.emit"]
+         "expand.emit"]
 COUNT = ["count.build_stream", "count.narrow", "count.sort_runs", "count.merge_counts"]
 
 
@@ -108,7 +108,7 @@ def test_each_level_records_its_steps(rec, opened):
     (q,) = rec.snapshot()
     assert [s.name for s in q] == ["bulk.materialize"] + LEVEL * 2
     assert {s.parent for s in q[1:]} == {q[0].id}
-    assert [f for _, f in opened] == [False] + ([False] + [True] * 5) * 2
+    assert [f for _, f in opened] == [False] + ([False] + [True] * 4) * 2
 
 
 @pytest.mark.parametrize("route", ["wide", "lp", "csr", "empty"])
@@ -134,6 +134,7 @@ def test_the_expansion_outside_a_root_records_nothing(rec):
         sm.sorted_expand(table, col, col.numel())
         sm.sorted_expand_tiled(table, col, tile_rows=700)
         sm.expand_candidates(table, col)
+        sm.expand_compacted(table, col)
         sm.merged_stream(table, col, spans=True)
     assert rec.snapshot() == [] and rec.queries == 0
 
