@@ -293,10 +293,11 @@ def _count_side(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
       (`count.sort_runs`): no narrowed or padded copy of the column is
       written;
     - on int64 streams and on the small-probe route: `_tagged` (the probe
-      column's narrowing, then the build stream's `| 1`), the plan and the
-      padding (`count.narrow`), then `_runs_bc`'s, as `_count_side_bc`
-      runs them. `pack32_streams` and `pack64_streams` are these first
-      two steps, in this order;
+      column's narrowing, then the build stream's `| 1`) and the plan
+      (`count.narrow`), on int64 streams the padding to whole tiles
+      (`count.pad`; the small-probe route has no plan and pads nothing),
+      then `_runs_bc`'s, as `_count_side_bc` runs them. `pack32_streams`
+      and `pack64_streams` are the first two steps, in this order;
 
     and last the merge counts (`count.merge_counts`)."""
     m = table.keys.numel()
@@ -307,7 +308,10 @@ def _count_side(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
     if wide or plan is None:
         with profiler.span("count.narrow", follows=True):
             p, b = _tagged(_probe_key64 if wide else _probe_key32, table, probe, b)
-            padded = _padded(p, plan)
+        padded = None
+        if plan is not None:
+            with profiler.span("count.pad", follows=True):
+                padded = _padded(p, plan)
         return _runs_bc(p, padded, plan, b, m)
     n_pad, run_log, tile_log = plan
     with profiler.span("count.narrow", follows=True):

@@ -2,11 +2,13 @@
 side of `bulk_count`: off, it hands back one shared object and records
 nothing; on (`Spans.recording()`, or one query in `Spans.EVERY` in a
 torch.profiler session), it records one root a call with the count
-side's four steps as children, a root's self time free of the recorder's
-own work, the store's cap, and the same answers as with it off; the
-stream packers enqueue the count side's first steps in its order where
-it packs the probe column itself, and on the int32 tile route it tags
-the build stream and hands the column to `sort_runs_narrowed`. The
+side's four steps as children (five on int64 streams, which pad the
+probe stream to whole tiles as a step of their own), a root's self time
+free of the recorder's own work, the store's cap, and the same answers
+as with it off; the stream packers enqueue the count side's first steps
+in its order where it packs the probe column itself, and on the int32
+tile route it tags the build stream and hands the column to
+`sort_runs_narrowed`. The
 `cuda` case holds the device stamps on the card. The JAX package has no
 spans: nothing here imports it."""
 
@@ -193,12 +195,35 @@ def test_answers_are_the_same_recording_or_not(rec, tiles, case):
     assert on == off
     (q,) = rec.snapshot()
     names = [s.name for s in q]
-    if case in ("int32 streams", "int64 streams"):
+    if case == "int32 streams":
         assert names == ["bulk.count"] + STEPS
+    elif case == "int64 streams":  # the padding to whole tiles is a step of its own
+        assert names == ["bulk.count", "count.build_stream", "count.narrow", "count.pad",
+                         "count.sort_runs", "count.merge_counts"]
     elif case == "two levels":  # the multi-level path records its root alone
         assert names == ["bulk.count"]
     else:
         assert names == ["bulk.count", "count.build_stream", "count.narrow"]
+
+
+@pytest.mark.parametrize("n_probe", [19968, 20000], ids=["whole tiles", "a part tile"])
+def test_int64_streams_pad_in_a_step_of_their_own(rec, tiles, n_probe):
+    """On int64 streams the padding to whole tiles is a span right after
+    the narrowing, also where the probes fill whole tiles and no row is
+    padded; the answer is the plain `searchsorted` count and checksum's."""
+    tables, probe = _case(n_probe=n_probe, wide=True)
+    with profiler.Spans.recording():
+        got = _answer(bulk.bulk_count(tables, probe))
+    (q,) = rec.snapshot()
+    names = [s.name for s in q]
+    assert names.count("count.pad") == 1
+    assert names.index("count.pad") == names.index("count.narrow") + 1
+    keys, pays = tables[0].keys, tables[0].payloads
+    col = probe[:, 0]
+    lo = torch.searchsorted(keys, col, right=False)
+    hi = torch.searchsorted(keys, col, right=True)
+    prefix = torch.cat([pays.new_zeros(1), pays.cumsum(0)])
+    assert got == (int((hi - lo).sum()), [int((prefix[hi] - prefix[lo]).sum())])
 
 
 class _Ops(TorchDispatchMode):
