@@ -4,7 +4,8 @@ arrays made from a seeded generator: `chunk_rank_cases` for #11
 `dense_counts_cases` for #4 (`kernels.merge_scan.merge_scan_build_counts`,
 csrc/dense_counts.cu), `merge_counts_case` for #3 and #14
 (`kernels.merge_scan.merge_counts_i32` / `_i64`, csrc/merge_counts.cu) and
-`narrow_case` for #1's narrowing load (`kernels.bigsort.sort_runs_narrowed`,
+`narrow_case` for #1's and #13's narrowing loads
+(`kernels.bigsort.sort_runs_narrowed`, `sort_runs_narrowed_i64`,
 csrc/sort_tiles.cu) and `candidates_case` for the expansion's candidates
 (`kernels.merge_scan.expand_candidates_i32`, csrc/candidates.cu).
 `chip_smoke.py` and tests/test_torch_cuda.py hold each kernel against its
@@ -240,23 +241,45 @@ NARROW_TABLES = {
 }
 
 
+# #13's narrowing load: name -> (smallest, largest key) of a wide table
+# (no `pack32`, a span below 2^62); its keys are those two and up to
+# NARROW_BUILDS - 2 more spread between
+NARROW_WIDE_TABLES = {
+    "span 2^40": (0, 2**40 - 1),
+    "span 2^40 from INT64_MIN": (int(I64.min), int(I64.min) + 2**40),
+    "span 2^40 to INT64_MAX": (int(I64.max) - 2**40, int(I64.max)),
+    "span just below 2^62": (-(2**61), 2**61 - 3),
+    "span just below 2^62 from INT64_MIN": (int(I64.min), int(I64.min) + 2**62 - 3),
+}
+
+
 def narrow_case(rng, table: str, n: int, dtype) -> tuple[np.ndarray, np.ndarray]:
-    """(build keys int64[NARROW_BUILDS], probe column of `dtype`[n]) of one
-    of NARROW_TABLES: probes drawn from the builds and their neighbours
-    (wrapping at the int64 extremes), clipped to `dtype`, with the
-    column's type extremes and the keys around the table's clamp bounds
-    (kmin - 1 and kmin - 1 + 2^key_bits - 1, as `ops.sort_merge._pack32_meta`
-    sizes key_bits) and past them, as far as `dtype` holds them."""
-    kmin = NARROW_TABLES[table]
-    spread = np.sort(rng.choice(2 * NARROW_BUILDS, NARROW_BUILDS - 1, replace=False))
-    keys = np.array([kmin] + [kmin + 1 + int(s) for s in spread], dtype=np.int64)
+    """(build keys int64, probe column of `dtype`[n]) of one of
+    NARROW_TABLES (NARROW_BUILDS keys) or NARROW_WIDE_TABLES: probes drawn
+    from the builds and their neighbours (wrapping at the int64 extremes),
+    on a wide table half of them uniform over its span instead, clipped to
+    `dtype`, with the column's type extremes and the keys around the
+    table's clamp bounds (kmin - 1, kmax + 1, and kmin - 1 + 2^key_bits - 1,
+    as `ops.sort_merge._pack32_meta` sizes key_bits) and past them, as far
+    as `dtype` holds them."""
+    if table in NARROW_WIDE_TABLES:
+        kmin, kmax = NARROW_WIDE_TABLES[table]
+        inner = rng.integers(kmin + 1, kmax, NARROW_BUILDS - 2, dtype=np.int64)
+        keys = np.unique(np.concatenate([[kmin, kmax], inner]).astype(np.int64))
+    else:
+        kmin = NARROW_TABLES[table]
+        spread = np.sort(rng.choice(2 * NARROW_BUILDS, NARROW_BUILDS - 1, replace=False))
+        keys = np.array([kmin] + [kmin + 1 + int(s) for s in spread], dtype=np.int64)
     kmax = int(keys.max())
     top = kmin - 1 + (1 << max((kmax - kmin + 2).bit_length(), 1)) - 1
     info = np.iinfo(dtype)
     edges = [int(info.min), int(info.max), int(info.min) + 1, int(info.max) - 1, -1, 0,
-             kmin - 2, kmin - 1, kmin, kmax, kmax + 1, top - 1, top, top + 1]
+             kmin - 2, kmin - 1, kmin, kmax, kmax + 1, top - 1, top, top + 1, kmax + 2]
     edges = [e for e in edges if info.min <= e <= info.max][:n]
     col = rng.choice(keys, n) + rng.integers(-1, 2, n)
+    if table in NARROW_WIDE_TABLES:
+        miss = rng.random(n) < 0.5
+        col[miss] = rng.integers(kmin, kmax, int(miss.sum()), dtype=np.int64, endpoint=True)
     col = np.clip(col, info.min, info.max)
     col[: len(edges)] = edges
     rng.shuffle(col)

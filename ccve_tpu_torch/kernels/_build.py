@@ -41,9 +41,9 @@ _L = ctypes.c_longlong
 # int. Every kernel has an _i32 and an _i64 build (the key type) with the
 # same arguments, except those of one key type: the compaction, the drain,
 # the dense build counts, the key-only merge, the roofline's
-# compare-exchange stages, the narrowing ladder, the expansion's
-# candidates and the emission (int32), and the hash, the
-# chunk ranks and the generic and packed stats scans (int64).
+# compare-exchange stages, the expansion's candidates and the emission
+# (int32), and the hash, the chunk ranks and the generic and packed stats
+# scans (int64).
 _KEYED_ENTRY_POINTS = {
     # (x, y, n_tiles, tile_log, stream)
     "ccve_sort_tiles": [_P, _P, _L, _I, _P],
@@ -67,6 +67,10 @@ _KEYED_ENTRY_POINTS = {
     "ccve_merge_two_multi": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 5 + [_I, _P],
     # (s, v, L, n, scratch, mult, psum, stream)
     "ccve_merge_stats": [_P, _P, _L, _L, _P, _P, _P, _P],
+    # (col, col_is_i64, n, stride, lo, hi, kmin, y, t, splits, n_pad,
+    #  tile_log, n_levels, stream): the count side's ladder over a probe
+    # column narrowed in the tile sort's load
+    "ccve_sort_runs_narrow": [_P, _I, _L, _L, _L, _L, _L, _P, _P, _P, _L, _I, _I, _P],
 }
 _ENTRY_POINTS = {
     f"{name}_{suffix}": argtypes
@@ -96,11 +100,6 @@ _ENTRY_POINTS["ccve_merge_build_counts_i32"] = [_P, _L, _L, _I, _P, _P, _P]
 _ENTRY_POINTS["ccve_merge_two_i32"] = [_P, _L, _P, _L, _P, _P, _P]
 # (x, y, n_tiles, n_stages, stream)
 _ENTRY_POINTS["ccve_ce_stages_i32"] = [_P, _P, _L, _I, _P]
-# (col, col_is_i64, n, stride, lo, hi, kmin, y, t, splits, n_pad,
-#  tile_log, n_levels, stream): the count side's ladder over a probe column
-# narrowed in the tile sort's load
-_ENTRY_POINTS["ccve_sort_runs_narrow_i32"] = [_P, _I, _L, _L, _L, _L, _L, _P, _P, _P, _L, _I, _I,
-                                             _P]
 # (s, v, L, fan_out, scratch, planes, valid, total, stream)
 _ENTRY_POINTS["ccve_expand_candidates_i32"] = [_P, _P, _L, _I, _P, _P, _P, _P, _P]
 # (planes, plane_len, n_keep, key_off, state, width, level, full, out, stream)

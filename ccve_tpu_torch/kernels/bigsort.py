@@ -13,13 +13,15 @@ two launches a level) until runs reach 2^run_log or cover the stream.
 `sort_runs` drives the two for either key type: on CUDA tensors in one
 host call (`ccve_sort_runs`: every launch enqueued from C, one output, one
 scratch buffer, one split scratch), on the CPU through the plain versions
-level by level. `sort_runs_narrowed` is the count side's int32 ladder read
-straight from its int64 or int32 probe column: its tile sort narrows each
-key as it loads it (`ccve_sort_runs_narrow_i32`), so no narrowed or
-padded copy of the column is written. It is the only int32 ladder on a
-main path: the int32 `sort_runs` and `sort_tiles_i32` (the key-only tile
-sort of a packed stream) remain for the tests and the measuring tools,
-and as `sort_runs_narrowed`'s CPU route. `merge_sorted_i32` (kernel
+level by level. `sort_runs_narrowed` (int32 keys) and `sort_runs_narrowed_i64`
+(int64 keys, a wide table's) are the count side's ladders read straight
+from its int64 or int32 probe column: their tile sort narrows each key as
+it loads it (`ccve_sort_runs_narrow_i32`, `_i64`), so no narrowed or
+padded copy of the column is written. They are the only count-side
+ladders on a main path: `sort_runs` and the key-only tile sorts
+`sort_tiles_i32` and `sort_tiles_i64` of a packed stream remain for the
+tests and the measuring tools, for `ops.sort_merge._count_side_bc`, and
+as the narrowing ladders' CPU route. `merge_sorted_i32` (kernel
 csrc/merge_multi.cu, the key-only merge) is the counterpart of
 `ccve_tpu.kernels.bigsort.merge_sorted_i32`: two ascending int32 streams
 into one.
@@ -195,25 +197,58 @@ def sort_runs(x: torch.Tensor, run_log: int, tile_log: int = TILE_LOG) -> torch.
     return y
 
 
-def narrow_plain(col: torch.Tensor, lo: int, hi: int, kmin: int) -> torch.Tensor:
-    """The count side's int32 probe keys from an int64 or int32 column:
-    int32(((clamp(x, lo, hi) - kmin) + 1) << 1) in int64 arithmetic, as
-    `ops.sort_merge._probe_key32` narrows them (lo <= hi: its clamp
-    bounds, saturated at the int64 range)."""
-    return ((col.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1).to(torch.int32)
+def narrow_plain(col: torch.Tensor, lo: int, hi: int, kmin: int,
+                 dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """The count side's probe keys of type `dtype` from an int64 or int32
+    column: dtype(((clamp(x, lo, hi) - kmin) + 1) << 1) in int64
+    arithmetic, as `ops.sort_merge._probe_key32` (int32) and
+    `_probe_key64` (int64) narrow them (lo <= hi: their clamp bounds,
+    saturated at the int64 range)."""
+    return ((col.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1).to(dtype)
 
 
-def _narrowed_padded(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int):
-    p = narrow_plain(col, lo, hi, kmin)
-    return torch.cat([p, p.new_full((n_pad - p.numel(),), I32_MAX)])
+def _narrowed_padded(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int, dtype):
+    p = narrow_plain(col, lo, hi, kmin, dtype)
+    return torch.cat([p, p.new_full((n_pad - p.numel(),), PAD[dtype])])
 
 
 def sort_runs_narrowed_plain(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int,
-                             run_log: int, tile_log: int = TILE_LOG) -> torch.Tensor:
-    """`sort_runs_narrowed` composed of torch passes and the plain ladder,
-    on any device: the column narrowed (`narrow_plain`), padded with
-    PAD[int32] to n_pad keys, then `sort_runs_plain`."""
-    return sort_runs_plain(_narrowed_padded(col, lo, hi, kmin, n_pad), run_log, tile_log)
+                             run_log: int, tile_log: int = TILE_LOG,
+                             dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """`sort_runs_narrowed` (`sort_runs_narrowed_i64` with dtype int64)
+    composed of torch passes and the plain ladder, on any device: the
+    column narrowed (`narrow_plain`), padded with PAD[dtype] to n_pad keys,
+    then `sort_runs_plain`."""
+    return sort_runs_plain(_narrowed_padded(col, lo, hi, kmin, n_pad, dtype), run_log, tile_log)
+
+
+def _sort_runs_narrowed(wrapper, dtype, col, lo: int, hi: int, kmin: int, n_pad: int,
+                        run_log: int, tile_log: int) -> torch.Tensor:
+    _build.check_int(col, "col", _build.key_dtype(col, "col"), contiguous=False)
+    n = col.numel()
+    if n_pad < n or n_pad >= 2**31 or n_pad % (1 << tile_log):
+        raise ValueError(f"n_pad {n_pad} is not a multiple of 2^{tile_log} in [{n}, 2^31)")
+    if not lo <= hi:
+        raise ValueError(f"clamp bounds {lo} > {hi}")
+    if col.device.type == "cpu":
+        return sort_runs(_narrowed_padded(col, lo, hi, kmin, n_pad, dtype), run_log, tile_log)
+    n_levels = _n_levels(n_pad, run_log, tile_log)
+    y = col.new_empty(0, dtype=dtype)
+    if not n_pad:
+        return y
+    lib = _build.load()
+    y, splits = _build.empty_with_scratch(y, n_pad, lib.ccve_merge_splits_bytes(n_pad, tile_log))
+    t = torch.empty_like(y) if n_levels else y
+    entry = getattr(lib, f"ccve_sort_runs_narrow_{_build.SUFFIX[dtype]}")
+    code = entry(
+        col.data_ptr(), int(col.dtype == torch.int64), n, col.stride(0), lo, hi, kmin,
+        y.data_ptr(), t.data_ptr(), splits, n_pad, tile_log, n_levels, _build.stream(col),
+    )
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    KERNELS[dtype][1].launches += n_levels
+    merge_partition.launches += n_levels
+    return y
 
 
 def sort_runs_narrowed(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int,
@@ -233,33 +268,28 @@ def sort_runs_narrowed(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: in
     `sort_tiles_i32`. On the CPU it is that composition through
     `sort_runs`, whose CPU route runs the plain versions level by level:
     `sort_runs_narrowed_plain`'s result."""
-    _build.check_int(col, "col", _build.key_dtype(col, "col"), contiguous=False)
-    n = col.numel()
-    if n_pad < n or n_pad >= 2**31 or n_pad % (1 << tile_log):
-        raise ValueError(f"n_pad {n_pad} is not a multiple of 2^{tile_log} in [{n}, 2^31)")
-    if not lo <= hi:
-        raise ValueError(f"clamp bounds {lo} > {hi}")
-    if col.device.type == "cpu":
-        return sort_runs(_narrowed_padded(col, lo, hi, kmin, n_pad), run_log, tile_log)
-    n_levels = _n_levels(n_pad, run_log, tile_log)
-    y = col.new_empty(0, dtype=torch.int32)
-    if not n_pad:
-        return y
-    lib = _build.load()
-    y, splits = _build.empty_with_scratch(y, n_pad, lib.ccve_merge_splits_bytes(n_pad, tile_log))
-    t = torch.empty_like(y) if n_levels else y
-    code = lib.ccve_sort_runs_narrow_i32(
-        col.data_ptr(), int(col.dtype == torch.int64), n, col.stride(0), lo, hi, kmin,
-        y.data_ptr(), t.data_ptr(), splits, n_pad, tile_log, n_levels, _build.stream(col),
-    )
-    _build.check(code, "sort_runs_narrowed")
-    sort_runs_narrowed.launches += 1
-    merge_level_i32.launches += n_levels
-    merge_partition.launches += n_levels
-    return y
+    return _sort_runs_narrowed(sort_runs_narrowed, torch.int32, col, lo, hi, kmin, n_pad,
+                               run_log, tile_log)
+
+
+def sort_runs_narrowed_i64(col: torch.Tensor, lo: int, hi: int, kmin: int, n_pad: int,
+                           run_log: int, tile_log: int = TILE_LOG) -> torch.Tensor:
+    """`sort_runs_narrowed` into int64 keys: the count side's probe stream
+    of a wide table (no `pack32`), int64[n_pad] in runs of 2^run_log, the
+    column's keys narrowed as `narrow_plain(..., torch.int64)` (that is,
+    `ops.sort_merge._probe_key64`) narrows them and padded with PAD[int64].
+    One host call on CUDA tensors (`ccve_sort_runs_narrow_i64`: the tile
+    sort's int64 form, 68 KB of shared memory a tile, then the
+    `merge_level_i64` levels); it counts one call here, its levels on
+    `merge_level_i64` and `merge_partition`, and never on `sort_tiles_i64`.
+    On the CPU, `sort_runs_narrowed_plain(..., dtype=torch.int64)`'s
+    result through `sort_runs`."""
+    return _sort_runs_narrowed(sort_runs_narrowed_i64, torch.int64, col, lo, hi, kmin, n_pad,
+                               run_log, tile_log)
 
 
 sort_runs_narrowed.launches = 0
+sort_runs_narrowed_i64.launches = 0
 
 
 def sort_runs_plain(

@@ -12,9 +12,9 @@
 //    the stream, between the output and a scratch buffer.
 //  - ccve_sort_runs_i32: the same ladder of keys with no planes, over
 //    sort_tiles.cu's key-only tile sort.
-//  - ccve_sort_runs_narrow_i32 (int32 keys only): the same ladder over
-//    sort_tiles.cu's narrowing tile sort, which reads the count side's
-//    int64 or int32 probe column and narrows each key as it loads it.
+//  - ccve_sort_runs_narrow_i32: the same ladder over sort_tiles.cu's
+//    narrowing tile sort, which reads the count side's int64 or int32
+//    probe column and narrows each key as it loads it.
 //  - ccve_merge_two_multi_i32: the unequal merge of two ascending streams
 //    A[0, na) and B[0, nb) into one of na + nb (either may be empty).
 //  - ccve_merge_two_i32: the same merge of int32 keys with no planes.
@@ -354,12 +354,16 @@ extern "C" int ccve_sort_tiles_i32(const void*, void*, long long, int, void*);
 extern "C" int ccve_sort_tiles_i64(const void*, void*, long long, int, void*);
 extern "C" int ccve_sort_tiles_narrow_i32(const void*, int, long long, long long, long long,
                                           long long, long long, void*, long long, int, void*);
+extern "C" int ccve_sort_tiles_narrow_i64(const void*, int, long long, long long, long long,
+                                          long long, long long, void*, long long, int, void*);
 
 namespace {
 
 using SortTiles = int (*)(const void*, const void*, const void*, const void*, void*, void*,
                           void*, void*, int, long long, int, void*);
 using SortKeyTiles = int (*)(const void*, void*, long long, int, void*);
+using SortNarrowTiles = int (*)(const void*, int, long long, long long, long long, long long,
+                                long long, void*, long long, int, void*);
 
 // The key-only tile sort as a SortTiles (n whole tiles, no planes).
 template <SortKeyTiles kSort>
@@ -413,6 +417,25 @@ int sort_runs(SortTiles sort_tiles, const void* x, void* y, void* t, void* split
   }
   return ladder<K>(sort_tiles, x, nullptr, nullptr, nullptr, y, nullptr, nullptr, nullptr, t,
                    nullptr, nullptr, nullptr, splits, 0, n, tile_log, n_levels, stream);
+}
+
+// The key-only ladder over a probe column narrowed in the tile sort's
+// load: the arguments of ccve_sort_runs_narrow_i32.
+template <typename K>
+int sort_runs_narrow(SortNarrowTiles sort_tiles, const void* col, int col_is_i64, long long n,
+                     long long stride, long long lo, long long hi, long long kmin, void* y,
+                     void* t, void* splits, long long n_pad, int tile_log, int n_levels,
+                     void* stream) {
+  if (tile_log < 1 || tile_log > 30 || n_pad % (1LL << tile_log) != 0 || n_levels < 0 ||
+      tile_log + n_levels > 31 || bad_level(0, n_pad, tile_log)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_pad == 0) return 0;
+  void* const bk[2] = {y, t};
+  void* const bv[2][kMaxPlanes] = {};
+  const int code = sort_tiles(col, col_is_i64, n, stride, lo, hi, kmin, bk[n_levels & 1],
+                              n_pad >> tile_log, tile_log, stream);
+  return code ? code : levels<K>(bk, bv, splits, 0, n_pad, tile_log, n_levels, stream);
 }
 
 }  // namespace
@@ -494,29 +517,31 @@ extern "C" int ccve_sort_runs_i64(const void* x, void* y, void* t, void* splits,
                               n_levels, stream);
 }
 
-// The count side's int32 ladder over a probe column narrowed in the tile
-// sort's load (sort_tiles.cu's ccve_sort_tiles_narrow_i32): col holds n
-// keys, int64 (col_is_i64 1) or int32 (0), key i at col[i * stride] (in
-// elements, stride >= 0), narrowed by (lo, hi, kmin) and
-// padded with INT32_MAX to n_pad, a multiple of 2^tile_log at least n;
-// then n_levels merge levels, the result in y. y, t: n_pad int32 keys, t
-// scratch; splits: ccve_merge_splits_bytes(n_pad, tile_log) of scratch.
+// The count side's ladder over a probe column narrowed in the tile sort's
+// load (sort_tiles.cu's ccve_sort_tiles_narrow_i32): col holds n keys,
+// int64 (col_is_i64 1) or int32 (0), key i at col[i * stride] (in
+// elements, stride >= 0), narrowed by (lo, hi, kmin) and padded with the
+// key type's maximum to n_pad, a multiple of 2^tile_log at least n; then
+// n_levels merge levels, the result in y. y, t: n_pad keys (int32, or
+// int64 in the second build), t scratch; splits:
+// ccve_merge_splits_bytes(n_pad, tile_log) of scratch.
 extern "C" int ccve_sort_runs_narrow_i32(const void* col, int col_is_i64, long long n,
                                          long long stride, long long lo, long long hi,
                                          long long kmin, void* y, void* t, void* splits,
                                          long long n_pad, int tile_log, int n_levels,
                                          void* stream) {
-  if (tile_log < 1 || tile_log > 30 || n_pad % (1LL << tile_log) != 0 || n_levels < 0 ||
-      tile_log + n_levels > 31 || bad_level(0, n_pad, tile_log)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_pad == 0) return 0;
-  void* const bk[2] = {y, t};
-  void* const bv[2][kMaxPlanes] = {};
-  const int code = ccve_sort_tiles_narrow_i32(col, col_is_i64, n, stride, lo, hi, kmin,
-                                              bk[n_levels & 1], n_pad >> tile_log, tile_log,
-                                              stream);
-  return code ? code : levels<int>(bk, bv, splits, 0, n_pad, tile_log, n_levels, stream);
+  return sort_runs_narrow<int>(ccve_sort_tiles_narrow_i32, col, col_is_i64, n, stride, lo, hi,
+                               kmin, y, t, splits, n_pad, tile_log, n_levels, stream);
+}
+
+extern "C" int ccve_sort_runs_narrow_i64(const void* col, int col_is_i64, long long n,
+                                         long long stride, long long lo, long long hi,
+                                         long long kmin, void* y, void* t, void* splits,
+                                         long long n_pad, int tile_log, int n_levels,
+                                         void* stream) {
+  return sort_runs_narrow<long long>(ccve_sort_tiles_narrow_i64, col, col_is_i64, n, stride,
+                                     lo, hi, kmin, y, t, splits, n_pad, tile_log, n_levels,
+                                     stream);
 }
 
 // splits: ccve_merge_splits_bytes(na + nb, 30) of scratch.

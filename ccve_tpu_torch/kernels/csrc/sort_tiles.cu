@@ -6,13 +6,14 @@
 //  - ccve_sort_tiles_multi_i32 / _i64 (the stats side's probe sort):
 //    stably, moving P int32 cargo planes (P = 1..3) with their keys; n any
 //    length, padded to whole tiles in the kernel.
-//  - ccve_sort_tiles_narrow_i32 (the count side's int32 probe stream):
-//    the key-only int32 sort, whose load reads the raw int64 or int32
-//    probe column, in place at any stride, and narrows each key in
-//    registers (`Narrow`), padding
-//    the tiles past the column's n keys with INT32_MAX. The narrowed and
-//    padded stream is never written: the column is read once, by this
-//    load, where separate passes would write it and read it back.
+//  - ccve_sort_tiles_narrow_i32 / _i64 (the count side's probe stream,
+//    int32 keys of a `pack32` table, int64 keys of a wide one): the
+//    key-only sort, whose load reads the raw int64 or int32 probe column,
+//    in place at any stride, and narrows each key in registers
+//    (`Narrow`), padding the tiles past the column's n keys with the key
+//    type's maximum. The narrowed and padded stream is never written: the
+//    column is read once, by this load, where separate passes would write
+//    it and read it back.
 //
 // Replaces: the key-only form, ccve_tpu/kernels/bigsort.py
 // `_make_local_kernel` (the in-VMEM Batcher presort that `_sort_padded_buf`
@@ -74,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <type_traits>
 
 #include "merge_path.cuh"
 
@@ -283,32 +285,37 @@ __global__ void __launch_bounds__(kMaxThreads)
   sort_tile<Tr, P>(xk, 1, Same{}, xv, yk, yv, n, tile_log);
 }
 
-// The count side's probe key, narrowed as ops.sort_merge._probe_key32
-// narrows it in int64: int32(((clamp(x, lo, hi) - kmin) + 1) << 1), here
-// in wrapping 64-bit arithmetic, which is what the int64 tensor ops do.
-// lo and hi are its clamp bounds, kmin - 1 and kmin - 1 + 2^key_bits - 1
-// saturated at the int64 range; every result lies in [0, 2^31).
+// The count side's probe key of type K, narrowed as
+// ops.sort_merge._probe_key32 (K int) or _probe_key64 (K long long)
+// narrows it in int64: K(((clamp(x, lo, hi) - kmin) + 1) << 1), here in
+// wrapping 64-bit arithmetic, which is what the int64 tensor ops do. lo
+// and hi are its clamp bounds, saturated at the int64 range: for int32
+// keys kmin - 1 and kmin - 1 + 2^key_bits - 1, every result in [0, 2^31);
+// for int64 keys kmin - 1 and kmax + 1, every result in [0, 2^63) when
+// the span kmax - kmin + 2 is below 2^62.
+template <typename K>
 struct Narrow {
   long long lo, hi, kmin;
 
-  __device__ int operator()(long long x) const {
+  __device__ K operator()(long long x) const {
     const long long c = x < lo ? lo : x > hi ? hi : x;
     const unsigned long long k =
         (static_cast<unsigned long long>(c) - static_cast<unsigned long long>(kmin) + 1ULL) << 1;
-    return static_cast<int>(static_cast<unsigned>(k));
+    return static_cast<K>(static_cast<std::make_unsigned_t<K>>(k));
   }
 };
 
-// The key-only int32 tile sort of a probe column of type C (int32 or
-// int64) narrowed on load: key i of the column is col[i * stride] (a
-// column of a wider table is read in place), each read once, coalesced
-// where stride is 1, and narrowed in registers; the tiles past n are
-// padded with INT32_MAX. From the load on it is the int32 key-only kernel.
-template <typename C>
+// The key-only tile sort of a probe column of type C (int32 or int64)
+// narrowed on load into keys of type K: key i of the column is
+// col[i * stride] (a column of a wider table is read in place), each read
+// once, coalesced where stride is 1, and narrowed in registers; the tiles
+// past n are padded with K's maximum. From the load on it is the key-only
+// kernel of K.
+template <typename K, typename C>
 __global__ void __launch_bounds__(kMaxThreads)
-    sort_tiles_narrow_kernel(const C* __restrict__ col, long long stride, Narrow narrow,
-                             int* __restrict__ yk, long long n, int tile_log) {
-  sort_tile<Keys<int>, 0>(col, stride, narrow, InPlanes{}, yk, OutPlanes{}, n, tile_log);
+    sort_tiles_narrow_kernel(const C* __restrict__ col, long long stride, Narrow<K> narrow,
+                             K* __restrict__ yk, long long n, int tile_log) {
+  sort_tile<Keys<K>, 0>(col, stride, narrow, InPlanes{}, yk, OutPlanes{}, n, tile_log);
 }
 
 template <typename Tr, int P>
@@ -367,19 +374,40 @@ int launch_keys(const void* x, void* y, long long n_tiles, int tile_log, void* s
                             static_cast<cudaStream_t>(stream));
 }
 
-// The narrowing tile sort's shared memory, 34 KB at the largest tile, is
-// below the default limit, so its launch never opts in.
-static_assert(((1 << kMaxTileLog) + (1 << kMaxTileLog) / 16) * sizeof(int) <= kDefaultSmem,
-              "the narrowing tile sort's shared memory");
-
-template <typename C>
-int launch_narrow(const void* col, long long stride, Narrow narrow, void* y, long long n,
+// The int64 form's shared memory, 68 KB at the largest tile, is above the
+// default limit: its launch opts in, as `launch` does.
+template <typename K, typename C>
+int launch_narrow(const void* col, long long stride, Narrow<K> narrow, void* y, long long n,
                   long long n_tiles, int tile_log, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(slots_of(tile_log)) * sizeof(int);
-  sort_tiles_narrow_kernel<C><<<static_cast<unsigned>(n_tiles), threads_of(tile_log), smem,
-                                stream>>>(static_cast<const C*>(col), stride, narrow,
-                                          static_cast<int*>(y), n, tile_log);
+  const size_t smem = static_cast<size_t>(slots_of(tile_log)) * sizeof(K);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(sort_tiles_narrow_kernel<K, C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sort_tiles_narrow_kernel<K, C><<<static_cast<unsigned>(n_tiles), threads_of(tile_log), smem,
+                                   stream>>>(static_cast<const C*>(col), stride, narrow,
+                                             static_cast<K*>(y), n, tile_log);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int narrow_tiles(const void* col, int col_is_i64, long long n, long long stride, long long lo,
+                 long long hi, long long kmin, void* y, long long n_tiles, int tile_log,
+                 void* stream) {
+  if (tile_log < 1 || tile_log > kMaxTileLog || n_tiles < 0 ||
+      n_tiles > (0x7FFFFFFFLL >> tile_log) || n < 0 || n > (n_tiles << tile_log) || lo > hi ||
+      stride < 0 || (col_is_i64 != 0 && col_is_i64 != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_tiles == 0) return 0;
+  const Narrow<K> narrow{lo, hi, kmin};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return col_is_i64
+             ? launch_narrow<K, long long>(col, stride, narrow, y, n, n_tiles, tile_log, st)
+             : launch_narrow<K, int>(col, stride, narrow, y, n, n_tiles, tile_log, st);
 }
 
 }  // namespace
@@ -416,21 +444,21 @@ extern "C" int ccve_sort_tiles_multi_i64(const void* xk, const void* xv0, const 
 
 // col: n probe keys, int64 (col_is_i64 1) or int32 (0), key i at
 // col[i * stride] (stride >= 0, in elements); y: n_tiles whole tiles of
-// 2^tile_log int32 keys, n at most their length. Each tile of the column
-// narrowed on load (`Narrow`; lo <= hi) and sorted; the keys past n are
-// INT32_MAX.
+// 2^tile_log keys (int32, or int64 in the second build), n at most their
+// length. Each tile of the column narrowed on load (`Narrow`; lo <= hi)
+// and sorted; the keys past n are the key type's maximum.
 extern "C" int ccve_sort_tiles_narrow_i32(const void* col, int col_is_i64, long long n,
                                           long long stride, long long lo, long long hi,
                                           long long kmin, void* y, long long n_tiles,
                                           int tile_log, void* stream) {
-  if (tile_log < 1 || tile_log > kMaxTileLog || n_tiles < 0 ||
-      n_tiles > (0x7FFFFFFFLL >> tile_log) || n < 0 || n > (n_tiles << tile_log) || lo > hi ||
-      stride < 0 || (col_is_i64 != 0 && col_is_i64 != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_tiles == 0) return 0;
-  const Narrow narrow{lo, hi, kmin};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return col_is_i64 ? launch_narrow<long long>(col, stride, narrow, y, n, n_tiles, tile_log, st)
-                    : launch_narrow<int>(col, stride, narrow, y, n, n_tiles, tile_log, st);
+  return narrow_tiles<int>(col, col_is_i64, n, stride, lo, hi, kmin, y, n_tiles, tile_log,
+                           stream);
+}
+
+extern "C" int ccve_sort_tiles_narrow_i64(const void* col, int col_is_i64, long long n,
+                                          long long stride, long long lo, long long hi,
+                                          long long kmin, void* y, long long n_tiles,
+                                          int tile_log, void* stream) {
+  return narrow_tiles<long long>(col, col_is_i64, n, stride, lo, hi, kmin, y, n_tiles,
+                                 tile_log, stream);
 }

@@ -4,16 +4,18 @@ Port of `ccve_tpu.ops.sort_merge`. A `SortedTable` holds the build rows
 sorted by key. Every key packs into one word, `key' << 1 | tag` with
 `key' = key - (kmin - 1)`: an int32 when the key span fits 30 bits
 (`pack32`), else an int64 when it is below 2^62 (`span62`, the wide
-tables: hashed ids, timestamps, composite keys). The int64 bounds come off
-the sorted table's ends as device scalars, so packing reads nothing back
+tables: hashed ids, timestamps, composite keys). The stats side's int64
+bounds come off the sorted table's ends as device scalars, the count
+side's from the table's host `key_range`, so packing reads nothing back
 to the host. Every kernel on these paths has an int32 and an int64 build.
 
  - Count side (`sorted_match_totals`, `sorted_build_counts`): probes even,
    builds odd. The probe stream is sorted into runs (`count_side_plan`)
    and each build row j gets `bc[j]`, the probes equal to it; then
-   count = Σ bc and checksum = Σ bc · payloads. On int32 streams the
-   tile route's sort reads the raw probe column and narrows it as it
-   loads it (kernels.bigsort.sort_runs_narrowed).
+   count = Σ bc and checksum = Σ bc · payloads. On the tile route the
+   sort reads the raw probe column and narrows it as it loads it
+   (kernels.bigsort.sort_runs_narrowed, and sort_runs_narrowed_i64 on
+   int64 streams).
  - Stats side (`sorted_match_stats`, `sorted_match_ranks`,
    `sorted_expand`): builds even, so they precede the probes of their key.
    The probes are sorted with their row ids (kernels.pairsort), merged
@@ -229,9 +231,11 @@ def _count_side_bc(p: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
     keeps, then counted over all runs, restricted to the n real probes (so
     padding is never counted). The JAX package's int64 routes' limb
     planes, per-run limb merges, split-plane ladders and tie fixup have no
-    job: they exist because the TPU has no 64-bit lanes. A longer int32
-    stream is refused: the count side sorts it from the probe column
-    (`_count_side`), never from a packed copy."""
+    job: they exist because the TPU has no 64-bit lanes. The count side
+    itself sorts a wide table's probe column as it loads it
+    (`_count_side`), so this route serves packed int64 streams for the
+    tests and the tools. A longer int32 stream is refused: the count side
+    sorts it from the probe column, never from a packed copy."""
     plan = _plan(p.numel(), m, p.dtype)
     if plan is not None and p.dtype == torch.int32:
         raise ValueError(f"an int32 probe stream of {p.numel()} keys takes the tile route, "
@@ -286,18 +290,18 @@ def _count_side(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
     Its steps are spans of the open query: the build keys' shift
     (`count.build_stream`), then
 
-    - on int32 streams on the tile route: the plan and the build stream's
-      `| 1` (`count.narrow`), then the raw column, read in place, into
-      `bigsort.sort_runs_narrowed`, whose tile sort narrows each key as
-      `_probe_key32` does and pads the last tile as it loads them
+    - on the tile route (int64 streams at any length, int32 streams above
+      2^SMALL_PROBE_LOG): the plan and the build stream's `| 1`
+      (`count.narrow`), then the raw column, read in place, into
+      `bigsort.sort_runs_narrowed` (int32) or `sort_runs_narrowed_i64`
+      (int64), whose tile sort narrows each key as `_probe_key32` or
+      `_probe_key64` does and pads the last tile as it loads them
       (`count.sort_runs`): no narrowed or padded copy of the column is
       written;
-    - on int64 streams and on the small-probe route: `_tagged` (the probe
-      column's narrowing, then the build stream's `| 1`) and the plan
-      (`count.narrow`), on int64 streams the padding to whole tiles
-      (`count.pad`; the small-probe route has no plan and pads nothing),
-      then `_runs_bc`'s, as `_count_side_bc` runs them. `pack32_streams`
-      and `pack64_streams` are the first two steps, in this order;
+    - on the small-probe route: `_tagged` (the probe column's narrowing,
+      then the build stream's `| 1`; `pack32_streams` in this order) and
+      no plan (`count.narrow`), then `_runs_bc`'s, as `_count_side_bc`
+      runs them;
 
     and last the merge counts (`count.merge_counts`)."""
     m = table.keys.numel()
@@ -305,20 +309,20 @@ def _count_side(table: SortedTable, probe: torch.Tensor) -> torch.Tensor:
     with profiler.span("count.build_stream"):
         b = (_build_key64 if wide else _build_key32)(table)
     plan = _plan(probe.numel(), m, torch.int64 if wide else torch.int32)
-    if wide or plan is None:
+    if plan is None:
         with profiler.span("count.narrow", follows=True):
-            p, b = _tagged(_probe_key64 if wide else _probe_key32, table, probe, b)
-        padded = None
-        if plan is not None:
-            with profiler.span("count.pad", follows=True):
-                padded = _padded(p, plan)
-        return _runs_bc(p, padded, plan, b, m)
+            p, b = _tagged(_probe_key32, table, probe, b)
+        return _runs_bc(p, None, plan, b, m)
     n_pad, run_log, tile_log = plan
     with profiler.span("count.narrow", follows=True):
         b = (b | 1).contiguous()
     with profiler.span("count.sort_runs", follows=True):
-        runs = bigsort.sort_runs_narrowed(probe, *_narrow_bounds(table), n_pad, run_log,
-                                          tile_log)
+        if wide:
+            runs = bigsort.sort_runs_narrowed_i64(probe, *_wide_bounds(table), n_pad, run_log,
+                                                  tile_log)
+        else:
+            runs = bigsort.sort_runs_narrowed(probe, *_narrow_bounds(table), n_pad, run_log,
+                                              tile_log)
     return _merge_counts(runs, run_log, probe.numel(), b, m)
 
 
@@ -395,6 +399,14 @@ def _probe_key64(table: SortedTable, probe_keys: torch.Tensor) -> torch.Tensor:
     lo = kmin.clamp(min=I64_MIN + 1) - 1
     hi = kmax.clamp(max=I64_MAX - 1) + 1
     return (probe_keys.to(torch.int64).clamp(lo, hi) - kmin + 1) << 1
+
+
+def _wide_bounds(table: SortedTable) -> tuple[int, int, int]:
+    """(lo, hi, kmin) of `_probe_key64`'s narrowing as host ints, from the
+    table's `key_range`: the clamp bounds [kmin - 1, kmax + 1] saturated
+    at the int64 range."""
+    kmin, kmax = table.key_range
+    return max(kmin - 1, I64_MIN), min(kmax + 1, I64_MAX), kmin
 
 
 def pack64_streams(table: SortedTable, probe_keys: torch.Tensor):

@@ -53,8 +53,13 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 13. `config1_wide` at full size (1M build rows with keys over 2^40, 2^24
     probes) through `bulk_count` and `sorted_match_totals`, counters zeroed
     just before: count and checksum against numpy and the all-plain path,
-    a partition for every count-side merge level; the int64 count-side
-    kernels again at its shapes; times.
+    #13 as `sort_runs_narrowed_i64` (its key-only form `sort_tiles_i64`
+    must not launch), a partition for every count-side merge level; the
+    int64 count-side kernels again at its shapes (the narrowing load on
+    the int64 column and a stride-2 view of it, the tile sort alone and
+    the whole ladder, against its plain twin and the composition it
+    replaces; the key-only form on the packed, padded probes); times, the
+    narrowing load beside the key-only form.
 14. The wide stats side on phase 13's data: `sorted_match_stats` (mult and
     psum on every row against numpy's searchsorted ranges, the all-plain
     route identical), `sorted_match_ranks` on the rank twin, a 2-level
@@ -301,11 +306,12 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
     kernel, its plain version and the old torch emission timed in turns,
     beside the kernel's byte bound.
 
-Prints the per-kernel JSON line (25 kernels: `sort_runs_narrowed` is #1 on
-the main paths, the narrowing tile sort with its ladder, timed as its tile
-sort alone on the int64 column; `sort_tiles_i32`, #1's key-only form, runs
-on no main path, so it reads 0 launches, and is timed on the packed, padded
-stream: each kernel's launches on its main paths,
+Prints the per-kernel JSON line (26 kernels: `sort_runs_narrowed` is #1 on
+the main paths and `sort_runs_narrowed_i64` #13 on the count side's, each
+the narrowing tile sort with its ladder, timed as its tile sort alone on
+the int64 column; `sort_tiles_i32` and `sort_tiles_i64`, their key-only
+forms, run on no main path, so they read 0 launches, and are timed on the
+packed, padded stream: each kernel's launches on its main paths,
 #1-#3 and #12 with config 4's counted run among them, #6-#9 and #12 with
 the distributed plans' counted runs (phases 51-53, one a plan),
 max |kernel - plain|, its time, its plain version's, its bound and the
@@ -483,6 +489,7 @@ def check_partitions(merge_launches: int, what: str) -> int:
 
 # slice 3's wrappers, the int64 builds
 WIDE_WRAPPERS = {
+    "sort_runs_narrowed_i64": (bigsort.sort_runs_narrowed_i64,),
     "sort_tiles_i64": (bigsort.sort_tiles_i64,),
     "merge_level_i64": (bigsort.merge_level_i64,),
     "merge_counts_i64": (merge_scan.merge_counts_i64,),
@@ -507,7 +514,7 @@ SMALL_PROBE_NS = (1, 100, 8192)  # phase 37's probe counts on the small-probe ro
 HASH_OPS_PER_KEY = 10  # three shifts and xors, two 64-bit multiplies
 PROFILED_CALLS = 5  # back-to-back calls in each idle-share trace
 LADDER_HIT_PCTS = (5, 25, 50)  # hit rates of phase 22's probes, in percent
-WIDE_COUNT = ("sort_tiles_i64", "merge_level_i64", "merge_counts_i64")
+WIDE_COUNT = ("sort_runs_narrowed_i64", "merge_level_i64", "merge_counts_i64")
 # the cases of `bench.edge_cases.merge_counts_case` whose slices outgrow
 # #3 and #14's stage: a heavy key, and two tiles of one repeated key
 SKEWED_COUNTS = ("one key holds most probes", "a tile of one key")
@@ -517,9 +524,10 @@ WIDE_STATS = ("sort_tiles_multi_i64", "merge_multi_i64", "merge_stats_i64")
 # their library time is the plain time, not taken twice
 LIBRARY_IS_PLAIN = {"sort_tiles_i32", "merge_level_i32", "sort_tiles_i64", "merge_level_i64"}
 # kernels whose counters are read in a counted run and must read 0 there:
-# #1's key-only tile sort, which the count side's int32 route replaced by
-# `sort_runs_narrowed` (kept for the tests and the measuring tools)
-OFF_PATH = {"sort_tiles_i32"}
+# #1's and #13's key-only tile sorts, which the count side's routes replaced
+# by `sort_runs_narrowed` and `sort_runs_narrowed_i64` (kept for the tests,
+# the measuring tools and `_count_side_bc`)
+OFF_PATH = {"sort_tiles_i32", "sort_tiles_i64"}
 
 
 def check_launched(launches: dict, what: str) -> None:
@@ -2394,6 +2402,8 @@ def main() -> int:
     idle = [k for k in WIDE_COUNT if launches_w[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched by config1_wide's bulk_count: {idle}")
+    if launches_w["sort_tiles_i64"]:
+        raise AssertionError("config1_wide's bulk_count launched the key-only sort_tiles_i64")
     tot_w = sm.sorted_match_totals(table_w, col_w)
     if (int(tot_w[0]), int(tot_w[1])) != want_w:
         raise AssertionError(f"sorted_match_totals gave {tot_w}, numpy {want_w}")
@@ -2417,6 +2427,22 @@ def main() -> int:
         f"of 2^{run_log_w}, "
         f"n_pad {n_pad_w}")
     levels_w = list(range(bigsort.TILE_LOG, bigsort.TILE_LOG + launches_w["merge_level_i64"]))
+    # #13's narrowing load, the main path's tile sort, on the int64 column
+    # the benchmark hands over and on a strided view of it: the tile sort
+    # alone (run_log = tile_log) and the whole ladder, against the plain
+    # twin and the composition it replaces (`_probe_key64`, `_padded`,
+    # `sort_runs`)
+    bounds_w = sm._wide_bounds(table_w)
+    strided_w = torch.stack([col_w.flip(0), col_w], 1)[:, 1]
+    for rl in (bigsort.TILE_LOG, run_log_w):
+        got_n = bigsort.sort_runs_narrowed_i64(col_w, *bounds_w, n_pad_w, rl)
+        same("sort_runs_narrowed_i64", got_n, bigsort.sort_runs_narrowed_plain(
+            col_w, *bounds_w, n_pad_w, rl, dtype=torch.int64), f"config1_wide run_log={rl}")
+        same("sort_runs_narrowed_i64", got_n, bigsort.sort_runs(padded_w, rl),
+             f"config1_wide run_log={rl}, the composition")
+        same("sort_runs_narrowed_i64",
+             bigsort.sort_runs_narrowed_i64(strided_w, *bounds_w, n_pad_w, rl), got_n,
+             f"config1_wide run_log={rl}, stride 2")
     tiles_w = bigsort.sort_tiles_i64(padded_w)
     same("sort_tiles_i64", tiles_w, bigsort.sort_tiles_plain(padded_w, bigsort.TILE_LOG), "config1_wide")
     level_in_w = [tiles_w]
@@ -2430,7 +2456,19 @@ def main() -> int:
          merge_scan.merge_counts_plain(runs_w, 1 << run_log_w, n_w, b64, m_w), "config1_wide")
     torch.cuda.synchronize()
     log(f"phase kernels (config1_wide shapes): ok, max |kernel - plain| {max_err}")
+    narrowed_w = {
+        (what, rl): (
+            med(cuda_ms(lambda c=c, rl=rl: bigsort.sort_runs_narrowed_i64(
+                c, *bounds_w, n_pad_w, rl))),
+            med(cuda_ms(lambda c=c, rl=rl: bigsort.sort_runs_narrowed_plain(
+                c, *bounds_w, n_pad_w, rl, dtype=torch.int64))),
+        )
+        for what, c in (("stride 1", col_w), ("stride 2", strided_w))
+        for rl in (bigsort.TILE_LOG, run_log_w)
+    }
     for name, times in {
+        # the narrowing tile sort alone, on the int64 column
+        "sort_runs_narrowed_i64": narrowed_w[("stride 1", bigsort.TILE_LOG)],
         "sort_tiles_i64": (
             med(cuda_ms(lambda: bigsort.sort_tiles_i64(padded_w))),
             med(cuda_ms(lambda: bigsort.sort_tiles_plain(padded_w, bigsort.TILE_LOG))),
@@ -2446,6 +2484,7 @@ def main() -> int:
         ),
     }.items():
         kernel_ms[name] = times
+    work["sort_runs_narrowed_i64"] = (8 * n_w + 8 * n_pad_w, n_pad_w * bigsort.TILE_LOG)
     work["sort_tiles_i64"] = (16 * n_pad_w, n_pad_w * bigsort.TILE_LOG)
     work["merge_level_i64"] = (16 * n_pad_w * len(levels_w), n_pad_w * len(levels_w))
     work["merge_counts_i64"] = (8 * (n_w + m_w) + 4 * m_w, n_w + 2 * m_w * n_runs_w)
@@ -2454,11 +2493,18 @@ def main() -> int:
     log(f"  bulk_count config1_wide (1M build x 2^24 probe, span 2^40), kernel path: "
         f"{spread(ew['kernel'])} = {N_PROBE_WIDE / med(ew['kernel']) / 1e3:.1f}M probe rows/s")
     log(f"  all-plain torch path: {spread(ew['plain'])}")
-    for name in WIDE_COUNT:
+    for name in (*WIDE_COUNT, "sort_tiles_i64"):
         kt, pt, *lib = kernel_ms[name]
         log(f"  {name}: kernel {kt:.4f} ms, plain {pt:.4f} ms"
             + (f", library {lib[0]:.4f} ms" if lib else "")
-            + f" ({launches_w[name]} launch(es) per bulk_count)")
+            + f" ({launches_w[name]} launch(es) per bulk_count)"
+            + (" (the narrowing tile sort alone; its plain twin narrows, pads and sorts the "
+               "tiles)" if name == "sort_runs_narrowed_i64" else
+               " (on the packed, padded probes, off the main path)"
+               if name == "sort_tiles_i64" else ""))
+    for (what, rl), (kt, pt) in narrowed_w.items():
+        log(f"  sort_runs_narrowed_i64, int64 column {what}, run_log {rl} "
+            f"({rl - bigsort.TILE_LOG} levels): kernel {kt:.4f} ms, plain {pt:.4f} ms")
 
     # ---- 14. the wide stats side on phase 13's data ------------------------
     t0 = time.perf_counter()
@@ -3753,6 +3799,8 @@ def main() -> int:
                         "ccve_tpu/kernels/compact.py:77"),
         "expand_candidates_i32": ("ccve_tpu_torch/kernels/csrc/candidates.cu",
                                   "none: lax.associative_scan, ccve_tpu/ops/sort_merge.py:151"),
+        "sort_runs_narrowed_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
+                                   "ccve_tpu/kernels/pairsort.py:563"),
         "sort_tiles_i64": ("ccve_tpu_torch/kernels/csrc/sort_tiles.cu",
                            "ccve_tpu/kernels/pairsort.py:563"),
         "merge_level_i64": ("ccve_tpu_torch/kernels/csrc/merge_multi.cu",
@@ -3795,7 +3843,7 @@ def main() -> int:
     for name in NEW_WRAPPERS:
         launches[name] = launches3[name] + launches_m[name]
         kernel_ms[name] = ms_cfg3[name] if name == "merge_stats_i32" else ms_mat[name]
-    for name in WIDE_COUNT:
+    for name in (*WIDE_COUNT, "sort_tiles_i64"):
         launches[name] = launches_w[name]
     for name in WIDE_STATS:
         launches[name] = launches_s[name]

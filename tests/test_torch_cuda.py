@@ -15,6 +15,7 @@ from ccve_tpu_torch.bench.edge_cases import (
     CANDIDATE_KINDS,
     MERGE_COUNTS_KINDS,
     NARROW_TABLES,
+    NARROW_WIDE_TABLES,
     candidates_case,
     merge_counts_case,
     narrow_case,
@@ -439,22 +440,32 @@ def test_merge_stats_i64_kernel(cuda, n, m, dom, pay_lo, pay_hi):
 
 def test_wide_paths_reach_the_kernels(cuda):
     """On CUDA tensors a wide table's count side and stats side launch the
-    int64 kernels, and agree with the CPU's plain versions."""
+    int64 kernels (the count side's tile sort as #13's narrowing load,
+    `sort_runs_narrowed_i64`, never as the key-only `sort_tiles_i64`), and
+    agree with the CPU's plain versions; the key-only `sort_tiles_i64`
+    still serves `_count_side_bc` on packed int64 streams."""
     rng = np.random.default_rng(3)
     keys = rng.integers(0, 2**40, 20_000, dtype=np.int64)
     pays = rng.integers(-(2**30), 2**30, keys.size)
     probe_np = np.concatenate([rng.choice(keys, 60_000), rng.integers(0, 2**40, 40_000)])
     probe = torch.from_numpy(probe_np).to(cuda)
-    counters = [bigsort.sort_tiles_i64, bigsort.merge_level_i64, merge_scan.merge_counts_i64,
-                pairsort.sort_tiles_multi_i64, pairsort.merge_level_multi_i64,
-                pairsort.merge_two_multi_i64, merge_scan.merge_stats_i64]
+    counters = [bigsort.sort_runs_narrowed_i64, bigsort.merge_level_i64,
+                merge_scan.merge_counts_i64, pairsort.sort_tiles_multi_i64,
+                pairsort.merge_level_multi_i64, pairsort.merge_two_multi_i64,
+                merge_scan.merge_stats_i64]
     before = [fn.launches for fn in counters]
+    key_only = bigsort.sort_tiles_i64.launches
     table = sm.build_sorted(keys, pays)
     assert table.device.type == "cuda" and table.pack32 is None
     count, checksum = sm.sorted_match_totals(table, probe)
     stats = sm.sorted_match_stats(table, probe)
     after = [fn.launches for fn in counters]
     assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert bigsort.sort_tiles_i64.launches == key_only
+    p, b = sm.pack64_streams(table, probe)
+    bc = sm._count_side_bc(p, b, keys.size)
+    assert bigsort.sort_tiles_i64.launches == key_only + 1
+    assert torch.equal(bc, sm.sorted_build_counts(table, probe))
     cpu_table = sm.build_sorted(keys, pays, device="cpu")
     want = sm.sorted_match_totals(cpu_table, probe_np)
     assert (int(count), int(checksum)) == (int(want[0]), int(want[1]))
@@ -1478,62 +1489,77 @@ def test_count_side_reaches_the_key_only_levels(cuda):
     assert (int(got[0]), int(got[1])) == (int(want[0]), int(want[1]))
 
 
-# ---- #1's narrowing load: the count side's ladder read from the raw probe column
+# ---- #1's and #13's narrowing loads: the count side's ladder read from the raw probe column
 
 NARROW_LENGTHS = {"a tile multiple": 5 << bigsort.TILE_LOG,
                   "one above": (5 << bigsort.TILE_LOG) + 1,
                   "small-route boundary + 1": (1 << sm.SMALL_PROBE_LOG) + 1}
-NARROW_COUNTERS = (bigsort.sort_runs_narrowed, bigsort.sort_tiles_i32, bigsort.merge_level_i32,
-                   pairsort.merge_partition)
+
+
+def _narrow_form(table):
+    """(key type, clamp bounds, narrowing, narrowing load, counters: the
+    load, the key-only tile sort it replaces, the levels, the partitions)
+    of a table's count side."""
+    if table.pack32 is None:
+        return (torch.int64, sm._wide_bounds(table), sm._probe_key64,
+                bigsort.sort_runs_narrowed_i64,
+                (bigsort.sort_runs_narrowed_i64, bigsort.sort_tiles_i64,
+                 bigsort.merge_level_i64, pairsort.merge_partition))
+    return (torch.int32, sm._narrow_bounds(table), sm._probe_key32, bigsort.sort_runs_narrowed,
+            (bigsort.sort_runs_narrowed, bigsort.sort_tiles_i32, bigsort.merge_level_i32,
+             pairsort.merge_partition))
 
 
 @pytest.mark.parametrize("length", NARROW_LENGTHS)
-@pytest.mark.parametrize("table_kind", NARROW_TABLES)
+@pytest.mark.parametrize("table_kind", [*NARROW_TABLES, *NARROW_WIDE_TABLES])
 @pytest.mark.parametrize("dtype", [np.int64, np.int32])
 def test_sort_runs_narrowed_equals_the_composition(cuda, dtype, table_kind, length):
     """The narrowing tile sort and its ladder from one host call
-    (`ccve_sort_runs_narrow_i32`) equal, bit for bit, the composition they
-    replace on the card (the column narrowed by `_probe_key32`, padded with
-    INT32_MAX, then `sort_runs`) and the plain route, at either parity of
-    the level count, with whole tiles of padding past the column, and at
-    a small tile, and read in place from a strided view; each call counts
-    once, and a launch and a partition a level, and never on the key-only
-    tile sort `sort_tiles_i32`."""
+    (`ccve_sort_runs_narrow_i32` on a `pack32` table, `_i64` on a wide
+    one) equal, bit for bit, the composition they replace on the card (the
+    column narrowed by `_probe_key32` or `_probe_key64`, padded with the
+    key type's maximum by `_padded`, then `sort_runs`) and the plain
+    route, at either parity of the level count, with whole tiles of
+    padding past the column, and at a small tile, and read in place from
+    a strided view; each call counts once, and a launch and a partition a
+    level, and never on the key-only tile sort it replaces."""
     n = NARROW_LENGTHS[length]
     keys, col = narrow_case(np.random.default_rng(n), table_kind, n, dtype)
     table = sm.build_sorted(keys, device=cuda)
+    key_type, bounds, probe_key, load, counters = _narrow_form(table)
     col = torch.from_numpy(col).to(cuda)
-    bounds = sm._narrow_bounds(table)
-    p = sm._probe_key32(table, col)
+    p = probe_key(table, col)
+    assert p.dtype == key_type
     for tile_log in (4, bigsort.TILE_LOG):
         for extra_tiles in (0, 2):
             n_pad = n + (-n) % (1 << tile_log) + (extra_tiles << tile_log)
-            padded = torch.cat([p, p.new_full((n_pad - n,), bigsort.PAD[torch.int32])])
+            padded = sm._padded(p, (n_pad,))
             for run_log in (tile_log, tile_log + 1, tile_log + 2, tile_log + 20):
                 n_levels = bigsort._n_levels(n_pad, run_log, tile_log)
-                before = [c.launches for c in NARROW_COUNTERS]
-                got = bigsort.sort_runs_narrowed(col, *bounds, n_pad, run_log, tile_log)
-                after = [c.launches for c in NARROW_COUNTERS]
+                before = [c.launches for c in counters]
+                got = load(col, *bounds, n_pad, run_log, tile_log)
+                after = [c.launches for c in counters]
                 what = (tile_log, extra_tiles, run_log)
                 assert [a - b for a, b in zip(after, before)] == [1, 0, n_levels, n_levels], what
+                assert got.dtype == key_type
                 assert torch.equal(got, bigsort.sort_runs(padded, run_log, tile_log)), what
                 assert torch.equal(got, bigsort.sort_runs_narrowed_plain(
-                    col, *bounds, n_pad, run_log, tile_log)), what
+                    col, *bounds, n_pad, run_log, tile_log, key_type)), what
     for strided in (torch.stack([col.flip(0), col], 1)[:, 1], col.repeat_interleave(2)[::2]):
         assert not strided.is_contiguous()
         n_pad = n + (-n) % (1 << bigsort.TILE_LOG)
         run_log = bigsort.TILE_LOG + 1
-        assert torch.equal(bigsort.sort_runs_narrowed(strided, *bounds, n_pad, run_log),
-                           bigsort.sort_runs_narrowed(col, *bounds, n_pad, run_log))
+        assert torch.equal(load(strided, *bounds, n_pad, run_log),
+                           load(col, *bounds, n_pad, run_log))
 
 
 @pytest.mark.parametrize("route", ["tile route", "small probe", "wide", "full range",
                                    "stats side"])
 def test_narrowing_load_launches_only_on_the_tile_route(cuda, route):
     """`sort_runs_narrowed` launches once a call of the count side on a
-    `pack32` table above 2^SMALL_PROBE_LOG probes, and never on the
-    small-probe, wide, full-range or stats routes; every answer is the
-    CPU's."""
+    `pack32` table above 2^SMALL_PROBE_LOG probes, `sort_runs_narrowed_i64`
+    once a call on a wide table, and neither on the small-probe,
+    full-range or stats routes; every answer is the CPU's."""
     rng = np.random.default_rng(len(route))
     stride = {"wide": 1 << 22, "full range": 1 << 50}.get(route, 1)
     keys = (rng.permutation(3000) - 1500).astype(np.int64) * stride
@@ -1543,7 +1569,8 @@ def test_narrowing_load_launches_only_on_the_tile_route(cuda, route):
     probe = torch.from_numpy(rng.choice(keys, n) + rng.integers(0, 2, n))
     payloads = rng.integers(0, 10**6, keys.size)
     tables = {dev: sm.build_sorted(keys, payloads, device=dev) for dev in (cuda, "cpu")}
-    before = bigsort.sort_runs_narrowed.launches
+    loads = (bigsort.sort_runs_narrowed, bigsort.sort_runs_narrowed_i64)
+    before = [load.launches for load in loads]
     if route == "stats side":
         got, want = (sm.sorted_match_stats(tables[dev], probe.to(dev)) for dev in (cuda, "cpu"))
         assert torch.equal(got.mult.cpu(), want.mult) and torch.equal(got.psum.cpu(), want.psum)
@@ -1552,8 +1579,8 @@ def test_narrowing_load_launches_only_on_the_tile_route(cuda, route):
         assert [int(t) for t in got] == [int(t) for t in want]
         got, want = (sm.sorted_build_counts(tables[dev], probe.to(dev)) for dev in (cuda, "cpu"))
         assert torch.equal(got.cpu(), want)
-    launched = bigsort.sort_runs_narrowed.launches - before
-    assert launched == (2 if route == "tile route" else 0)
+    launched = [load.launches - b for load, b in zip(loads, before)]
+    assert launched == [2 if route == "tile route" else 0, 2 if route == "wide" else 0]
 
 
 # ---- #9, the compaction: one launch, look-back across tiles, zeros from the kernel

@@ -2,13 +2,13 @@
 side of `bulk_count`: off, it hands back one shared object and records
 nothing; on (`Spans.recording()`, or one query in `Spans.EVERY` in a
 torch.profiler session), it records one root a call with the count
-side's four steps as children (five on int64 streams, which pad the
-probe stream to whole tiles as a step of their own), a root's self time
-free of the recorder's own work, the store's cap, and the same answers
-as with it off; the stream packers enqueue the count side's first steps
-in its order where it packs the probe column itself, and on the int32
-tile route it tags the build stream and hands the column to
-`sort_runs_narrowed`. The
+side's four steps as children (on int32 and int64 streams alike: the
+tile sort narrows and pads the probe column as it loads it, so there is
+no padding step), a root's self time free of the recorder's own work, the
+store's cap, and the same answers as with it off; the stream packers
+enqueue the count side's first steps in its order where it packs the
+probe column itself, and on the tile route it tags the build stream and
+hands the column to `sort_runs_narrowed` or `sort_runs_narrowed_i64`. The
 `cuda` case holds the device stamps on the card. The JAX package has no
 spans: nothing here imports it."""
 
@@ -195,11 +195,8 @@ def test_answers_are_the_same_recording_or_not(rec, tiles, case):
     assert on == off
     (q,) = rec.snapshot()
     names = [s.name for s in q]
-    if case == "int32 streams":
+    if case in ("int32 streams", "int64 streams"):  # no padding step on either
         assert names == ["bulk.count"] + STEPS
-    elif case == "int64 streams":  # the padding to whole tiles is a step of its own
-        assert names == ["bulk.count", "count.build_stream", "count.narrow", "count.pad",
-                         "count.sort_runs", "count.merge_counts"]
     elif case == "two levels":  # the multi-level path records its root alone
         assert names == ["bulk.count"]
     else:
@@ -208,16 +205,20 @@ def test_answers_are_the_same_recording_or_not(rec, tiles, case):
 
 @pytest.mark.parametrize("n_probe", [19968, 20000], ids=["whole tiles", "a part tile"])
 def test_int64_streams_pad_in_a_step_of_their_own(rec, tiles, n_probe):
-    """On int64 streams the padding to whole tiles is a span right after
-    the narrowing, also where the probes fill whole tiles and no row is
-    padded; the answer is the plain `searchsorted` count and checksum's."""
+    """On int64 streams the narrowing and the padding to whole tiles are
+    no steps of their own: `count.sort_runs`, whose tile sort narrows and
+    pads the probe column as it loads it, comes right after `count.narrow`
+    (the build stream's `| 1`), on whole tiles and on a part tile, and no
+    `count.pad` is recorded; the answer is the plain `searchsorted` count
+    and checksum's."""
     tables, probe = _case(n_probe=n_probe, wide=True)
+    assert tables[0].pack32 is None
     with profiler.Spans.recording():
         got = _answer(bulk.bulk_count(tables, probe))
     (q,) = rec.snapshot()
     names = [s.name for s in q]
-    assert names.count("count.pad") == 1
-    assert names.index("count.pad") == names.index("count.narrow") + 1
+    assert "count.pad" not in names
+    assert names.index("count.sort_runs") == names.index("count.narrow") + 1
     keys, pays = tables[0].keys, tables[0].payloads
     col = probe[:, 0]
     lo = torch.searchsorted(keys, col, right=False)
@@ -240,13 +241,14 @@ class _Ops(TorchDispatchMode):
 
 @pytest.mark.parametrize("wide", [False, True], ids=["int32 streams", "int64 streams"])
 def test_stream_packers_are_the_count_sides_first_steps(rec, tiles, wide):
-    """Where the count side packs the probe column itself (int64 streams,
-    and int32 streams on the small-probe route), the packers are its first
-    steps, in its order. On the int32 tile route it tags the build stream
-    alone and hands the raw column to `sort_runs_narrowed`, which narrows
-    it in its load. Every answer is the packers' composition's: through
-    `_count_side_bc`, or on the int32 tile route through `sort_runs` of
-    the padded packed stream and the merge counts."""
+    """Where the count side packs the probe column itself (int32 streams
+    on the small-probe route), the packers are its first steps, in its
+    order. On the tile route (int64 streams at any length, int32 streams
+    above 2^SMALL_PROBE_LOG) it tags the build stream alone and hands the
+    raw column to `sort_runs_narrowed` or `sort_runs_narrowed_i64`, which
+    narrows it in its load. Every answer is the packers' composition's:
+    through `_count_side_bc` on the small-probe route, else through
+    `sort_runs` of the padded packed stream and the merge counts."""
     tables, probe = _case(wide=wide)
     table, col = tables[0], probe[:, 0].contiguous()
     m = table.keys.numel()
@@ -256,7 +258,7 @@ def test_stream_packers_are_the_count_sides_first_steps(rec, tiles, wide):
             p, b = pack(table, c)
         with _Ops() as whole:
             got = sm._count_side(table, c)
-        if wide or c.numel() <= 1 << sm.SMALL_PROBE_LOG:
+        if not wide and c.numel() <= 1 << sm.SMALL_PROBE_LOG:
             assert torch.equal(got, sm._count_side_bc(p, b, m))
             assert len(packed.names) >= 5 and whole.names[: len(packed.names)] == packed.names
             continue
@@ -264,9 +266,17 @@ def test_stream_packers_are_the_count_sides_first_steps(rec, tiles, wide):
         pad = p.new_full((n_pad - p.numel(),), bigsort.PAD[p.dtype])
         runs = bigsort.sort_runs(torch.cat([p, pad]), run_log, TILE_LOG)
         assert torch.equal(got, merge_scan.merge_counts_plain(runs, 1 << run_log, c.numel(), b, m))
+        if wide:
+            assert torch.equal(got, sm._count_side_bc(p, b, m))
         with _Ops() as steps:
-            (sm._build_key32(table) | 1).contiguous()
-            bigsort.sort_runs_narrowed(c, *sm._narrow_bounds(table), n_pad, run_log, TILE_LOG)
+            if wide:
+                (sm._build_key64(table) | 1).contiguous()
+                bigsort.sort_runs_narrowed_i64(c, *sm._wide_bounds(table), n_pad, run_log,
+                                               TILE_LOG)
+            else:
+                (sm._build_key32(table) | 1).contiguous()
+                bigsort.sort_runs_narrowed(c, *sm._narrow_bounds(table), n_pad, run_log,
+                                           TILE_LOG)
         assert len(steps.names) >= 5 and whole.names[: len(steps.names)] == steps.names
 
 
