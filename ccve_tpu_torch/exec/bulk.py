@@ -118,56 +118,75 @@ def lp_match_stats(
     max(n // 16, 16384)), gathers their keys, runs one step and adds its
     hits to the rows with one scatter; the tail drains at the last width
     and is added once. A stage whose survivors overflow its width makes
-    the call recompute at full width: one flag read back a call. Every
-    probe whose key is in the table survives step 0 (its home slot is
-    occupied), so the first stage overflows whenever more than half the
-    probes hit, as at config 1 (the JAX package's schedule; ROADMAP
-    Queue 3)."""
+    the call recompute at full width: one flag read back a call. A lane
+    survives step 0 when its home slot is occupied: every hit, and the
+    misses whose home slot holds another key, about a quarter of them at
+    a load of at most 25 %. So the first stage overflows once more than
+    about a third of the probes hit, as at config 1 (the JAX package's
+    schedule; ROADMAP Queue 3).
+
+    The ladder's steps are spans of the open query (`utils.profiler`):
+    `lp.first` (the hash, step 0, the accumulators), `lp.ladder` (the
+    stages; each counts its width, `stage_width`, and its live lanes,
+    `stage_live`), `lp.tail` (the tail drain and its scatter) and, when
+    the flag is set, `lp.fallback` (the recompute); the query's root
+    counts the flag as `fallbacks`."""
     keys = keys.contiguous()
     n = keys.numel()
-    h = route.hash(keys) & (table.n_slots - 1)
-    all_live = torch.ones(n, dtype=torch.bool, device=keys.device)
     if compact_lanes is None:
         compact_lanes = n >= (1 << 16)
     if not compact_lanes:
+        h = route.hash(keys) & (table.n_slots - 1)
+        all_live = torch.ones(n, dtype=torch.bool, device=keys.device)
         return MatchStats(*_lp_drain(table, keys, h, all_live, table.max_run))
 
-    hit, pay, live_c, cursor_c = _lp_step(table, keys, h, all_live)
-    cap, floor = n, max(n // 16, 16384)
-    # Rows n .. n + widest - 1 are sinks: a lane that adds nothing adds to
-    # row n + lane, so no two lanes of one scatter share a row (one shared
-    # sink row serialized the scatter's atomics on the card).
-    widest = max(n // 2, floor) if n > floor else n
-    sinks = torch.zeros(widest, dtype=torch.int32, device=keys.device)
-    mult = torch.cat([hit.to(torch.int32), sinks])
-    psum = torch.cat([pay, sinks.to(torch.int64)])
-    keys_c = keys
-    rows_c = torch.arange(n, dtype=torch.int64, device=keys.device)
-    overflowed = torch.zeros((), dtype=torch.bool, device=keys.device)
+    with profiler.span("lp.first"):
+        h = route.hash(keys) & (table.n_slots - 1)
+        all_live = torch.ones(n, dtype=torch.bool, device=keys.device)
+        hit, pay, live_c, cursor_c = _lp_step(table, keys, h, all_live)
+        cap, floor = n, max(n // 16, 16384)
+        # Rows n .. n + widest - 1 are sinks: a lane that adds nothing adds to
+        # row n + lane, so no two lanes of one scatter share a row (one shared
+        # sink row serialized the scatter's atomics on the card).
+        widest = max(n // 2, floor) if n > floor else n
+        sinks = torch.zeros(widest, dtype=torch.int32, device=keys.device)
+        mult = torch.cat([hit.to(torch.int32), sinks])
+        psum = torch.cat([pay, sinks.to(torch.int64)])
+        keys_c = keys
+        rows_c = torch.arange(n, dtype=torch.int64, device=keys.device)
+        overflowed = torch.zeros((), dtype=torch.bool, device=keys.device)
     steps_done = 1
-    while cap > floor:
-        new_cap = max(cap // 2, floor)
-        planes = torch.stack([cursor_c.to(torch.int32), rows_c.to(torch.int32)])
-        packed, n_live = route.compact(planes, live_c)
-        overflowed |= n_live > new_cap
-        cursor_c = packed[0, :new_cap].to(torch.int64)
-        rows_c = packed[1, :new_cap].to(torch.int64)
-        keys_c = keys[rows_c]
-        lane = torch.arange(new_cap, device=keys.device)
-        live_c = lane < n_live.clamp(max=new_cap)
-        cap = new_cap
-        hit, pay, live_c, cursor_c = _lp_step(table, keys_c, cursor_c, live_c)
-        at = torch.where(hit, rows_c, n + lane)
-        mult.index_add_(0, at, hit.to(torch.int32))
-        psum.index_add_(0, at, pay)
-        steps_done += 1
-    tail = max(table.max_run - steps_done, 0)
-    acc_m, acc_p = _lp_drain(table, keys_c, cursor_c, live_c, tail)
-    at = torch.where(acc_m > 0, rows_c, n + torch.arange(cap, device=keys.device))
-    mult.index_add_(0, at, acc_m)
-    psum.index_add_(0, at, acc_p)
-    if bool(overflowed):
-        return lp_match_stats(table, keys, compact_lanes=False, route=route)
+    with profiler.span("lp.ladder", follows=True):
+        while cap > floor:
+            new_cap = max(cap // 2, floor)
+            planes = torch.stack([cursor_c.to(torch.int32), rows_c.to(torch.int32)])
+            packed, n_live = route.compact(planes, live_c)
+            overflowed |= n_live > new_cap
+            cursor_c = packed[0, :new_cap].to(torch.int64)
+            rows_c = packed[1, :new_cap].to(torch.int64)
+            keys_c = keys[rows_c]
+            lane = torch.arange(new_cap, device=keys.device)
+            stage_live = n_live.clamp(max=new_cap)
+            live_c = lane < stage_live
+            profiler.count("stage_width", new_cap)
+            profiler.count("stage_live", stage_live)
+            cap = new_cap
+            hit, pay, live_c, cursor_c = _lp_step(table, keys_c, cursor_c, live_c)
+            at = torch.where(hit, rows_c, n + lane)
+            mult.index_add_(0, at, hit.to(torch.int32))
+            psum.index_add_(0, at, pay)
+            steps_done += 1
+    with profiler.span("lp.tail", follows=True):
+        tail = max(table.max_run - steps_done, 0)
+        acc_m, acc_p = _lp_drain(table, keys_c, cursor_c, live_c, tail)
+        at = torch.where(acc_m > 0, rows_c, n + torch.arange(cap, device=keys.device))
+        mult.index_add_(0, at, acc_m)
+        psum.index_add_(0, at, acc_p)
+    fallback = bool(overflowed)
+    profiler.count("fallbacks", int(fallback))
+    if fallback:
+        with profiler.span("lp.fallback", follows=True):
+            return lp_match_stats(table, keys, compact_lanes=False, route=route)
     return MatchStats(mult=mult[:n], psum=psum[:n])
 
 
@@ -250,7 +269,8 @@ def bulk_count(
     first table's device; an int32 column stays int32 for a sorted
     table. The call is the root span `bulk.count` of a query
     (`utils.profiler.span`); a single level over a sorted table records
-    the count side's steps as its children."""
+    the count side's steps as its children, an LP level on the ladder
+    `lp_match_stats`'s."""
     tables = _check_tables(tables)
     probe = torch.as_tensor(probe_rows)
     if probe.dim() != 2 or probe.shape[1] != len(tables):

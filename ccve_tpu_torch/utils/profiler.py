@@ -20,7 +20,8 @@ executor records per emitted chunk, 0..block), and Cycle becomes
 moved.
 
 `Spans` is the port's own: the steps of a query, each timed on the host's
-clock and, on a GPU, on the device's (see `span`).
+clock and, on a GPU, on the device's (see `span`), with the counts the
+steps make (see `count`).
 """
 
 from __future__ import annotations
@@ -263,6 +264,19 @@ def span(name: str, device=None, follows: bool = False):
     return _RECORDER._open(name, device, follows)
 
 
+def count(name: str, value) -> None:
+    """Adds `value` to the counter `name` of the innermost recorded span
+    of the open query; outside a recorded query, nothing. `value` is a
+    Python int or a 0-d device tensor: the tensor is kept as it is and
+    read into an int by `Spans.snapshot`, after the device stamps it
+    already waits on, so counting adds no host read to the query. Off,
+    this checks the same two flags as `span`, with no allocation or CUDA
+    call."""
+    if not (_recording or _torch_profiler._is_profiler_enabled):
+        return
+    _RECORDER._count(name, value)
+
+
 @dataclass(frozen=True)
 class SpanRecord:
     """One recorded span, as `Spans.snapshot` returns it."""
@@ -273,6 +287,7 @@ class SpanRecord:
     query: int  # the root's: the roots the recorder had opened before it
     host_ns: tuple  # (start, end), time.perf_counter_ns
     device_ms: tuple | None  # (start, end), ms after the root's device start
+    counters: dict = field(default_factory=dict, hash=False)  # name -> int (`count`)
 
     @property
     def host_ms(self) -> float:
@@ -293,7 +308,7 @@ class _Span:
     """An open span of a recorder that is on."""
 
     __slots__ = ("root", "parent", "name", "follows", "t0", "t1", "ev0", "ev1", "spans",
-                 "last", "stream", "query")
+                 "last", "stream", "query", "counters")
 
     def __enter__(self):
         root = self.root
@@ -428,7 +443,17 @@ class Spans:
             s.stream = self._stream(device) if device.type == "cuda" else None
         s.root = root or s
         s.name, s.follows, s.t0, s.ev0, s.ev1 = name, follows, t0, None, None
+        s.counters = None
         return s
+
+    def _count(self, name: str, value) -> None:
+        stack = self._stack
+        if not stack or stack[0] is None:
+            return
+        s = stack[-1]
+        if s.counters is None:
+            s.counters = {}
+        s.counters.setdefault(name, []).append(value)
 
     def _free(self, spans: list) -> None:
         """Returns a query's events to the pool, each once (a span that
@@ -440,7 +465,8 @@ class Spans:
         """The recorded queries in order, each a list of its SpanRecords
         in the order they opened, root first. Reads the device stamps of
         the queries closed since the last call (waiting for the device to
-        pass them) and returns their events to the pool."""
+        pass them), sums each span's counted values into ints, and returns
+        their events to the pool."""
         for spans in self._pending:
             root = spans[0]
             if root.ev0 is not None:
@@ -453,8 +479,10 @@ class Spans:
                 if s.ev1 is not None:
                     device_ms = (root.ev0.elapsed_time(s.ev0), root.ev0.elapsed_time(s.ev1))
                 parent = None if s.parent is None else ids[id(s.parent)]
+                counters = {k: sum(int(v) for v in values)
+                            for k, values in (s.counters or {}).items()}
                 records.append(SpanRecord(s.name, ids[id(s)], parent, root.query, (s.t0, s.t1),
-                                          device_ms))
+                                          device_ms, counters))
             self._free(spans)
             self._done.append(records)
         self._pending.clear()
